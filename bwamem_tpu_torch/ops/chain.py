@@ -1,0 +1,196 @@
+"""Seed chaining and chain weights.
+
+Replaces the reference's per-read kbtree insertion chaining (mem_chain,
+bwamem.c:258-322) with a read-lockstep loop: every read processes one seed
+per step, and the per-read "closest chain" lookup becomes a masked
+reduction over a fixed-width chain table.  Containment, strand blocking,
+band/gap growth rules and weight = min(query, ref) coverage follow the
+reference exactly.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class Seeds(NamedTuple):
+    rbeg: torch.Tensor      # [N, S] it — both-strands start
+    qbeg: torch.Tensor      # [N, S] int32
+    len: torch.Tensor       # [N, S] int32
+    rid: torch.Tensor       # [N, S] int32 (<0 = discarded)
+    valid: torch.Tensor     # [N, S] bool
+    frac_rep: torch.Tensor  # [N] float32
+    overflow: torch.Tensor  # [N] bool
+
+
+class Chains(NamedTuple):
+    pos: torch.Tensor        # [N, C] it — first seed rbeg (B-tree key)
+    rid: torch.Tensor        # [N, C] int32
+    is_alt: torch.Tensor     # [N, C] bool
+    first_qbeg: torch.Tensor  # [N, C] int32
+    first_rbeg: torch.Tensor  # [N, C] it
+    last_qbeg: torch.Tensor   # [N, C] int32
+    last_rbeg: torch.Tensor   # [N, C] it
+    last_len: torch.Tensor    # [N, C] int32
+    n_seeds: torch.Tensor     # [N, C] int32
+    n: torch.Tensor           # [N] chains created
+    seed_chain: torch.Tensor  # [N, S] int32 — chain of each seed (-1 = none)
+    overflow: torch.Tensor    # [N] bool
+
+
+def _imax(dtype) -> int:
+    return torch.iinfo(dtype).max
+
+
+def chain_seeds(seeds: Seeds, ctg_is_alt: torch.Tensor, l_pac: int,
+                w: int, max_chain_gap: int, chain_cap: int) -> Chains:
+    """Sequential-equivalent chaining (mem_chain + test_and_merge,
+    bwamem.c:197-307), lockstep over reads: S trips, one seed per read per
+    trip.
+
+    For each seed in insertion order: find the chain with the largest
+    pos <= rbeg (kb_intervalp's lower), try to merge per test_and_merge,
+    else open a new chain keyed at rbeg.
+    """
+    N, S = seeds.rbeg.shape
+    C = chain_cap
+    it = seeds.rbeg.dtype
+    dev = seeds.rbeg.device
+    i32 = torch.int32
+    BIG = _imax(it)
+
+    # per-chain state in one [N, C, 8] array (pos, rid<<1|alt, fq, fr, lq,
+    # lr, ll, ns); the loop body reads and writes it with one-hot masks
+    P_POS, P_RA, P_FQ, P_FR, P_LQ, P_LR, P_LL, P_NS = range(8)
+    lanesC = torch.arange(C, dtype=i32, device=dev)[None, :]
+    g = torch.zeros((N, C, 8), dtype=it, device=dev)
+    g[:, :, P_POS] = BIG
+    g[:, :, P_RA] = -2                    # rid -1, alt 0
+    n = torch.zeros((N,), dtype=i32, device=dev)
+    seed_chain = torch.full((N, S), -1, dtype=i32, device=dev)
+    overflow = torch.zeros((N,), dtype=torch.bool, device=dev)
+    alt_of = ctg_is_alt.to(dev)
+
+    for s in range(S):
+        rb = seeds.rbeg[:, s]
+        qb = seeds.qbeg[:, s].to(it)
+        sl = seeds.len[:, s].to(it)
+        srid = seeds.rid[:, s]
+        svalid = seeds.valid[:, s]
+
+        pos = g[:, :, P_POS]
+        exists = lanesC < n[:, None]
+        cand = exists & (pos <= rb[:, None])
+        has_lower = cand.any(dim=1)
+        # argmax of (pos, j): later-created chain wins ties
+        key = torch.where(cand, pos, torch.full_like(pos, -BIG))
+        maxpos = key.max(dim=1).values
+        tie = cand & (pos == maxpos[:, None])
+        lower = torch.where(tie, lanesC, -1).max(dim=1).values
+
+        oh_low = lanesC == lower[:, None]              # [N, C]
+        c = torch.where(oh_low[:, :, None], g, 0).sum(dim=1, dtype=it)
+        c_rid = (c[:, P_RA] >> 1).to(i32)
+        c_fq, c_fr = c[:, P_FQ], c[:, P_FR]
+        c_lq, c_lr, c_ll = c[:, P_LQ], c[:, P_LR], c[:, P_LL]
+        qend = c_lq + c_ll
+        rend = c_lr + c_ll
+
+        same_rid = srid == c_rid
+        contained = ((qb >= c_fq) & (qb + sl <= qend)
+                     & (rb >= c_fr) & (rb + sl <= rend))
+        strand_block = ((c_lr < l_pac) | (c_fr < l_pac)) & (rb >= l_pac)
+        x = qb - c_lq
+        y = rb - c_lr
+        grow = ((y >= 0) & (x - y <= w) & (y - x <= w)
+                & (x - c_ll < max_chain_gap) & (y - c_ll < max_chain_gap))
+        merged = svalid & has_lower & same_rid & (contained
+                                                  | (~strand_block & grow))
+        appended = merged & ~contained
+        new = svalid & ~merged & (n < C)
+
+        # ONE masked write serves both cases (disjoint per lane): the
+        # appended row keeps (pos, ra, fq, fr) and refreshes the tail; a
+        # new chain writes the full row at slot n
+        new_ra = ((srid.to(it) << 1)
+                  | (alt_of[srid.clamp(min=0).to(torch.int64)] > 0).to(it))
+        app_row = torch.stack([c[:, P_POS], c[:, P_RA], c_fq, c_fr,
+                               qb, rb, sl, c[:, P_NS] + 1], dim=-1)
+        new_row = torch.stack([rb, new_ra, qb, rb, qb, rb, sl,
+                               torch.ones_like(rb)], dim=-1)
+        wmask = torch.where(appended[:, None], oh_low,
+                            new[:, None] & (lanesC == n[:, None]))
+        wrow = torch.where(appended[:, None], app_row, new_row)
+        g = torch.where(wmask[:, :, None], wrow[:, None, :], g)
+
+        seed_chain[:, s] = torch.where(
+            appended, lower.clamp(0, C - 1),
+            torch.where(new, n, torch.full_like(n, -1)))
+        overflow = overflow | (svalid & ~merged & (n >= C))
+        n = n + new.to(i32)
+
+    return Chains(g[:, :, P_POS], (g[:, :, P_RA] >> 1).to(i32),
+                  (g[:, :, P_RA] & 1).to(torch.bool),
+                  g[:, :, P_FQ].to(i32), g[:, :, P_FR],
+                  g[:, :, P_LQ].to(i32), g[:, :, P_LR],
+                  g[:, :, P_LL].to(i32), g[:, :, P_NS].to(i32), n,
+                  seed_chain, overflow)
+
+
+def seeds_by_chain(seeds: Seeds, chains: Chains):
+    """Reorder seeds per read by (chain, insertion slot) and return
+    (order, chain_of_sorted_seed, valid).  Within a chain the order equals
+    insertion order, which test_and_merge guarantees is non-decreasing in
+    both qbeg and rbeg — required by mem_chain_weight's sweep."""
+    N, S = seeds.rbeg.shape
+    in_chain = chains.seed_chain >= 0
+    key = torch.where(in_chain, chains.seed_chain, 2 ** 30).to(torch.int64)
+    slots = torch.arange(S, dtype=torch.int64, device=key.device)[None, :]
+    order = torch.argsort(key * (S + 1) + slots, dim=1)
+    sc = torch.gather(chains.seed_chain, 1, order)
+    return order, sc, sc >= 0
+
+
+def seg_cummax(vals: torch.Tensor, seg_start: torch.Tensor,
+               span: int) -> torch.Tensor:
+    """Running max along the last axis that restarts at every seg_start
+    (a segmented max scan).  vals must lie in [-1, span - 2]: each segment
+    is lifted by `span` times its ordinal so earlier segments never win."""
+    seg = torch.cumsum(seg_start.to(torch.int64), dim=-1)
+    lifted = vals.to(torch.int64) + seg * span
+    return torch.cummax(lifted, dim=-1).values - seg * span
+
+
+def chain_weights(seeds: Seeds, chains: Chains) -> torch.Tensor:
+    """mem_chain_weight (bwamem.c:220-239): min of query- and ref-coverage
+    of the chain's seeds, via segmented running-max sweeps."""
+    N, S = seeds.rbeg.shape
+    C = chains.pos.shape[1]
+    dev = seeds.rbeg.device
+    order, sc, svalid = seeds_by_chain(seeds, chains)
+    i64 = torch.int64
+    qb = torch.gather(seeds.qbeg, 1, order).to(i64)
+    rb = torch.gather(seeds.rbeg, 1, order).to(i64)
+    sl = torch.gather(seeds.len, 1, order).to(i64)
+    seg_start = torch.cat([torch.ones((N, 1), dtype=torch.bool, device=dev),
+                           sc[:, 1:] != sc[:, :-1]], dim=1)
+    rows = torch.arange(N, device=dev)[:, None].expand(N, S)
+    cols = sc.clamp(0, C - 1).to(i64)
+
+    def coverage(beg):
+        endv = beg + sl
+        # ends are both-strands coordinates (< 2^40 for any genome)
+        run = seg_cummax(endv, seg_start, 1 << 40)
+        prev = torch.cat([torch.zeros((N, 1), dtype=i64, device=dev),
+                          run[:, :-1]], dim=1)
+        prev = torch.where(seg_start, 0, prev)
+        cov = torch.where(svalid,
+                          (endv - torch.maximum(beg, prev)).clamp(min=0), 0)
+        out = torch.zeros((N, C), dtype=i64, device=dev)
+        return out.index_put_((rows, cols), cov, accumulate=True)
+
+    wq = coverage(qb)
+    wr = coverage(rb)
+    w = torch.minimum(wq, wr)
+    return w.clamp(max=(1 << 30) - 1).to(torch.int32)

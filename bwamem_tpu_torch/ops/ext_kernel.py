@@ -1,0 +1,167 @@
+"""Banded extension with in-kernel band doubling: the hand-written CUDA
+kernel (csrc/ext_kernel.cu) and its plain PyTorch version.
+
+extend_batch_pl2 replaces the Pallas TPU kernel of the reference package,
+bwamem_tpu/ops/pallas_ext.py extend_batch_pl2 (pallas_ext.py:316, kernel
+body _kernel_retry at :229).  On a CUDA tensor it launches the kernel (one
+thread per lane running the scalar ksw_extend2 row loop, pass 1 at w_opt
+and an in-lane rerun at 2*w_opt, bwamem.c:732-741); on a CPU tensor it runs
+extend_batch_pl2_plain.  There is no fallback between the two: a failed
+build or launch raises.
+
+What bounds the kernel on an H100: the DP cells of the data-dependent band
+(about 16 int32 operations each, at the card's int32 rate), not bytes — a
+batch reads the query and target rows of its nonempty lanes and each
+per-lane value once (megabytes: microseconds at 3.35 TB/s).  In
+practice the thread-serial band and the imbalance between the lanes of a
+warp (different target lengths and z-drop exits) set the time.
+
+The kernel is compiled with nvcc for sm_90a into the repository's build/
+directory at first use and loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+
+import numpy as np
+import torch
+
+from bwamem_tpu_torch.ops import extend as extops
+from bwamem_tpu_torch.ops.extend import ExtendResult, _adjust_w
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "ext_kernel.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+LQ_MAX = 4095
+
+launches = 0        # kernel launches by extend_batch_pl2 (CUDA tensors)
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under $CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def load():
+    """Build (at first use) and load the kernel library; raises on
+    failure."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            from bwamem_tpu_torch._build import shared_lib
+            lib = ctypes.CDLL(shared_lib(SRC, "libext_kernel.so",
+                                         [nvcc(), *NVCC_FLAGS]))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.ext_pl2_launch.restype = ci
+            lib.ext_pl2_launch.argtypes = (
+                [vp] * 7 + [ci] + [vp] * 2 + [ci] * 3 + [vp] + [ci] * 5
+                + [vp])
+            _lib = lib
+    return _lib
+
+
+def _mat25(mat_bytes: bytes) -> np.ndarray:
+    return np.frombuffer(mat_bytes, np.int8).astype(np.int32).reshape(25)
+
+
+def _bands(qlen, end_bonus, *, mat_bytes, o_del, e_del, o_ins, e_ins,
+           w_opt):
+    """Per-lane clamped bands for both passes and the retry threshold."""
+    max_mat = int(_mat25(mat_bytes).max())
+    w1 = torch.full_like(qlen, w_opt)
+    w2 = torch.full_like(qlen, 2 * w_opt)
+    kw = (max_mat, end_bonus, o_ins, e_ins, o_del, e_del)
+    return (_adjust_w(w1, qlen, *kw).to(torch.int32),
+            _adjust_w(w2, qlen, *kw).to(torch.int32),
+            (w_opt >> 1) + (w_opt >> 2))
+
+
+def extend_batch_pl2(queryT, qlen, targetT, tlen, h0, end_bonus, *,
+                     lq_max, t_max, mat_bytes, o_del, e_del, o_ins, e_ins,
+                     zdrop, w_opt):
+    """ksw_extend2 over B lanes with the band-doubling retry: pass 1 at
+    w_opt, rerun at 2*w_opt for lanes whose pass-1 max_off crossed
+    (w>>1)+(w>>2) with a changed score (bwamem.c:732-741).
+
+    queryT: [lq_max, B] int32 nt4 (already reversed for left extensions,
+    every qlen <= lq_max); targetT: [t_max, B] int32; per-lane vectors [B].
+    Returns (ExtendResult, retried [B] int32)."""
+    if queryT.device.type != "cuda":
+        return extend_batch_pl2_plain(
+            queryT, qlen, targetT, tlen, h0, end_bonus, lq_max=lq_max,
+            t_max=t_max, mat_bytes=mat_bytes, o_del=o_del, e_del=e_del,
+            o_ins=o_ins, e_ins=e_ins, zdrop=zdrop, w_opt=w_opt)
+    global launches
+    assert lq_max <= LQ_MAX, lq_max
+    B = queryT.shape[1]
+    dev = queryT.device
+    i32 = torch.int32
+    if queryT.shape != (lq_max, B) or targetT.shape != (t_max, B):
+        raise ValueError(f"extend_batch_pl2: queryT {tuple(queryT.shape)} "
+                         f"targetT {tuple(targetT.shape)} for lq_max="
+                         f"{lq_max} t_max={t_max} B={B}")
+    qT = queryT.to(i32).contiguous()
+    tT = targetT.to(i32).contiguous()
+    ql, tl, hh = (x.to(i32).contiguous() for x in (qlen, tlen, h0))
+    for x in (ql, tl, hh, tT):
+        if x.device != dev:
+            raise ValueError("extend_batch_pl2: tensors on different devices")
+    w1, w2, thr = _bands(ql, end_bonus.to(i32), mat_bytes=mat_bytes,
+                         o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                         w_opt=w_opt)
+    eh = torch.empty((2, lq_max + 1, B), dtype=i32, device=dev)
+    out = torch.empty((7, B), dtype=i32, device=dev)
+    mat = np.ascontiguousarray(_mat25(mat_bytes))
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ext_pl2_launch(
+        qT.data_ptr(), tT.data_ptr(), ql.data_ptr(), tl.data_ptr(),
+        hh.data_ptr(), w1.data_ptr(), w2.data_ptr(), int(thr),
+        eh.data_ptr(), out.data_ptr(), int(B), int(lq_max), int(t_max),
+        mat.ctypes.data, int(o_del), int(e_del), int(o_ins),
+        int(e_ins), int(zdrop), stream)
+    if rc != 0:
+        raise RuntimeError(f"ext_pl2_kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return (ExtendResult(score=out[0], qle=out[1], tle=out[2], gtle=out[3],
+                         gscore=out[4], max_off=out[5]), out[6])
+
+
+def extend_batch_pl2_plain(queryT, qlen, targetT, tlen, h0, end_bonus, *,
+                           lq_max, t_max, mat_bytes, o_del, e_del, o_ins,
+                           e_ins, zdrop, w_opt):
+    """The plain version of extend_batch_pl2: ops/extend.extend_batch run
+    twice with the band-doubling retry select (the XLA branch of the
+    reference package's device_front._ext_kernel)."""
+    i32 = torch.int32
+    B = qlen.shape[0]
+    mat = np.frombuffer(mat_bytes, np.int8).reshape(5, 5)
+    query = queryT.T.to(torch.uint8)
+    qlen = qlen.to(i32)
+
+    def target_at(i):
+        return targetT[min(i, t_max - 1)]
+
+    kw = dict(mat=mat, o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+              zdrop=zdrop, t_max=t_max)
+    w1 = torch.full((B,), w_opt, dtype=i32, device=qlen.device)
+    r1 = extops.extend_batch(query, qlen, target_at, tlen, h0, w1,
+                             end_bonus, **kw)
+    retry = ((r1.max_off >= ((w_opt >> 1) + (w_opt >> 2)))
+             & (r1.score != h0) & (qlen > 0))
+    w2 = torch.where(retry, w_opt * 2, w_opt).to(i32)
+    r2 = extops.extend_batch(query, qlen, target_at, tlen, h0, w2,
+                             end_bonus, **kw)
+    res = ExtendResult(*(torch.where(retry, b, a) for b, a in zip(r2, r1)))
+    return res, retry.to(i32)

@@ -1,0 +1,1010 @@
+"""Device-resident front half: reads -> extended alignment candidates in six
+chained device programs with ONE fetch of their results.
+
+  P1/P2/P3  3-pass SMEM seeding (ops/smem) emitting flat interval arenas
+            (mem_collect_intv, reference bwamem.c:137-185)
+  EXPAND    occurrence sampling + SA walk + rid filter + l_rep union +
+            scatter into per-read seed grids (mem_chain head,
+            bwamem.c:272-307)
+  CHAIN     lockstep chaining + chain weights + reference windows
+            (mem_chain/mem_chain_weight, bwamem.c:197-332) + a compact
+            per-chain arena for the host's exact filter
+  EXT       every seed of every heavy chain extended speculatively by the
+            extension kernel (left + band-doubling retry + right,
+            ksw_extend2 semantics; the CUDA kernel on the card, its plain
+            version on the CPU) + per-item seedcov
+
+The host then runs the EXACT mem_chain_flt over the fetched per-chain arena
+and replays mem_chain2aln's sequential skip/accept walk (bwamem.c:674-793)
+with the extension results in hand (native hostops.c replay_batch).
+Extending dropped-chain seeds wastes only device lanes; acceptance is
+bit-identical to the reference.
+
+Every arena has a static size; a program that overflows one reports it in
+its meta vector, and the driver grows the arena and reruns the batch.
+Reads that overflow the per-read seed cap, long reads that enter
+mem_flt_chained_seeds (bwamem.c:607-625) and reads the final two-round
+walk demotes need the host-compacted front, which this package does not
+have yet: the driver returns them as fallback rows and the caller raises.
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from bwamem_tpu_torch.config import MemOptions
+from bwamem_tpu_torch.finalize import AlnReg
+from bwamem_tpu_torch.ops import align_ext
+from bwamem_tpu_torch.ops import chain as chainops
+from bwamem_tpu_torch.ops import ext_kernel
+from bwamem_tpu_torch.ops import fm as fmops
+from bwamem_tpu_torch.ops import smem as smemops
+from bwamem_tpu_torch.pipeline.seeding_host import _compact_flat
+from bwamem_tpu_torch.utils import timers
+
+i32 = torch.int32
+i64 = torch.int64
+
+# bwamem.c:574-576 (mem_flt_chained_seeds gate)
+MEM_HSP_COEF = 1.1
+MEM_MINSC_COEF = 5.5
+MEM_SEEDSW_COEF = 0.05
+
+
+def _bucket(x: int, lo: int = 8) -> int:
+    n = lo
+    while n < x:
+        n <<= 1
+    return n
+
+
+def _ar(n, dtype, dev):
+    return torch.arange(n, dtype=dtype, device=dev)
+
+
+def _zero(dtype, dev):
+    return torch.zeros((), dtype=dtype, device=dev)
+
+
+def _put(shape, fill, dtype, dev, idx, vals):
+    """zeros(shape).at[idx].set(vals, mode="drop") where an index equal to
+    the size of its axis drops the write (spill row/column cut off)."""
+    out = torch.full(tuple(s + 1 for s in shape), fill, dtype=dtype,
+                     device=dev)
+    out[idx] = vals.to(dtype)
+    return out[tuple(slice(0, s) for s in shape)]
+
+
+# ---------------------------------------------------------------------------
+# P1: pass-1 SMEM scan (bwt_smem1a forward+backward over every pivot chain)
+# ---------------------------------------------------------------------------
+
+def _stage_ladder(base: int, width: int):
+    """Static halving arena ladder for back_extend_flat compaction; empty
+    for small batches (compaction overhead beats the win only at scale).
+    Candidate lifetimes are front-loaded (median 6 left steps), so deep
+    halving keeps the arena tracking the survivor count."""
+    if width < 8192:
+        return ()
+    out = []
+    for j in range(8):
+        # cap at the input arena width: a stage wider than its input can
+        # never overflow but still runs its k steps
+        w = min(max(base >> j, 512), width)
+        if out and w == out[-1] == 512:
+            break           # ladder hit the floor
+        out.append(w)
+    return tuple(out)
+
+
+def _p1_body(fm, seq, l_seq, *, cap, kmax, emax, min_seed_len, use_kmer,
+             b1s, t1s):
+    N, L = seq.shape
+    it = fm.itype
+    dev = seq.device
+    pre = smemops.kmer_pre0(fm, seq, l_seq) if use_kmer else None
+    c1 = smemops.forward_scan(fm, seq, l_seq, torch.zeros((N,), dtype=i32,
+                                                          device=dev),
+                              torch.ones((N,), dtype=it, device=dev), cap,
+                              multi_pivot=True, pre=pre, max_steps=t1s)
+    rows = _ar(N, i32, dev)[:, None].expand(N, cap)
+    slots = _ar(cap, i32, dev)[None, :].expand(N, cap)
+    mask1 = (slots < c1.n[:, None]).reshape(-1)
+    (lane_read, pivot, fx0, fx1, fx2), nk, k_over, pos1 = _compact_flat(
+        mask1, [(rows, i32), (c1.pivot, i32), (c1.x0, it), (c1.x1, it),
+                (c1.x2, it)], kmax)
+    fvalid = _ar(kmax, i32, dev) < nk
+    st1 = _stage_ladder(b1s, kmax)
+    ones = torch.ones((kmax,), dtype=it, device=dev)
+    if st1:
+        s_f, x0_f, x2_f, b1_over, b1_need = smemops.back_extend_flat(
+            fm, seq, lane_read, pivot, fx0, fx1, fx2, ones, fvalid,
+            stage_w=st1)
+    else:
+        s_f, x0_f, x2_f = smemops.back_extend_flat(
+            fm, seq, lane_read, pivot, fx0, fx1, fx2, ones, fvalid)
+        b1_over = _zero(torch.bool, dev)
+        b1_need = _zero(i32, dev)
+    maskg = mask1.reshape(N, cap)
+    back = torch.where(maskg, pos1.reshape(N, cap).clamp(max=kmax - 1),
+                       0).to(i64)
+    s_grid = torch.where(maskg, s_f[back], 0)
+    x0_grid = torch.where(maskg, x0_f[back], 0)
+    x2_grid = torch.where(maskg, x2_f[back], 0)
+    emit1 = smemops.emit_mask(c1, s_grid.reshape(-1))
+    smem1 = emit1 & ((c1.end - s_grid) >= min_seed_len)
+    (e_read, e_s, e_e, e_x0, e_x2), n1, e_over, _ = _compact_flat(
+        smem1.reshape(-1), [(rows, it), (s_grid, it), (c1.end, it),
+                            (x0_grid, it), (x2_grid, it)], emax)
+    sec1 = torch.stack([e_read, e_s, e_e, e_x0, e_x2])
+    flags = (c1.overflow.any().to(i32)
+             | (k_over.to(i32) << 1) | (e_over.to(i32) << 2)
+             | (b1_over.to(i32) << 9)
+             | (c1.unfinished.to(i32) << 11))
+    meta = torch.stack([n1.to(i32), flags, c1.n.max().to(i32),
+                        nk.to(i32), n1.to(i32), b1_need.to(i32),
+                        c1.steps.to(i32), _zero(i32, dev)])
+    return sec1, meta
+
+
+# ---------------------------------------------------------------------------
+# P2: re-seeding of long low-occurrence SMEMs (bwamem.c:155-165)
+# ---------------------------------------------------------------------------
+
+def _p2_body(fm, seq, l_seq, sec1, n1, *, pmax, cand2, k2max, e2max,
+             min_seed_len, split_len, split_width, b2s, t2s):
+    it = fm.itype
+    dev = seq.device
+    emax = sec1.shape[1]
+    e_read, e_s, e_e, e_x0, e_x2 = (sec1[k] for k in range(5))
+    lane1 = _ar(emax, i32, dev)
+    qual = ((lane1 < n1) & ((e_e - e_s) >= split_len)
+            & (e_x2 <= split_width))
+    (p_read, p_start, p_min), n_par, p_over, _ = _compact_flat(
+        qual, [(e_read.to(i32), i32),
+               ((e_s + e_e).to(i32) >> 1, i32), (e_x2 + 1, it)], pmax)
+    p_alive = _ar(pmax, i32, dev) < n_par
+    p_lseq = torch.where(p_alive, l_seq[p_read.to(i64)], 0).to(l_seq.dtype)
+    c2 = smemops.forward_scan(
+        fm, seq, p_lseq, torch.where(p_alive, p_start, 0),
+        torch.where(p_alive, p_min, 1), cand2, multi_pivot=False,
+        lane_read=p_read, max_steps=t2s)
+    rows2 = p_read[:, None].expand(pmax, cand2)
+    slots2 = _ar(cand2, i32, dev)[None, :].expand(pmax, cand2)
+    mask2 = (slots2 < c2.n[:, None]).reshape(-1)
+    min2g = p_min[:, None].expand(pmax, cand2)
+    (lr2, pv2, bx0, bx1, bx2, mi2), nk2, k2_over, pos2 = _compact_flat(
+        mask2, [(rows2, i32), (c2.pivot, i32), (c2.x0, it), (c2.x1, it),
+                (c2.x2, it), (min2g, it)], k2max)
+    v2 = _ar(k2max, i32, dev) < nk2
+    st2 = _stage_ladder(b2s, k2max)
+    if st2:
+        s2f, x0f2, x2f2, b2_over, b2_need = smemops.back_extend_flat(
+            fm, seq, lr2, pv2, bx0, bx1, bx2, mi2, v2, stage_w=st2)
+    else:
+        s2f, x0f2, x2f2 = smemops.back_extend_flat(
+            fm, seq, lr2, pv2, bx0, bx1, bx2, mi2, v2)
+        b2_over = _zero(torch.bool, dev)
+        b2_need = _zero(i32, dev)
+    mask2g = mask2.reshape(pmax, cand2)
+    back2 = torch.where(mask2g, pos2.reshape(pmax, cand2).clamp(
+        max=k2max - 1), 0).to(i64)
+    s2_grid = torch.where(mask2g, s2f[back2], 0)
+    x0_2g = torch.where(mask2g, x0f2[back2], 0)
+    x2_2g = torch.where(mask2g, x2f2[back2], 0)
+    emit2 = smemops.emit_mask(c2, s2_grid.reshape(-1))
+    smem2 = emit2 & ((c2.end - s2_grid) >= min_seed_len)
+    (e2_read, e2_s, e2_e, e2_x0, e2_x2), n2, e2_over, _ = _compact_flat(
+        smem2.reshape(-1), [(rows2, it), (s2_grid, it), (c2.end, it),
+                            (x0_2g, it), (x2_2g, it)], e2max)
+    sec2 = torch.stack([e2_read, e2_s, e2_e, e2_x0, e2_x2])
+    flags = ((p_over.to(i32) << 3) | (c2.overflow.any().to(i32) << 4)
+             | (k2_over.to(i32) << 5) | (e2_over.to(i32) << 6)
+             | (b2_over.to(i32) << 10)
+             | (c2.unfinished.to(i32) << 12))
+    meta = torch.stack([n2.to(i32), flags, n_par.to(i32),
+                        c2.n.max().to(i32), nk2.to(i32),
+                        n2.to(i32), b2_need.to(i32), c2.steps.to(i32)])
+    return sec2, meta
+
+
+# ---------------------------------------------------------------------------
+# P3: LAST-like forward-only pass (bwt_seed_strategy1, bwt.c:358-379)
+# ---------------------------------------------------------------------------
+
+def _p3_body(fm, seq, l_seq, *, p3cap, e3max, min_seed_len, max_mem_intv,
+             use_kmer, t3s):
+    N, L = seq.shape
+    it = fm.itype
+    dev = seq.device
+    pre = smemops.kmer_pre(fm, seq, l_seq) if use_kmer else None
+    p3x0, p3x2, p3s, p3e, p3n, p3over, p3steps, p3unf = smemops.pass3_scan(
+        fm, seq, l_seq, min_seed_len, max_mem_intv, p3cap, pre=pre,
+        max_steps=t3s)
+    rows3 = _ar(N, i32, dev)[:, None].expand(N, p3cap)
+    m3 = _ar(p3cap, i32, dev)[None, :].expand(N, p3cap) < p3n[:, None]
+    (e3_read, e3_s, e3_e, e3_x0, e3_x2), n3, e3_over, _ = _compact_flat(
+        m3.reshape(-1), [(rows3, it), (p3s, it), (p3e, it),
+                         (p3x0, it), (p3x2, it)], e3max)
+    sec3 = torch.stack([e3_read, e3_s, e3_e, e3_x0, e3_x2])
+    flags = ((p3over.any().to(i32) << 7) | (e3_over.to(i32) << 8)
+             | (p3unf.to(i32) << 13))
+    z = _zero(i32, dev)
+    meta = torch.stack([n3.to(i32), flags, p3n.max().to(i32),
+                        n3.to(i32), p3steps.to(i32), z, z, z])
+    return sec3, meta
+
+
+# ---------------------------------------------------------------------------
+# EXPAND: flat intervals -> per-read seed grids
+# ---------------------------------------------------------------------------
+
+def _expand_body(fm, ctg_offsets, sec1, n1, sec2, n2, sec3, n3, *, max_occ,
+                 a_seed, s_cap, n_reads):
+    it = fm.itype
+    dev = sec1.device
+    N = n_reads
+    S = s_cap
+    e1, e2w = sec1.shape[1], sec2.shape[1]
+    cat = torch.cat([sec1, sec2, sec3], dim=1)
+    read, s, e, x0, x2 = (cat[k] for k in range(5))
+    A = read.shape[0]
+    lane = _ar(A, i32, dev)
+    valid = torch.where(lane < e1, lane < n1,
+                        torch.where(lane < e1 + e2w, lane - e1 < n2,
+                                    lane - e1 - e2w < n3))
+    # sort by (read, start, end) — ks_introsort(mem_intv) on info; stable,
+    # ties keep pass-1 < pass-2 < pass-3 emission order.  One composite
+    # int64 key: reads < 2^23, positions < 2^20.
+    readk = torch.where(valid, read, N).to(i64)
+    key = (readk << 40) | (s.to(i64) << 20) | e.to(i64)
+    order = torch.sort(key, stable=True).indices
+    valid = valid[order]
+    read = torch.where(valid, readk[order], 0).to(i32)
+    s, e, x0, x2 = s[order], e[order], x0[order], x2[order]
+
+    # ---- occurrence sampling (mem_chain loop, bwamem.c:280-307) ----
+    counts = torch.where(valid, x2.clamp(max=max_occ), 0).to(it)
+    cum = torch.cumsum(counts, 0, dtype=it)
+    total = cum[-1]
+    seed_arena_over = total > a_seed
+    slots = _ar(a_seed, it, dev)
+    own = torch.searchsorted(cum, slots, right=True).to(i32)
+    ownc = own.clamp(0, A - 1).to(i64)
+    prev = torch.where(ownc > 0, cum[(ownc - 1).clamp(min=0)],
+                       _zero(it, dev))
+    k_within = slots - prev
+    x0o = x0[ownc]
+    x2o = x2[ownc]
+    step = torch.where(x2o > max_occ, x2o // max_occ, 1)
+    svalid = slots < total
+    rank = torch.where(svalid, x0o + k_within * step, 0).to(it)
+    rbeg = fmops.sa_lookup(fm, rank)
+    sread = torch.where(svalid, read[ownc], N).to(i32)
+    qbeg = torch.where(svalid, s[ownc], 0).to(i32)
+    slen = torch.where(svalid, (e - s)[ownc], 0).to(i32)
+    rid = fmops.intv2rid(fm, ctg_offsets, rbeg, rbeg + slen)
+    svalid = svalid & (rid >= 0)
+
+    # per-read slot among valid seeds (invalid-rid seeds dropped BEFORE slot
+    # assignment, matching the host-compacted front)
+    csum = torch.cumsum(svalid.to(i32), 0, dtype=i32)
+    sread64 = sread.to(i64)
+    seed_cnt = torch.zeros((N + 1,), dtype=i32, device=dev).index_add_(
+        0, sread64, svalid.to(i32))[:N]
+    read_base = torch.cat([torch.zeros((1,), dtype=i32, device=dev),
+                           torch.cumsum(seed_cnt, 0, dtype=i32)[:-1]])
+    slot = csum - 1 - read_base[sread64.clamp(0, N - 1)]
+    ok = svalid & (slot < S)
+    tgt = (torch.where(ok, sread, N).to(i64),
+           torch.where(ok, slot, 0).to(i64))
+    g_qbeg = _put((N, S), 0, i32, dev, tgt, qbeg)
+    g_len = _put((N, S), 0, i32, dev, tgt, slen)
+    g_rbeg = _put((N, S), 0, it, dev, tgt, rbeg)
+    g_rid = _put((N, S), -1, i32, dev, tgt, rid)
+    g_valid = _put((N, S), False, torch.bool, dev, tgt, ok)
+
+    # ---- l_rep: union of repetitive intervals (bwamem.c:272-279) ----
+    rep = valid & (x2 > max_occ)
+    seg_start = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                           read[1:] != read[:-1]])
+    ends = torch.where(rep, e, -1)
+    run = chainops.seg_cummax(ends, seg_start, 1 << 24)
+    prev_end = torch.cat([torch.full((1,), -1, dtype=run.dtype, device=dev),
+                          run[:-1]])
+    prev_end = torch.where(seg_start, -1, prev_end)
+    contrib = torch.where(rep, (e - torch.maximum(s.to(i64), prev_end)
+                                ).clamp(min=0), 0)
+    l_rep = torch.zeros((N,), dtype=it, device=dev).index_add_(
+        0, read.to(i64), contrib.to(it))
+
+    seeds = chainops.Seeds(
+        rbeg=g_rbeg, qbeg=g_qbeg, len=g_len, rid=g_rid, valid=g_valid,
+        frac_rep=l_rep.to(torch.float32), overflow=seed_cnt > S)
+    z = _zero(i32, dev)
+    meta = torch.stack([seed_arena_over.to(i32),
+                        total.clamp(max=2 ** 31 - 1).to(i32),
+                        seed_cnt.max(), z, z, z, z, z])
+    return seeds, seed_cnt, l_rep, meta
+
+
+# ---------------------------------------------------------------------------
+# CHAIN: lockstep chaining + weights + windows + compact arenas
+# ---------------------------------------------------------------------------
+
+def _chain_body(fm, ctg_offsets, ctg_is_alt, seeds, l_seq, *, w,
+                max_chain_gap, chain_cap, a_ch, a_it, min_chain_weight,
+                a, o_del, e_del, o_ins, e_ins):
+    it = seeds.rbeg.dtype
+    dev = seeds.rbeg.device
+    N, S = seeds.qbeg.shape
+    C = chain_cap
+    ch = chainops.chain_seeds(seeds, ctg_is_alt, fm.l_pac, w=w,
+                              max_chain_gap=max_chain_gap, chain_cap=C)
+    wt = chainops.chain_weights(seeds, ch)
+    rmax0, rmax1 = align_ext.chain_rmax(
+        seeds, ch, l_seq, fm, ctg_offsets,
+        a=a, o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins, w=w)
+    # compact per-chain arena in (read-major, creation order) — the host
+    # replays mem_chain_flt's exact B-tree traversal + introsort from it
+    rows_c = _ar(N, i32, dev)[:, None].expand(N, C)
+    slots_c = _ar(C, i32, dev)[None, :].expand(N, C)
+    cmask = (slots_c < ch.n[:, None]).reshape(-1)
+    beg = ch.first_qbeg
+    end = ch.last_qbeg + ch.last_len
+    pk_rid_alt = (ch.rid << 1) | ch.is_alt.to(i32)
+    (c_read, c_w, c_beg, c_end, c_ra), n_ch, ch_arena_over, _ = \
+        _compact_flat(cmask, [(rows_c, i32), (wt, i32), (beg, i32),
+                              (end, i32), (pk_rid_alt, i32)], a_ch)
+    (c_pos,), _, _, _ = _compact_flat(cmask, [(ch.pos, it)], a_ch)
+    chain32 = torch.stack([c_read, c_w, c_beg, c_end, c_ra])
+
+    # ---- work items: every valid seed of every heavy chain ----
+    sc = ch.seed_chain
+    scc = sc.clamp(0, C - 1).to(i64)
+    heavy = torch.gather(wt, 1, scc) >= min_chain_weight
+    imask = (sc >= 0) & heavy & seeds.valid
+    rows_s = _ar(N, i32, dev)[:, None].expand(N, S)
+    slots_s = _ar(S, i32, dev)[None, :].expand(N, S)
+    i_rmax0 = torch.gather(rmax0, 1, scc)
+    i_rmax1 = torch.gather(rmax1, 1, scc)
+    (i_read, i_slot, i_chain, i_qbeg, i_len), n_it, it_over, _ = \
+        _compact_flat(imask.reshape(-1),
+                      [(rows_s, i32), (slots_s, i32), (sc, i32),
+                       (seeds.qbeg, i32), (seeds.len, i32)], a_it)
+    (i_rbeg, i_r0, i_r1), _, _, _ = _compact_flat(
+        imask.reshape(-1), [(seeds.rbeg, it), (i_rmax0, it), (i_rmax1, it)],
+        a_it)
+    # largest extension window over the items: sizes the NEXT batch's
+    # t_max (host checks the CURRENT batch didn't exceed it)
+    tl = torch.where(imask & (seeds.qbeg > 0), seeds.rbeg - i_rmax0, 0)
+    qe = seeds.qbeg + seeds.len
+    tr = torch.where(imask & (qe < l_seq[:, None]),
+                     i_rmax1 - (seeds.rbeg + seeds.len), 0)
+    t_span = torch.maximum(tl.max(), tr.max()).to(i32)
+    z = _zero(i32, dev)
+    meta = torch.stack([ch.overflow.any().to(i32),
+                        ch_arena_over.to(i32), it_over.to(i32),
+                        n_ch.to(i32), n_it.to(i32),
+                        ch.n.max().to(i32), t_span, z])
+    items32 = torch.stack([i_read, i_slot, i_chain, i_qbeg, i_len])
+    items_it = torch.stack([i_rbeg, i_r0, i_r1])
+    return ch.seed_chain, items32, items_it, chain32, c_pos, meta
+
+
+# ---------------------------------------------------------------------------
+# EXT: speculative fused extension of all work items + seedcov
+# ---------------------------------------------------------------------------
+
+def _qt_blocks(pac, l_pac, seqbatch, lane_read, q_start, q_sign, qlen,
+               t_start, t_sign, tlen, *, lq_max, t_max):
+    """[LQ, B] query and [LT, B] target nt4 blocks from the device-resident
+    read batch + packed reference.  Computed lane-major ([B, L*]) so each
+    lane's positions are consecutive, then transposed."""
+    it = t_start.dtype
+    dev = seqbatch.device
+    L = seqbatch.shape[1]
+    j = _ar(lq_max, i32, dev)[None, :]
+    qidx = q_start.to(i32)[:, None] + q_sign[:, None] * j
+    q = torch.gather(seqbatch[lane_read.to(i64)].to(i32), 1,
+                     qidx.clamp(0, L - 1).to(i64))
+    q = torch.where(j < qlen[:, None], q, 4)
+    ti = _ar(t_max, it, dev)[None, :]
+    pos = (t_start[:, None] + t_sign[:, None].to(it) * ti).clamp(
+        0, 2 * l_pac - 1).to(i64)
+    is_rev = pos >= l_pac
+    fpos = torch.where(is_rev, 2 * l_pac - 1 - pos, pos)
+    word = pac[fpos >> 4]
+    byte = (word >> (((fpos & 15) >> 2) << 3)) & 0xFF
+    b = ((byte >> ((3 - (fpos & 3)) << 1)) & 3).to(i32)
+    b = torch.where(is_rev, 3 - b, b)
+    t = torch.where(ti < tlen[:, None], b, 4)
+    return q.T.contiguous(), t.T.contiguous()
+
+
+def _ext_kernel(qT, qlen, tT, tlen, h0, eb, *, w_opt, lq_max, t_max, **kw):
+    """Both passes of one extension side: the CUDA kernel on a card, its
+    plain version on the CPU (ops/ext_kernel.extend_batch_pl2)."""
+    return ext_kernel.extend_batch_pl2(
+        qT, qlen, tT, tlen, h0, eb, lq_max=lq_max, t_max=t_max,
+        w_opt=w_opt, **kw)
+
+
+def _ext_core(fm, seq, l_seq, seed_chain, seeds_valid, seeds_qbeg, seeds_len,
+              seeds_rbeg, iv, *, lq_max, t_max, mat_bytes,
+              o_del, e_del, o_ins, e_ins, zdrop, w_opt, a, pen_clip5,
+              pen_clip3):
+    """Fused left+right extension for a vector of work items + per-item
+    seedcov (mem_chain2aln extension body, bwamem.c:717-786).  Returns the
+    14 per-item result vectors in the INPUT item order."""
+    i_read, i_slot, i_chain, i_qbeg, i_len, i_rbeg, i_r0, i_r1 = iv
+    it = seeds_rbeg.dtype
+    dev = seq.device
+    B = i_read.shape[0]
+    lseq_of = l_seq[i_read.clamp(0, l_seq.shape[0] - 1).to(i64)].to(i32)
+
+    # Sort the items by their extension-window size so similar target
+    # lengths share kernel blocks; outputs are unsorted at the end.
+    klen_l = torch.where(i_qbeg > 0, i_rbeg - i_r0, 0).to(i32)
+    klen_r = torch.where(i_qbeg + i_len < lseq_of,
+                         (i_r1 - (i_rbeg + i_len)).to(i32), 0)
+    pos_s = torch.sort(torch.maximum(klen_l, klen_r), stable=True).indices
+    i_read, i_slot, i_chain, i_qbeg, i_len, i_rbeg, i_r0, i_r1, l_seq_i = (
+        x[pos_s] for x in (i_read, i_slot, i_chain, i_qbeg, i_len, i_rbeg,
+                           i_r0, i_r1, lseq_of))
+    kker = dict(w_opt=w_opt, lq_max=lq_max, t_max=t_max, mat_bytes=mat_bytes,
+                o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                zdrop=zdrop)
+    neg1 = torch.full((B,), -1, dtype=i32, device=dev)
+    pos1 = torch.ones((B,), dtype=i32, device=dev)
+
+    # ---- left: reversed prefix vs [rmax0, rbeg) reversed ----
+    qlen_l = i_qbeg.to(i32)
+    tlen_l = torch.where(i_qbeg > 0, i_rbeg - i_r0, 0).to(i32)
+    h0_l = (i_len * a).clamp(min=1).to(i32)
+    qT, tT = _qt_blocks(fm.pac, fm.l_pac, seq, i_read, i_qbeg - 1, neg1,
+                        qlen_l, i_rbeg - 1, neg1, tlen_l,
+                        lq_max=lq_max, t_max=t_max)
+    eb5 = torch.full((B,), pen_clip5, dtype=i32, device=dev)
+    L, retL = _ext_kernel(qT, qlen_l, tT, tlen_l, h0_l, eb5, **kker)
+    score_l = torch.where(qlen_l > 0, L.score, (i_len * a).to(i32))
+    sc0 = score_l.clamp(min=1)
+
+    # ---- right: suffix vs [rbeg + len, rmax1) ----
+    s_qe = i_qbeg + i_len
+    qlen_r = (l_seq_i - s_qe).to(i32)
+    tlen_r = torch.where(s_qe < l_seq_i,
+                         (i_r1 - (i_rbeg + i_len)).to(i32), 0)
+    qT, tT = _qt_blocks(fm.pac, fm.l_pac, seq, i_read, s_qe, pos1,
+                        qlen_r, i_rbeg + i_len, pos1, tlen_r,
+                        lq_max=lq_max, t_max=t_max)
+    eb3 = torch.full((B,), pen_clip3, dtype=i32, device=dev)
+    R, retR = _ext_kernel(qT, qlen_r, tT, tlen_r, sc0, eb3, **kker)
+
+    # ---- endpoint selection (bwamem.c:744-779) ----
+    has_left = qlen_l > 0
+    loc_l = (L.gscore <= 0) | (L.gscore <= L.score - pen_clip5)
+    n_qb = torch.where(has_left & loc_l, i_qbeg - L.qle, 0)
+    n_rb = torch.where(has_left,
+                       torch.where(loc_l, i_rbeg - L.tle, i_rbeg - L.gtle),
+                       i_rbeg)
+    truesc_l = torch.where(has_left, torch.where(loc_l, L.score, L.gscore),
+                           (i_len * a).to(i32))
+    has_right = s_qe < l_seq_i
+    loc_r = (R.gscore <= 0) | (R.gscore <= R.score - pen_clip3)
+    score_f = torch.where(has_right, R.score, score_l)
+    n_qe = torch.where(has_right & loc_r, s_qe + R.qle, l_seq_i)
+    n_re = torch.where(has_right,
+                       torch.where(loc_r, i_rbeg + i_len + R.tle,
+                                   i_rbeg + i_len + R.gtle),
+                       i_rbeg + i_len)
+    truesc_f = truesc_l + torch.where(
+        has_right, torch.where(loc_r, R.score - sc0, R.gscore - sc0), 0)
+    aw0 = torch.where(has_left & (retL != 0), w_opt * 2, w_opt)
+    aw1 = torch.where(has_right & (retR != 0), w_opt * 2, w_opt)
+    n_w = torch.maximum(aw0, aw1).to(i32)
+
+    # ---- seedcov (bwamem.c:781-786) ----
+    rr = i_read.clamp(0, seeds_qbeg.shape[0] - 1).to(i64)
+    sd_qb = seeds_qbeg[rr]                        # [B, S]
+    sd_len = seeds_len[rr]
+    sd_rb = seeds_rbeg[rr]
+    in_ch = seeds_valid[rr] & (seed_chain[rr] == i_chain[:, None])
+    cov = (in_ch & (sd_qb >= n_qb[:, None])
+           & (sd_qb + sd_len <= n_qe[:, None])
+           & (sd_rb >= n_rb[:, None].to(it))
+           & (sd_rb + sd_len <= n_re[:, None].to(it)))
+    seedcov = torch.where(cov, sd_len, 0).sum(dim=1, dtype=i32)
+
+    # restore the input item order
+    inv = torch.empty_like(pos_s)
+    inv[pos_s] = _ar(B, i64, dev)
+    out = (i_read, i_slot, i_chain, i_qbeg, i_len, n_qb.to(i32),
+           n_qe.to(i32), score_f.to(i32), truesc_f.to(i32), n_w, seedcov,
+           i_rbeg, n_rb.to(it), n_re.to(it))
+    return tuple(x[inv] for x in out)
+
+
+def _ext_body(fm, seq, l_seq, seed_chain, seeds_valid, seeds_qbeg, seeds_len,
+              seeds_rbeg, items32, items_it, n_item, *, lq_max, t_max,
+              mat_bytes, o_del, e_del, o_ins, e_ins, zdrop, w_opt, a,
+              pen_clip5, pen_clip3, sel_cap=0, c_cap=0):
+    """EXT program: speculative fused extension over the flat item arena.
+
+    sel_cap == 0: every lane extends (single-round mode; also the round-2
+    program over a host-built item subset).  Output row 11 (has-result) is
+    all ones.
+
+    sel_cap > 0: TWO-ROUND mode, round 1 — only the srt-first work item of
+    each (read, chain) group extends (the item the sequential accept/skip
+    walk, bwamem.c:669-676 DESC srt order, processes first; its region is
+    what the walk's containment skip test consults for the rest of the
+    chain, so extending it first lets the host prepass kill most of the
+    remaining items before they reach the kernel).  The selection compacts
+    to a `sel_cap`-lane arena; results scatter back to the full arena with
+    row 11 marking which items have results.  Chains beyond sel_cap get no
+    round-1 result — the host prepass then routes ALL their items to round
+    2, which is correct (just less selective), so truncation needs no
+    retry.
+
+    Returns (out32 [12, A] i32, out_it [3, A] index-typed, m6 [8] i32
+    meta; m6[0] = selected-group count for a_sel hwm tracking)."""
+    i_read, i_slot, i_chain, i_qbeg, i_len = (items32[k] for k in range(5))
+    i_rbeg, i_r0, i_r1 = (items_it[k] for k in range(3))
+    dev = seq.device
+    A = i_read.shape[0]
+    kcore = dict(lq_max=lq_max, t_max=t_max, mat_bytes=mat_bytes,
+                 o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                 zdrop=zdrop, w_opt=w_opt, a=a, pen_clip5=pen_clip5,
+                 pen_clip3=pen_clip3)
+    seeds4 = (seed_chain, seeds_valid, seeds_qbeg, seeds_len, seeds_rbeg)
+    if sel_cap == 0:
+        r = _ext_core(fm, seq, l_seq, *seeds4,
+                      (i_read, i_slot, i_chain, i_qbeg, i_len, i_rbeg,
+                       i_r0, i_r1), **kcore)
+        out32 = torch.stack(list(r[:11])
+                            + [torch.ones((A,), dtype=i32, device=dev)])
+        return out32, torch.stack(list(r[11:])), torch.zeros(
+            (8,), dtype=i32, device=dev)
+
+    # ---- round-1 selection: srt-first item per (read, chain) ----
+    posA = _ar(A, i32, dev)
+    valid = posA < n_item
+    NG = l_seq.shape[0] * c_cap
+    gid = torch.where(valid, i_read * c_cap + i_chain.clamp(0, c_cap - 1),
+                      NG).to(i64)
+    # srt walks (len desc, insertion idx desc); within a read the arena is
+    # in insertion (m asc) order, so (len, global pos) max = the first item
+    pk = (i_len.to(i64) << 32) | posA.to(i64)
+    gmax = torch.full((NG + 1,), -1, dtype=i64, device=dev)
+    gmax.scatter_reduce_(0, gid, pk, "amax")
+    is_first = valid & (gmax[gid] == pk)
+    n_sel = is_first.sum(dtype=i32)
+    sel = torch.sort(torch.where(is_first, 0, 1).to(i32), stable=True
+                     ).indices[:sel_cap]
+    has_lane = is_first[sel]
+    s_read, s_slot, s_chain, s_qbeg, s_len, s_rbeg, s_r0, s_r1 = (
+        x[sel] for x in (i_read, i_slot, i_chain, i_qbeg, i_len, i_rbeg,
+                         i_r0, i_r1))
+    # pad/unselected lanes: zero both extension windows so their kernel
+    # work is nil (they sort to the cheap end anyway)
+    s_qbeg = torch.where(has_lane, s_qbeg, 0)
+    s_len = torch.where(has_lane, s_len, 0)
+    s_r0 = torch.where(has_lane, s_r0, s_rbeg)
+    s_r1 = torch.where(has_lane, s_r1, s_rbeg)
+    r = _ext_core(fm, seq, l_seq, *seeds4,
+                  (s_read, s_slot, s_chain, s_qbeg, s_len, s_rbeg, s_r0,
+                   s_r1), **kcore)
+    tgt = torch.where(has_lane, sel, A)
+
+    def back(x):
+        return _put((A,), 0, x.dtype, dev, (tgt,), x)
+
+    has_row = _put((A,), 0, i32, dev, (tgt,), torch.ones_like(tgt))
+    # identity rows keep the FULL arena values — the host walk reads the
+    # seed fields of every item, extended or not.  Result-less lanes keep
+    # their INPUT windows (rmax0/rmax1) in rows 1-2: exactly what the
+    # round-2 dispatch needs back.
+    hasb = has_row.to(torch.bool)
+    out32 = torch.stack([i_read, i_slot, i_chain, i_qbeg, i_len,
+                         back(r[5]), back(r[6]), back(r[7]), back(r[8]),
+                         back(r[9]), back(r[10]), has_row])
+    out_it = torch.stack([i_rbeg,
+                          torch.where(hasb, back(r[12]), i_r0),
+                          torch.where(hasb, back(r[13]), i_r1)])
+    m6 = torch.zeros((8,), dtype=i32, device=dev)
+    m6[0] = n_sel
+    return out32, out_it, m6
+
+
+# ---------------------------------------------------------------------------
+# Host driver
+# ---------------------------------------------------------------------------
+
+_GROW1 = ("cap", "kmax", "emax")
+_GROW2 = ("pmax", "cand2", "k2max", "e2max")  # bits 3..6 of p2 flags
+_GROW3 = ("p3cap", "e3max")                   # bits 7..8 of p3 flags
+_GROWB = ("b1s", "b2s")                       # bits 9..10: back-ext ladders
+_GROWT = ("t1s", "t2s", "t3s")                # bits 11..13: scan trip counts
+
+
+def _sizes_for(al, N: int, Lr: int):
+    """Arena sizes from the aligner's in-memory high-water history (25%
+    headroom), falling back to shape-scaled defaults on the first batch."""
+    hist = al._front_hist
+    defaults = {
+        "cap": 2 * Lr,
+        "kmax": _bucket(N * 16, lo=1024),
+        "emax": _bucket(N * 8, lo=1024),
+        "pmax": _bucket(N * 2, lo=256),
+        "cand2": 48,
+        "k2max": _bucket(N * 8, lo=1024),
+        "e2max": _bucket(N * 4, lo=1024),
+        "p3cap": 32,
+        "e3max": _bucket(N * 2, lo=1024),
+        "a_seed": _bucket(N * 8, lo=1024),
+        "s_cap": 64,
+        "a_ch": _bucket(N * 4, lo=1024),
+        "a_it": _bucket(N * 8, lo=1024),
+        "a_sel": _bucket(N * 2, lo=1024),
+        "b1s": _bucket(N * 8, lo=1024),
+        "b2s": _bucket(N * 4, lo=1024),
+    }
+    # scan trip counts: multiples of 32 (a trip count scales time, not
+    # memory, so fine granularity avoids a 2x overshoot)
+    defaults["t1s"] = -(-(Lr + (Lr >> 1) + 24) // 32) * 32
+    defaults["t2s"] = -(-(Lr + 8) // 32) * 32
+    defaults["t3s"] = defaults["t1s"]
+    floors = {"cap": 64, "kmax": 1024, "emax": 1024, "pmax": 256,
+              "cand2": 16, "k2max": 1024, "e2max": 1024, "p3cap": 16,
+              "e3max": 1024, "a_seed": 1024, "s_cap": 16, "a_ch": 1024,
+              "a_it": 1024, "a_sel": 1024, "b1s": 1024, "b2s": 1024,
+              "t1s": 32, "t2s": 32, "t3s": 32}
+    sizes = {}
+    for k, d in defaults.items():
+        h = hist.get(("hwm", k, (N, Lr)))
+        if h is None:
+            sizes[k] = d
+        elif k in _GROWT:
+            sizes[k] = max(-(-(int(h) + (int(h) >> 3) + 1) // 32) * 32,
+                           floors[k])
+        else:
+            sizes[k] = _bucket(int(h + (h >> 2) + 1), lo=floors[k])
+    return hist, sizes
+
+
+def _note_hwm(hist, N, **vals):
+    for k, v in vals.items():
+        key = ("hwm", k, N)
+        if int(v) > hist.get(key, 0):
+            hist[key] = int(v)
+
+
+def gate_rows(opt: MemOptions, reads) -> set:
+    """Rows entering mem_flt_chained_seeds (bwamem.c:607-611) — long reads
+    whose seed re-scoring mutates the work order; they need the host
+    path."""
+    rows = set()
+    for i, r in enumerate(reads):
+        L = r.l_seq
+        if L <= 0:
+            continue
+        min_l = (MEM_HSP_COEF * opt.min_chain_weight
+                 if opt.min_chain_weight
+                 else MEM_MINSC_COEF * math.log(L))
+        if min_l <= MEM_SEEDSW_COEF * L:
+            rows.add(i)
+    return rows
+
+
+def supported(al, reads) -> bool:
+    """Whether this batch can take the device front: the (h<<12)|col
+    packing of the extension's row max needs every reachable score
+    < 2^18."""
+    mat_max = int(np.max(np.asarray(al.opt.mat)))
+    Lr = max((r.l_seq for r in reads), default=0)
+    return 2 * Lr * max(al.opt.a, mat_max) < (1 << 18)
+
+
+def front_start(al, reads, seq: np.ndarray, l_seq: np.ndarray):
+    """Dispatch the device front for a batch WITHOUT fetching: uploads the
+    batch, enqueues the 6-program chain, and returns a token for
+    front_finish.  The split lets align_stream enqueue batch k+1's front
+    while the host finalizes batch k."""
+    opt: MemOptions = al.opt
+    n = len(reads)
+    N, Lr = seq.shape
+    Nkey = (N, Lr)     # (rows, read-len bucket) hwm key
+    hist, sizes = _sizes_for(al, N, Lr)
+    use_kmer = (al.fm.kmer is not None
+                and getattr(opt, "use_kmer_table", True)
+                and opt.min_seed_len >= smemops.KMER_K)
+    # two-round extension (round-1 select + host prepass + round-2 subset);
+    # sel_cap == 0 keeps the single-round program
+    if os.environ.get("BWAMEM_TPU_EXT2", "1") != "1":
+        sizes["a_sel"] = 0
+    # long reads that enter mem_flt_chained_seeds keep the host path
+    fallback = gate_rows(opt, reads)
+
+    dev = al.device
+    seq_dev = torch.from_numpy(seq).to(dev)
+    l_dev = torch.from_numpy(l_seq).to(dev)
+    timers.add_bytes("h2d.front_seq", seq.nbytes)
+
+    # extension-window rows: hwm-sized (the device reports each batch's true
+    # max span, m5[6]); the first batch uses the conservative chain-span
+    # bound L + w + 2*cal_max_gap_bound
+    h_ts = hist.get(("hwm", "t_span", Nkey))
+    gmax = min(max((Lr * opt.a - min(opt.o_del, opt.o_ins))
+                   // min(opt.e_del, opt.e_ins) + 1, 1), 2 * opt.w)
+    bound = Lr + opt.w + 2 * gmax + 8
+    sizes["t_span"] = _bucket(min(int(h_ts + (h_ts >> 3) + 1), bound),
+                              lo=128) if h_ts is not None \
+        else _bucket(bound, lo=128)
+
+    with timers.section("front.dispatch"):
+        *arrs, ext2ctx = _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr)
+    return dict(reads=reads, n=n, N=N, Lr=Lr, hist=hist, sizes=sizes,
+                use_kmer=use_kmer, fallback=fallback, seq_dev=seq_dev,
+                l_dev=l_dev, arrs=tuple(arrs), Nkey=Nkey, ext2ctx=ext2ctx)
+
+
+def _fetch(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+def front_finish(al, tok):
+    """Fetch + grow-and-retry + exact-filter replay for a front_start
+    token.
+
+    Returns (regs_out, fallback_rows): per-read AlnReg lists in
+    mem_chain2aln emission order (pre-dedup) for every read NOT in
+    fallback_rows; fallback rows (cap overflows, long reads entering
+    mem_flt_chained_seeds, reads the final two-round walk demotes) need
+    the host-compacted front.  Raises RuntimeError when arena growth does
+    not converge within 16 retries."""
+    reads, n, N, Lr = tok["reads"], tok["n"], tok["N"], tok["Lr"]
+    hist, sizes, use_kmer = tok["hist"], tok["sizes"], tok["use_kmer"]
+    fallback = tok["fallback"]
+    seq_dev, l_dev, Nkey = tok["seq_dev"], tok["l_dev"], tok["Nkey"]
+    meta_all, out32, out_it, chain32, c_pos, scl = tok["arrs"]
+    retries = 0
+    while True:
+        with timers.section("front.fetch"):
+            meta = _fetch(meta_all)
+        m1, m2, m3, m4, m5, m6 = (meta[8 * k: 8 * k + 8] for k in range(6))
+        grow = []
+        flags = int(m1[1]) | int(m2[1]) | int(m3[1])
+        for bit, name in enumerate(_GROW1 + _GROW2 + _GROW3 + _GROWB
+                                   + _GROWT):
+            if (flags >> bit) & 1:
+                grow.append(name)
+        if m4[0]:
+            grow.append("a_seed")
+        if m5[1]:
+            grow.append("a_ch")
+        if m5[2]:
+            grow.append("a_it")
+        if int(m5[6]) > sizes["t_span"]:
+            # an extension window exceeded the hwm-sized t_max: results
+            # would be silently truncated — grow and rerun
+            sizes["t_span"] = _bucket(int(m5[6]), lo=128)
+            _note_hwm(hist, Nkey, t_span=m5[6])
+            grow.append(None)
+        if not grow:
+            break
+        retries += 1
+        if retries > 16:
+            raise RuntimeError(f"front arena growth did not converge: "
+                               f"{grow} sizes={sizes}")
+        for g in grow:
+            if g is not None:
+                sizes[g] *= 2
+        # the back-extend ladders report the exact base width that would
+        # have fit (b*_need) — jump straight there
+        if "b1s" in grow:
+            sizes["b1s"] = max(sizes["b1s"], _bucket(int(m1[5]) + 1,
+                                                     lo=1024))
+        if "b2s" in grow:
+            sizes["b2s"] = max(sizes["b2s"], _bucket(int(m2[6]) + 1,
+                                                     lo=1024))
+        timers.count("front.retries")
+        with timers.section("front.dispatch"):
+            (meta_all, out32, out_it, chain32, c_pos, scl,
+             tok["ext2ctx"]) = _dispatch(al, seq_dev, l_dev, sizes,
+                                         use_kmer, N, Lr)
+
+    with timers.section("front.fetch"):
+        out32, out_it, chain32, c_pos, scl = (
+            _fetch(x) for x in (out32, out_it, chain32, c_pos, scl))
+    timers.add_bytes("d2h.front", out32.nbytes + out_it.nbytes
+                     + chain32.nbytes + c_pos.nbytes + scl.nbytes
+                     + meta.nbytes)
+    _note_hwm(hist, Nkey, cap=m1[2], kmax=m1[3], emax=m1[4],
+              pmax=m2[2], cand2=m2[3], k2max=m2[4], e2max=m2[5],
+              p3cap=m3[2], e3max=m3[3],
+              a_seed=m4[1], s_cap=m4[2], a_ch=m5[3], a_it=m5[4],
+              t_span=m5[6], b1s=m1[5], b2s=m2[6],
+              t1s=m1[6], t2s=m2[7], t3s=m3[4], a_sel=m6[0])
+    if m5[0]:
+        raise RuntimeError("chain table overflow with chain_cap == seed cap")
+
+    seed_cnt = scl[0].astype(np.int64)
+    l_rep = scl[1]
+    n_ch, n_it = int(m5[3]), int(m5[4])
+    I32 = np.array(out32[:, :n_it])
+    IIT = np.array(out_it[:, :n_it])
+    CH32 = chain32[:, :n_ch]
+    CHPOS = c_pos[:n_ch]
+    for i in np.nonzero(seed_cnt[:n] > sizes["s_cap"])[0]:
+        fallback.add(int(i))
+
+    # ---- two-round extension: prepass -> round-2 subset -> final walk ----
+    has = None
+    if sizes.get("a_sel", 0):
+        has = np.ascontiguousarray(I32[11], np.uint8)
+        needed = _replay(al, reads, I32, IIT, CH32, CHPOS, l_rep, n,
+                         fallback, has_res=has, prepass=True)
+        timers.count("ext.items", int(m6[0]) + len(needed))
+        if len(needed):
+            _ext2_run(al, tok["ext2ctx"], I32, IIT, needed, hist, Nkey)
+            _note_hwm(hist, Nkey, a_e2=len(needed))
+            has[needed] = 1
+    regs_out = _replay(al, reads, I32, IIT, CH32, CHPOS, l_rep, n, fallback,
+                       has_res=has)
+    return regs_out, sorted(fallback)
+
+
+def _ext2_run(al, ctx, I32, IIT, needed, hist, Nkey):
+    """Round-2 extension: one small dispatch over exactly the items the
+    prepass still needs (same program as round 1 with sel_cap=0, arena
+    hwm-bucketed on the needed count)."""
+    k = len(needed)
+    h = hist.get(("hwm", "a_e2", Nkey), 0)
+    a2 = _bucket(max(int(h + (h >> 2) + 1), k), lo=1024)
+    sub32 = np.zeros((5, a2), np.int32)
+    sub32[:, :k] = I32[:5, needed]
+    subit = np.zeros((3, a2), IIT.dtype)
+    subit[:, :k] = IIT[:, needed]
+    dev = al.device
+    with timers.section("front.ext2"):
+        timers.count("dispatch.front", 1)
+        timers.add_bytes("h2d.front_ext2", sub32.nbytes + subit.nbytes)
+        o32d, oitd, _ = _ext_body(
+            al.fm, ctx["seq_dev"], ctx["l_dev"], ctx["seed_chain"],
+            ctx["sv"], ctx["sq"], ctx["sl"], ctx["sr"],
+            torch.from_numpy(sub32).to(dev), torch.from_numpy(subit).to(dev),
+            k, sel_cap=0, c_cap=0, **ctx["s6"])
+        o32, oit = _fetch(o32d), _fetch(oitd)
+        timers.add_bytes("d2h.front", o32.nbytes + oit.nbytes)
+    I32[5:11, needed] = o32[5:11, :k]
+    IIT[1:, needed] = oit[1:, :k]
+
+
+def _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr):
+    """Enqueue the device program chain; returns device tensors (no
+    fetch)."""
+    opt: MemOptions = al.opt
+    s1 = dict(cap=sizes["cap"], kmax=sizes["kmax"], emax=sizes["emax"],
+              min_seed_len=opt.min_seed_len, use_kmer=use_kmer,
+              b1s=sizes["b1s"], t1s=sizes["t1s"])
+    s2 = dict(pmax=sizes["pmax"], cand2=sizes["cand2"],
+              k2max=sizes["k2max"], e2max=sizes["e2max"],
+              min_seed_len=opt.min_seed_len, split_len=opt.split_len,
+              split_width=opt.split_width,
+              b2s=sizes["b2s"], t2s=sizes["t2s"])
+    s3 = dict(p3cap=sizes["p3cap"], e3max=sizes["e3max"],
+              min_seed_len=opt.min_seed_len,
+              max_mem_intv=opt.max_mem_intv, use_kmer=use_kmer,
+              t3s=sizes["t3s"])
+    s4 = dict(max_occ=opt.max_occ, a_seed=sizes["a_seed"],
+              s_cap=sizes["s_cap"], n_reads=N)
+    s5 = dict(w=opt.w, max_chain_gap=opt.max_chain_gap,
+              chain_cap=sizes["s_cap"], a_ch=sizes["a_ch"],
+              a_it=sizes["a_it"], min_chain_weight=opt.min_chain_weight,
+              a=opt.a, o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+              e_ins=opt.e_ins)
+    s6 = dict(lq_max=Lr, t_max=sizes["t_span"],
+              mat_bytes=np.asarray(opt.mat, np.int8).tobytes(),
+              o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
+              e_ins=opt.e_ins, zdrop=opt.zdrop, w_opt=opt.w, a=opt.a,
+              pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3)
+
+    timers.count("dispatch.front", 6)
+    with timers.section("front.p1"):
+        sec1, m1 = _p1_body(al.fm, seq_dev, l_dev, **s1)
+    with timers.section("front.p2"):
+        sec2, m2 = _p2_body(al.fm, seq_dev, l_dev, sec1, m1[0], **s2)
+    with timers.section("front.p3"):
+        sec3, m3 = _p3_body(al.fm, seq_dev, l_dev, **s3)
+    with timers.section("front.expand"):
+        seeds, seed_cnt, l_rep, m4 = _expand_body(
+            al.fm, al.ctg_offsets, sec1, m1[0], sec2, m2[0], sec3, m3[0],
+            **s4)
+    with timers.section("front.chain"):
+        seed_chain, items32, items_it, chain32, c_pos, m5 = _chain_body(
+            al.fm, al.ctg_offsets, al.ctg_is_alt, seeds, l_dev, **s5)
+    with timers.section("front.ext"):
+        out32, out_it, m6 = _ext_body(
+            al.fm, seq_dev, l_dev, seed_chain, seeds.valid, seeds.qbeg,
+            seeds.len, seeds.rbeg, items32, items_it, m5[4],
+            sel_cap=sizes.get("a_sel", 0), c_cap=sizes["s_cap"], **s6)
+    meta_all = torch.cat([m1, m2, m3, m4, m5, m6])
+    scl = torch.stack([seed_cnt.to(al.fm.itype), l_rep])
+    # ext2 context: device tensors the round-2 dispatch needs (the items
+    # come back from the host as an explicit subset)
+    ctx = dict(seq_dev=seq_dev, l_dev=l_dev, seed_chain=seed_chain,
+               sv=seeds.valid, sq=seeds.qbeg, sl=seeds.len, sr=seeds.rbeg,
+               s6=s6)
+    return meta_all, out32, out_it, chain32, c_pos, scl, ctx
+
+
+def _replay(al, reads, I32, IIT, CH32, CHPOS, l_rep, n, fallback,
+            has_res=None, prepass=False):
+    """Exact mem_chain_flt + mem_chain2aln skip/accept replay
+    (bwamem.c:334-392, 674-793) over the fetched arenas, in the native
+    hostops.replay_batch.
+
+    Two-round extension contract (has_res = per-item result mask):
+    prepass=True returns just the needed-item index array (round-2 work
+    list).  prepass=False with has_res set is the FINAL walk — any read
+    whose walk still needs a result-less item (a rare prepass/exact
+    divergence) is demoted to the fallback rows, keeping the output
+    bit-identical unconditionally."""
+    from bwamem_tpu_torch import native
+    opt: MemOptions = al.opt
+    with timers.section("front.prepass" if prepass else "front.replay"):
+        (i_read, _i_slot, i_chain, i_qbeg, i_len, n_qb, n_qe, score,
+         truesc, n_w, seedcov) = (I32[k] for k in range(11))
+        i_rbeg, n_rb, n_re = IIT[0], IIT[1], IIT[2]
+        c_read, c_w, c_beg, c_end, c_ra = (CH32[k] for k in range(5))
+        ch_base = np.searchsorted(c_read, np.arange(n + 1))
+        it_base = np.searchsorted(i_read, np.arange(n + 1))
+        skip = np.zeros(n, np.uint8)
+        for i in fallback:
+            if i < n:
+                skip[i] = 1
+        l_seq = np.fromiter((r.l_seq for r in reads[:n]), np.int32, n)
+        out_base, out_m, out_rid, needed = native.replay_batch(
+            ch_base, c_w, c_beg, c_end, (c_ra & 1).astype(np.uint8),
+            CHPOS, c_ra >> 1, it_base, i_chain, i_qbeg, i_len, i_rbeg,
+            n_qb, n_qe, n_rb, n_re, n_w, skip, l_seq, opt,
+            has_res=has_res)
+        if prepass:
+            return needed
+        bad_reads = set()
+        if has_res is not None and needed.size:
+            # final walk hit unresolved items: demote those reads
+            for r in (np.searchsorted(it_base, needed, side="right") - 1):
+                bad_reads.add(int(r))
+                fallback.add(int(r))
+        if has_res is None:
+            timers.count("ext.items", int(it_base[n]))
+        timers.count("ext.accepted", len(out_m))
+        qb_l = n_qb[out_m].tolist()
+        qe_l = n_qe[out_m].tolist()
+        rb_l = n_rb[out_m].tolist()
+        re_l = n_re[out_m].tolist()
+        sc_l = score[out_m].tolist()
+        ts_l = truesc[out_m].tolist()
+        w_l = n_w[out_m].tolist()
+        sl_l = i_len[out_m].tolist()
+        cov_l = seedcov[out_m].tolist()
+        rid_l = out_rid.tolist()
+        regs_out: list[list[AlnReg]] = [[] for _ in range(n)]
+        ob = out_base.tolist()
+        for i in range(n):
+            b, e = ob[i], ob[i + 1]
+            if b == e or i in bad_reads:
+                continue
+            frac_rep = float(l_rep[i]) / max(l_seq[i], 1)
+            regs_out[i] = [
+                AlnReg(rb=rb_l[j], re=re_l[j], qb=qb_l[j], qe=qe_l[j],
+                       rid=rid_l[j], score=sc_l[j], truesc=ts_l[j],
+                       w=w_l[j], seedcov=cov_l[j], seedlen0=sl_l[j],
+                       frac_rep=frac_rep)
+                for j in range(b, e)]
+    return regs_out

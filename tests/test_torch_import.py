@@ -1,0 +1,105 @@
+"""bwamem_tpu_torch stands alone: importing it loads neither JAX nor
+bwamem_tpu (checked in a subprocess, since this test process has both),
+no source file of the package or chip_smoke.py imports them, its entry
+points refuse to run without a GPU unless asked for the CPU, and
+chip_smoke.py fails without a GPU or outside a checkout."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "bwamem_tpu_torch"
+MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
+           "bwamem_tpu_torch.pipeline.align",
+           "bwamem_tpu_torch.pipeline.device_front",
+           "bwamem_tpu_torch.ops.ext_kernel", "bwamem_tpu_torch.finalize",
+           "bwamem_tpu_torch.io.sam", "bwamem_tpu_torch.index",
+           "bwamem_tpu_torch.native"]
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_import_loads_no_jax():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "bad = sorted(m for m in sys.modules if m == 'jax' or "
+              "m.startswith('jax.') or m == 'bwamem_tpu' or "
+              "m.startswith('bwamem_tpu.'))\n"
+              "print('BAD', bad)\n"
+              "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "BAD []" in r.stdout
+
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|bwamem_tpu)\b"
+                     r"(?!_torch)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in
+    list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]))
+def test_sources_import_neither(path):
+    text = (REPO / path).read_text()
+    hits = [m.group(0).strip() for m in _IMPORT.finditer(text)]
+    assert not hits, f"{path}: {hits}"
+
+
+def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tmp_path):
+    from bwamem_tpu_torch import cli
+    from bwamem_tpu_torch.pipeline.align import Aligner, resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Aligner(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    from torch_port_util import make_dataset
+    data = make_dataset(tmp_path, genome_len=5000, n_reads=4, kmer=False,
+                        n_contigs=1)
+    out = tmp_path / "out.sam"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["mem", "-o", str(out), data["prefix"], data["fq"]])
+    assert not out.exists()
+
+
+def test_cli_refuses_paired_end(tmp_path, capsys):
+    from bwamem_tpu_torch import cli
+    assert cli.main(["mem", "x", "r1.fq", "r2.fq"], device="cpu") == 1
+    assert cli.main(["mem", "-p", "x", "r.fq"], device="cpu") == 1
+    assert "paired-end" in capsys.readouterr().err
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=_clean_env() | {"CUDA_VISIBLE_DEVICES": ""},
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_gpu():
+    r = _run_smoke(REPO)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_outside_checkout(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       env={k: v for k, v in _clean_env().items()
+                            if k != "PYTHONPATH"},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,0 +1,100 @@
+"""Shared inputs for the tests that hold bwamem_tpu_torch against bwamem_tpu.
+
+Every input is made with numpy from a seed (tools/simdata.py genomes and
+reads, indexed with bwamem_tpu.index.build_index), and the same arrays go
+to both packages.  No oracle is needed."""
+from __future__ import annotations
+
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO / "tools"))
+# The tensors here are small: intra-op threads only add contention with
+# XLA's thread pool and the other test workers.
+torch.set_num_threads(1)
+
+
+def make_dataset(dirpath, *, genome_len=50_000, n_reads=96, seed=3,
+                 kmer=True, n_contigs=2):
+    """Genome + 101 bp reads + both packages' index of it under dirpath.
+    Returns dict(prefix, fa, fq, jidx, tidx)."""
+    import simdata
+    from bwamem_tpu.index import build_index
+    from bwamem_tpu_torch.index import load_index
+    d = Path(dirpath)
+    d.mkdir(parents=True, exist_ok=True)
+    fa, fq, prefix = str(d / "g.fa"), str(d / "r.fq"), str(d / "g")
+    contigs = simdata.make_genome(genome_len, seed=seed, n_contigs=n_contigs)
+    simdata.write_fasta(contigs, fa)
+    simdata.write_fastq(simdata.sim_reads(contigs, n_reads, read_len=101,
+                                          seed=seed + 1), fq)
+    jidx = build_index(fa, with_kmer_table=kmer)
+    jidx.save(prefix)
+    return dict(prefix=prefix, fa=fa, fq=fq, jidx=jidx,
+                tidx=load_index(prefix))
+
+
+def torch_opt(jopt=None):
+    """The port's MemOptions carried across from the reference's."""
+    from bwamem_tpu.config import MemOptions as JOpt
+    from bwamem_tpu_torch.config import options_from
+    return options_from(dataclasses.asdict(jopt or JOpt()))
+
+
+def jfm_arrays(jfm) -> dict:
+    """The reference FM's leaves (and static fields) as numpy."""
+    return {f.name: (None if getattr(jfm, f.name) is None
+                     else np.asarray(getattr(jfm, f.name)))
+            for f in dataclasses.fields(jfm)}
+
+
+def T(x, dtype=None):
+    """A reference-package array (or tree leaf) as a CPU tensor."""
+    t = torch.from_numpy(np.array(x))
+    return t if dtype is None else t.to(dtype)
+
+
+def N(x):
+    """A tensor or array as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_same(a, b, what=""):
+    """Exact equality of values (dtypes may differ)."""
+    a, b = N(a), N(b)
+    assert a.shape == b.shape, f"{what}: shape {a.shape} vs {b.shape}"
+    kind = np.float64 if (a.dtype.kind == "f" or b.dtype.kind == "f") \
+        else np.int64
+    bad = np.flatnonzero(a.reshape(-1).astype(kind)
+                         != b.reshape(-1).astype(kind))
+    assert bad.size == 0, (f"{what}: {bad.size} of {a.size} differ; first "
+                           f"at {bad[:5]}: {a.reshape(-1)[bad[:5]]} vs "
+                           f"{b.reshape(-1)[bad[:5]]}")
+
+
+def front_setup(dirpath, *, n_reads=96, kmer=True):
+    """Both packages' aligners on one dataset plus one packed batch and the
+    port's default arena sizes for it."""
+    from bwamem_tpu.io.fastq import pack_batch, read_fastx
+    from bwamem_tpu.pipeline.align import Aligner as JAligner
+    from bwamem_tpu_torch.pipeline import device_front as tdf
+    from bwamem_tpu_torch.pipeline.align import Aligner as TAligner
+    data = make_dataset(dirpath, n_reads=n_reads, kmer=kmer)
+    reads = list(read_fastx(data["fq"]))
+    ja = JAligner(data["jidx"])
+    ta = TAligner(data["tidx"], torch_opt(), device="cpu")
+    n = len(reads)
+    Nb = 8
+    while Nb < n:
+        Nb <<= 1
+    seq, l_seq = pack_batch(reads, Nb, 128)
+    _, sizes = tdf._sizes_for(ta, Nb, 128)
+    return dict(data=data, reads=reads, ja=ja, ta=ta, seq=seq, l_seq=l_seq,
+                N=Nb, L=128, sizes=sizes)
