@@ -1,14 +1,22 @@
-// Banded affine-gap extension (ksw_extend2, ksw.c:380-479) with the
-// band-doubling retry of mem_chain2aln (bwamem.c:732-741), one CUDA thread
-// per lane.
+// Banded affine-gap extension (ksw_extend2, ksw.c:380-479), one CUDA thread
+// per lane, in two kernels over one lane loop (dp_pass):
+//   ext_pl2_kernel  both passes of mem_chain2aln's band-doubling retry
+//                   (bwamem.c:732-741) in the lane;
+//   ext_pl_kernel   one pass at a per-lane band, no retry (the caller
+//                   drives the retry over the lanes that need it).
 //
-// Replaces the TPU kernel bwamem_tpu/ops/pallas_ext.py: _kernel_retry via
-// extend_batch_pl2 (pallas_ext.py:229, 316).  The Pallas kernel solves the
-// F recurrence of a whole row with a log-shift prefix max down the
+// They replace the TPU kernels of bwamem_tpu/ops/pallas_ext.py:
+// _kernel_retry via extend_batch_pl2 (pallas_ext.py:229, 316) and _kernel
+// via extend_batch_pl (pallas_ext.py:213, 262).  The Pallas kernels solve
+// the F recurrence of a whole row with a log-shift prefix max down the
 // sublanes because the TPU has no fast scalar loop; on Hopper each thread
 // runs the scalar row loop of ksw.c over its own lane instead:
-//   * pass 1 at band w1; lanes whose max_off reached thr with a changed
-//     score (and qlen > 0) rerun from scratch at band w2;
+//   * ext_pl2: pass 1 at band w1; lanes whose max_off reached thr with a
+//     changed score (and qlen > 0) rerun from scratch at band w2;
+//   * a lane with qlen == 0 and tlen == 0 (padding) writes one scratch
+//     cell and returns score = h0;
+//   * every offset into the [L, B] planes is 64-bit: rows * B passes 2^31
+//     for long reads;
 //   * the [L, B] layouts of the query, target and eh scratch are kept, so
 //     at a given row/column thread b reads column b and a warp's loads
 //     are coalesced when its lanes sit at the same column;
@@ -20,8 +28,8 @@
 // and the load imbalance between lanes of a warp set the time.
 //
 // The same source compiles as host C++ (no __CUDACC__), exposing the lane
-// loop as ext_pl2_host so the DP can be checked on a machine without a
-// card.
+// loops as ext_pl2_host and ext_pl_host so the DP can be checked on a
+// machine without a card.
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -142,7 +150,64 @@ static EXT_HD void ext_lane(const int* qT, const int* tT, const int* qlen,
   out[6 * B + b] = retry;
 }
 
+// Lane b: one pass at band w[b].  out is [6, B]: score, qle, tle, gtle,
+// gscore, max_off.
+static EXT_HD void ext_pl_lane(const int* qT, const int* tT, const int* qlen,
+                               const int* tlen, const int* h0, const int* w,
+                               int* eh, int* out, const int* mat, int b,
+                               const ExtParams& P) {
+  const long long B = P.B;
+  const long long plane = (long long)(P.LQ + 1) * B;
+  const PassOut r = dp_pass(qT, tT, eh, eh + plane, mat, b, qlen[b], tlen[b],
+                            h0[b], w[b], P);
+  out[0 * B + b] = r.mx;
+  out[1 * B + b] = r.max_j + 1;
+  out[2 * B + b] = r.max_i + 1;
+  out[3 * B + b] = r.max_ie + 1;
+  out[4 * B + b] = r.gscore;
+  out[5 * B + b] = r.max_off;
+}
+
+static void fill_params(ExtParams& P, const int* mat25, int o_del, int e_del,
+                        int o_ins, int e_ins, int zdrop, int B, int LQ,
+                        int t_max) {
+  for (int k = 0; k < 25; ++k) P.mat[k] = mat25[k];
+  P.o_del = o_del; P.e_del = e_del; P.o_ins = o_ins; P.e_ins = e_ins;
+  P.zdrop = zdrop; P.B = B; P.LQ = LQ; P.t_max = t_max;
+}
+
 #ifdef __CUDACC__
+
+__global__ void __launch_bounds__(128)
+ext_pl_kernel(const int* __restrict__ qT, const int* __restrict__ tT,
+              const int* __restrict__ qlen, const int* __restrict__ tlen,
+              const int* __restrict__ h0, const int* __restrict__ w,
+              int* __restrict__ eh, int* __restrict__ out, ExtParams P) {
+  __shared__ int smat[25];
+  if (threadIdx.x < 25) smat[threadIdx.x] = P.mat[threadIdx.x];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= P.B) return;                   // ragged edge
+  ext_pl_lane(qT, tT, qlen, tlen, h0, w, eh, out, smat, b, P);
+}
+
+// C entry for ctypes, as ext_pl2_launch below: device pointers, a host
+// int32[25] matrix; returns cudaGetLastError() after the launch.
+extern "C" int ext_pl_launch(const int* qT, const int* tT, const int* qlen,
+                             const int* tlen, const int* h0, const int* w,
+                             int* eh, int* out, int B, int LQ, int t_max,
+                             const int* mat25, int o_del, int e_del,
+                             int o_ins, int e_ins, int zdrop, void* stream) {
+  ExtParams P;
+  fill_params(P, mat25, o_del, e_del, o_ins, e_ins, zdrop, B, LQ, t_max);
+  if (B > 0) {
+    const int threads = 128;
+    const int blocks = (B + threads - 1) / threads;
+    ext_pl_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        qT, tT, qlen, tlen, h0, w, eh, out, P);
+  }
+  return (int)cudaGetLastError();
+}
 
 __global__ void __launch_bounds__(128)
 ext_pl2_kernel(const int* __restrict__ qT, const int* __restrict__ tT,
@@ -168,9 +233,7 @@ extern "C" int ext_pl2_launch(const int* qT, const int* tT, const int* qlen,
                               int o_ins, int e_ins, int zdrop,
                               void* stream) {
   ExtParams P;
-  for (int k = 0; k < 25; ++k) P.mat[k] = mat25[k];
-  P.o_del = o_del; P.e_del = e_del; P.o_ins = o_ins; P.e_ins = e_ins;
-  P.zdrop = zdrop; P.B = B; P.LQ = LQ; P.t_max = t_max;
+  fill_params(P, mat25, o_del, e_del, o_ins, e_ins, zdrop, B, LQ, t_max);
   if (B > 0) {
     const int threads = 128;
     const int blocks = (B + threads - 1) / threads;
@@ -182,7 +245,19 @@ extern "C" int ext_pl2_launch(const int* qT, const int* tT, const int* qlen,
 
 #else
 
-// Host build of the same lane loop (all pointers are host memory).
+// Host builds of the same lane loops (all pointers are host memory).
+extern "C" int ext_pl_host(const int* qT, const int* tT, const int* qlen,
+                           const int* tlen, const int* h0, const int* w,
+                           int* eh, int* out, int B, int LQ, int t_max,
+                           const int* mat25, int o_del, int e_del,
+                           int o_ins, int e_ins, int zdrop) {
+  ExtParams P;
+  fill_params(P, mat25, o_del, e_del, o_ins, e_ins, zdrop, B, LQ, t_max);
+  for (int b = 0; b < B; ++b)
+    ext_pl_lane(qT, tT, qlen, tlen, h0, w, eh, out, P.mat, b, P);
+  return 0;
+}
+
 extern "C" int ext_pl2_host(const int* qT, const int* tT, const int* qlen,
                             const int* tlen, const int* h0, const int* w1,
                             const int* w2, int thr, int* eh, int* out,
@@ -190,9 +265,7 @@ extern "C" int ext_pl2_host(const int* qT, const int* tT, const int* qlen,
                             const int* mat25, int o_del, int e_del,
                             int o_ins, int e_ins, int zdrop) {
   ExtParams P;
-  for (int k = 0; k < 25; ++k) P.mat[k] = mat25[k];
-  P.o_del = o_del; P.e_del = e_del; P.o_ins = o_ins; P.e_ins = e_ins;
-  P.zdrop = zdrop; P.B = B; P.LQ = LQ; P.t_max = t_max;
+  fill_params(P, mat25, o_del, e_del, o_ins, e_ins, zdrop, B, LQ, t_max);
   for (int b = 0; b < B; ++b)
     ext_lane(qT, tT, qlen, tlen, h0, w1, w2, thr, eh, out, P.mat, b, P);
   return 0;

@@ -1,10 +1,13 @@
-"""Chain extension windows (the head of mem_chain2aln, bwamem.c:639-666)."""
+"""Chain extension windows and the per-read work order (the head of
+mem_chain2aln, bwamem.c:639-676)."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from bwamem_tpu_torch.ops import fm as fmops
-from bwamem_tpu_torch.ops.chain import Chains, Seeds
+from bwamem_tpu_torch.ops.chain import Chains, FilteredChains, Seeds
 
 
 def _cal_max_gap(qlen, a: int, o_del: int, e_del: int, o_ins: int,
@@ -61,3 +64,46 @@ def chain_rmax(seeds: Seeds, chains: Chains, l_seq, fm: fmops.FM,
     fb = torch.where(is_rev, 2 * fm.l_pac - nxt, far_beg)
     fe = torch.where(is_rev, 2 * fm.l_pac - far_beg, nxt)
     return torch.maximum(rmax0, fb), torch.minimum(rmax1, fe)
+
+
+class WorkList(NamedTuple):
+    seed_slot: torch.Tensor   # [N, S] slot of w-th work item
+    chain: torch.Tensor       # [N, S] chain of w-th item (-1 invalid)
+    n: torch.Tensor           # [N]
+
+
+def build_worklist(seeds: Seeds, chains: Chains,
+                   fl: FilteredChains) -> WorkList:
+    """Processing order: chains by filter order (kept only), seeds within a
+    chain by (len desc, slot desc) — the reverse of the reference's
+    ks_introsort_64 ascending (score<<32|i) walk (bwamem.c:669-674).
+
+    The sort key packs (filter position << 24) | ((512 - len) << 12) |
+    (S - slot) in int64.  For a seed longer than 512 bp the middle field is
+    negative and its sign bits run over the position field; the key is kept
+    bit for bit as the JAX package computes it (its output is the
+    reference here), and the host tie-order and re-scoring passes
+    (pipeline/chainflt_host) rebuild the rows where it matters."""
+    N, S = seeds.rbeg.shape
+    C = chains.pos.shape[1]
+    dev = seeds.rbeg.device
+    i32, i64 = torch.int32, torch.int64
+    order_c = fl.order.to(i64)
+    # position of each chain in the filtered order, and its kept mark
+    ord_pos = torch.zeros((N, C), dtype=i32, device=dev).scatter_(
+        1, order_c, torch.arange(C, dtype=i32, device=dev)[None, :].expand(
+            N, C))
+    kept_of_chain = torch.zeros((N, C), dtype=i32, device=dev).scatter_(
+        1, order_c, fl.kept.to(i32))
+    sc = chains.seed_chain
+    scc = sc.clamp(0, C - 1).to(i64)
+    in_kept = ((sc >= 0) & (torch.gather(kept_of_chain, 1, scc) > 0)
+               & seeds.valid)
+    p = torch.gather(ord_pos, 1, scc)
+    slots = torch.arange(S, dtype=i64, device=dev)[None, :]
+    key = (p.to(i64) << 24 | (512 - seeds.len.to(i64)) << 12
+           | (S - slots))
+    key = torch.where(in_kept, key, 1 << 40)
+    order = torch.sort(key, dim=1, stable=True).indices
+    w_chain = torch.gather(torch.where(in_kept, sc, -1), 1, order)
+    return WorkList(order.to(i32), w_chain, in_kept.sum(dim=1).to(i32))

@@ -194,3 +194,90 @@ def chain_weights(seeds: Seeds, chains: Chains) -> torch.Tensor:
     wr = coverage(rb)
     w = torch.minimum(wq, wr)
     return w.clamp(max=(1 << 30) - 1).to(torch.int32)
+
+
+class FilteredChains(NamedTuple):
+    order: torch.Tensor   # [N, C] chain indices in weight-desc processing order
+    kept: torch.Tensor    # [N, C] 0/1/2/3 per ORDERED position
+    w: torch.Tensor       # [N, C] weight per ordered position
+    n: torch.Tensor       # [N] chains entering the filter
+
+
+def filter_chains(chains: Chains, weights: torch.Tensor, seeds: Seeds,
+                  *, mask_level: float, drop_ratio: float, min_seed_len: int,
+                  max_chain_gap: int, min_chain_weight: int,
+                  max_chain_extend: int) -> FilteredChains:
+    """mem_chain_flt (bwamem.c:334-392), lockstep over reads.
+
+    Chains are processed in weight-descending order (stable on the B-tree
+    traversal order = pos ascending) against the kept list; shadowed chains
+    with a sufficiently lower weight are dropped, and each kept chain's first
+    shadowed victim is resurrected with kept=1 for mapq accuracy.  One trip
+    per ordered position, up to the largest count of heavy chains in the
+    group (one host read of that count)."""
+    N, C = weights.shape
+    dev = weights.device
+    i32, f32 = torch.int32, torch.float32
+    # chain span on the query: first seed qbeg .. last seed qbeg+len
+    beg = chains.first_qbeg
+    end = chains.last_qbeg + chains.last_len
+    idxs = torch.arange(C, dtype=i32, device=dev)[None, :]
+    exists = idxs < chains.n[:, None]
+    heavy = exists & (weights >= min_chain_weight)
+    # order: traversal order is pos ascending (creation order on ties), then
+    # a stable sort by weight descending
+    trav_key = torch.sort(
+        torch.where(exists, chains.pos, _imax(chains.pos.dtype)), dim=1,
+        stable=True).indices
+    w_trav = torch.gather(weights, 1, trav_key)
+    h_trav = torch.gather(heavy, 1, trav_key)
+    sort2 = torch.sort(torch.where(h_trav, -w_trav, 2 ** 30).to(i32), dim=1,
+                       stable=True).indices
+    order = torch.gather(trav_key, 1, sort2)               # [N, C]
+    w_ord = torch.gather(weights, 1, order)
+    beg_o = torch.gather(beg, 1, order)
+    end_o = torch.gather(end, 1, order)
+    alt_o = torch.gather(chains.is_alt, 1, order)
+    n_f = torch.gather(heavy, 1, order).sum(dim=1)
+
+    kept = torch.zeros((N, C), dtype=i32, device=dev)
+    kept[:, 0] = torch.where(n_f > 0, 3, 0)
+    first = torch.full((N, C), -1, dtype=i32, device=dev)
+    li_all = end_o - beg_o
+    w_f = w_ord.to(f32)
+    # positions at or past a row's n_f are inactive: they change nothing
+    for i in range(1, min(C, int(n_f.max())) if N else 0):
+        active = i < n_f                                   # [N]
+        in_kept = kept >= 2                                # kept list members
+        b_max = torch.maximum(beg_o, beg_o[:, i, None])
+        e_min = torch.minimum(end_o, end_o[:, i, None])
+        ovl = (e_min > b_max) & (~alt_o | alt_o[:, i, None])
+        min_l = torch.minimum(li_all, li_all[:, i, None])
+        sig = (ovl & ((e_min - b_max).to(f32) >= min_l.to(f32) * mask_level)
+               & (min_l < max_chain_gap) & in_kept)
+        dropj = sig & ((w_f[:, i, None] < w_f * drop_ratio)
+                       & (w_ord - w_ord[:, i, None] >= (min_seed_len << 1)))
+        brk = torch.where(dropj, idxs, C).min(dim=1).values  # first breaking j
+        dropped = active & (brk < C)
+        upto = sig & (idxs <= brk[:, None])
+        mark = upto & (first < 0) & active[:, None]
+        first = torch.where(mark, i, first).to(i32)
+        large = upto.any(dim=1)
+        kept_i = torch.where(dropped, 0, torch.where(large, 2, 3)).to(i32)
+        kept[:, i] = torch.where(active, kept_i, kept[:, i])
+    # resurrection: for kept chains with first >= 0, set kept[first] = 1
+    # (column C collects the chains with nothing to resurrect and is cut)
+    is_kept = kept >= 2
+    res = torch.zeros((N, C + 1), dtype=torch.bool, device=dev)
+    res.scatter_(1, torch.where(is_kept & (first >= 0), first, C
+                                ).to(torch.int64),
+                 torch.ones((N, C), dtype=torch.bool, device=dev))
+    kept = torch.where(res[:, :C] & (kept == 0), 1, kept)
+    # max_chain_extend: cap the number of kept in {1, 2} chains; once the
+    # cap is hit, all later kept<3 chains are dropped
+    ext = (kept == 1) | (kept == 2)
+    cum_ext = torch.cumsum(ext.to(i32), dim=1)
+    over = ext & (cum_ext > max_chain_extend)
+    hit = torch.cumsum(over.to(i32), dim=1) > 0
+    kept = torch.where(hit & (kept < 3), 0, kept).to(i32)
+    return FilteredChains(order=order, kept=kept, w=w_ord, n=n_f)

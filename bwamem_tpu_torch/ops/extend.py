@@ -11,7 +11,10 @@ max_off tracking — organized as tensor ops over every lane at once:
     better F (oe > e), F(j) = max_{j'<j} (max(0, M(j')-oe) - (j-1-j')*e),
     which after adding e*j to both sides is a plain running maximum;
   * per-lane scalars (beg, end, max, max_i/j, gscore, zdrop-done) are
-    [B] tensors; finished lanes are masked, not retired.
+    [B] tensors; finished lanes are masked, not retired;
+  * at row i every lane's window lies in columns [i - w, i + w + 1), so a
+    trip works on that column slice of the state (in place), not on the
+    whole query width: a 5 kbp query costs 2w + 2 columns a row.
 
 This is the plain version of the hand-written extension kernel
 (ops/ext_kernel.py): the CPU runs it, and the card checks the kernel
@@ -110,6 +113,9 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor, target_at,
     done = tlen <= 0
     negcol = torch.full((B, 1), NEG, dtype=i32, device=dev)
     zcol = torch.zeros((B, 1), dtype=i32, device=dev)
+    # the widest band of the batch (one host read) bounds every row's
+    # column slice
+    w_hi = int(w.max()) if B else 0
 
     for i in range(t_max):
         if i % check_every == 0 and bool(done.all()):
@@ -117,24 +123,34 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor, target_at,
         act = (~done) & (i < tlen)
         begi = torch.clamp(beg, min=i - w)
         endi = torch.minimum(torch.minimum(end, i + w + 1), qlen)
+        # columns [lo, hi) hold every lane's window [begi, endi) of this
+        # row; the eh planes are touched in [lo, hi] (they run to endi)
+        lo = max(0, min(i - w_hi, LQ - 1))
+        hi = min(LQ, i + w_hi + 1)
+        colw = col[:, lo:hi]
+        jjw = jj[:, lo:hi + 1]
+        rampw = ramp[:, lo:hi]
+        eh_hw = eh_h[:, lo:hi + 1]
+        eh_ew = eh_e[:, lo:hi + 1]
 
         tb = target_at(i)                 # garbage for finished lanes is
-        q = prof[:, 4]                    # fine: they are masked below
+        q = prof[:, 4, lo:hi]             # fine: they are masked below
         for c in range(4):
-            q = torch.where(tb[:, None] == c, prof[:, c], q)
+            q = torch.where(tb[:, None] == c, prof[:, c, lo:hi], q)
 
-        win = (col >= begi[:, None]) & (col < endi[:, None])
+        win = (colw >= begi[:, None]) & (colw < endi[:, None])
 
-        M = eh_h[:, :LQ]
-        E = eh_e[:, :LQ]
+        M = eh_hw[:, :-1]
+        E = eh_ew[:, :-1]
         Mq = torch.where(M != 0, M + q, 0)            # ksw.c:433 M?M+q:0
-        # F via prefix-max with linear decay (first f at beg is 0)
+        # F via prefix-max with linear decay (first f at beg is 0); the
+        # columns left of the slice lie outside every window
         t_ins = (Mq - oe_ins).clamp(min=0)
-        A = torch.where(win, t_ins + ramp + e_ins, NEG)
+        A = torch.where(win, t_ins + rampw + e_ins, NEG)
         G = torch.cummax(A, dim=1).values
         Gprev = torch.cat([negcol, G[:, :-1]], dim=1)
-        F = (Gprev - ramp).clamp(min=0)
-        F = torch.where(col == begi[:, None], 0, F)
+        F = (Gprev - rampw).clamp(min=0)
+        F = torch.where(colw == begi[:, None], 0, F)
 
         h = torch.maximum(torch.maximum(Mq, E), F)
         h = torch.where(win, h, 0)
@@ -145,8 +161,8 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor, target_at,
                               0)
 
         # row max + its LAST attaining column, and h at column end-1
-        mj_enc = ((h << SH) | col).max(dim=1).values
-        h1_enc = torch.where(col == (endi - 1)[:, None], h, NEG
+        mj_enc = ((h << SH) | colw).max(dim=1).values
+        h1_enc = torch.where(colw == (endi - 1)[:, None], h, NEG
                              ).max(dim=1).values
         m = mj_enc >> SH
         mj = torch.where(m > 0, mj_enc & CMASK,
@@ -157,14 +173,14 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor, target_at,
 
         # write back eh rows: eh_h[j] = H(i, j-1) for j in [beg, end];
         # eh_e[j] for j in [beg, end); eh_e[end] = 0
-        h_sh = torch.cat([zcol, h], dim=1)                    # [B, L1]
-        wh = (jj >= begi[:, None]) & (jj <= endi[:, None])
-        new_h = torch.where(jj == begi[:, None], h1_init[:, None], h_sh)
-        eh_h2 = torch.where(wh & act[:, None], new_h, eh_h)
+        h_sh = torch.cat([zcol, h], dim=1)
+        wh = (jjw >= begi[:, None]) & (jjw <= endi[:, None])
+        new_h = torch.where(jjw == begi[:, None], h1_init[:, None], h_sh)
+        eh_h2 = torch.where(wh & act[:, None], new_h, eh_hw)
         e_pad = torch.cat([e_new, zcol], dim=1)
-        we = (jj >= begi[:, None]) & (jj < endi[:, None])
-        eh_e2 = torch.where(we & act[:, None], e_pad, eh_e)
-        eh_e2 = torch.where((jj == endi[:, None]) & act[:, None], 0, eh_e2)
+        we = (jjw >= begi[:, None]) & (jjw < endi[:, None])
+        eh_e2 = torch.where(we & act[:, None], e_pad, eh_ew)
+        eh_e2 = torch.where((jjw == endi[:, None]) & act[:, None], 0, eh_e2)
 
         # gscore at the last query column (ksw.c:450-453)
         h1_last = torch.where(endi > begi, h1_enc, h1_init)
@@ -193,8 +209,8 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor, target_at,
         # the last-nz mask can start at beg)
         nz = (eh_h2 != 0) | (eh_e2 != 0)
         BIGJ = 1 << 20
-        fst = torch.where(we & nz, BIGJ - jj, -1).max(dim=1).values
-        lst = torch.where(wh & nz, jj, -1).max(dim=1).values
+        fst = torch.where(we & nz, BIGJ - jjw, -1).max(dim=1).values
+        lst = torch.where(wh & nz, jjw, -1).max(dim=1).values
         first_nz = torch.where(fst < 0, L1, BIGJ - fst)
         beg2 = torch.minimum(first_nz, endi)
         end2 = torch.minimum(lst + 2, qlen)
@@ -202,7 +218,8 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor, target_at,
         done = done | brk0 | brk1 | (i + 1 >= tlen)
         keep = act & ~brk0 & ~brk1
         live = act & ~brk0
-        eh_h, eh_e = eh_h2, eh_e2
+        eh_h[:, lo:hi + 1] = eh_h2
+        eh_e[:, lo:hi + 1] = eh_e2
         beg = torch.where(keep, beg2, beg).to(i32)
         end = torch.where(keep, end2, end).to(i32)
         mx = torch.where(live, mx2, mx)

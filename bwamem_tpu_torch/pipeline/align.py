@@ -5,6 +5,9 @@ onto the device/host split:
 
   device (pipeline.device_front): nt4 batch -> 3-pass SMEM collection ->
       SA walk -> chaining -> speculative banded extension, one fetch
+  device + host (pipeline.seeding_host, chainflt_host, extend_host): the
+      host-compacted front for the rows and batches the device front hands
+      back (long reads, seed-cap overflows, demoted rows)
   host   (device_front._replay, finalize.py): exact chain filter and
       accept/skip walk -> dedup/patch -> primary marking -> record
       selection & XA phase A -> native banded global alignment (CIGAR)
@@ -26,14 +29,10 @@ from bwamem_tpu_torch.config import (MemOptions, MEM_F_ALL, MEM_F_NO_MULTI,
 from bwamem_tpu_torch.io import sam as samio
 from bwamem_tpu_torch.io.fastq import Read, pack_batch
 from bwamem_tpu_torch.ops import fm as fmops
+from bwamem_tpu_torch.ops import local_sw
+from bwamem_tpu_torch.pipeline import _shapes
+from bwamem_tpu_torch.pipeline._shapes import pow2_bucket
 from bwamem_tpu_torch.utils import timers
-
-
-def _bucket(x: int, lo: int = 32) -> int:
-    n = lo
-    while n < x:
-        n <<= 1
-    return n
 
 
 def _lbucket(x: int) -> int:
@@ -53,18 +52,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class FallbackRowsError(NotImplementedError):
-    """Rows that need the host-compacted front, which this package does not
-    have yet (seed-cap overflows, long reads entering
-    mem_flt_chained_seeds, reads the final two-round walk demotes)."""
-
-    def __init__(self, rows):
-        self.rows = list(rows)
-        super().__init__(
-            f"{len(self.rows)} read(s) need the host-compacted front, which "
-            f"is not ported yet (first rows: {self.rows[:8]})")
-
-
 class Aligner:
     """Holds the device-resident index and the arena-size history."""
 
@@ -79,45 +66,97 @@ class Aligner:
         self.ctg_is_alt = torch.from_numpy(
             np.asarray(idx.is_alt_flags())).to(self.device)
         self.ctg_offsets_np = idx.contig_offsets()
+        self.ctg_lens_np = idx.contig_lens()
         self.ctg_is_alt_np = idx.is_alt_flags()
         self.ctg_names = [c.name for c in idx.contigs]
         self.ctg_annos = [c.anno for c in idx.contigs]
         self.pac = idx.pac
         self.l_pac = int(idx.l_pac)
+        # arena high-water histories of the two fronts, by batch shape
         self._front_hist: dict = {}
+        self._seed_arena_hist: dict = {}
         from bwamem_tpu_torch import native
         native.load()
+
+    # ---------------------------------------------------------- device ops
+
+    def _device_ksw(self, q, qlen, t, tlen, minsc, p):
+        """Batched ksw_align2 (ops/local_sw) on the aligner's device over
+        numpy lanes; returns a KswResult of numpy arrays.  p = SIMD stripe
+        of the emulated ksw kernel: 16 when every lane has l_ms*a < 250
+        (KSW_XBYTE, bwamem_pair.c:176), else 8; the caller groups jobs
+        accordingly.  LQ is padded so phantom columns fit."""
+        B = q.shape[0]
+        dev = self.device
+        LQ = pow2_bucket(-(-q.shape[1] // p) * p, lo=32)
+        LT = pow2_bucket(t.shape[1], lo=64)
+        outs = []
+        for s0, c in _shapes.chunks(B, _shapes.lane_tile(dev)):
+            Bp = _shapes.lanes(c, dev, fine_lo=8, coarse_lo=64)
+            sl = slice(s0, s0 + c)
+
+            def put(a, **pad):
+                return torch.from_numpy(np.pad(a, **pad)).to(dev)
+
+            timers.count("dispatch.local_sw")
+            res = local_sw.ksw_align_batch(
+                put(q[sl], pad_width=((0, Bp - c), (0, LQ - q.shape[1])),
+                    constant_values=4),
+                put(qlen[sl], pad_width=(0, Bp - c), constant_values=0),
+                put(t[sl], pad_width=((0, Bp - c), (0, LT - t.shape[1])),
+                    constant_values=4),
+                put(tlen[sl], pad_width=(0, Bp - c), constant_values=0),
+                put(minsc[sl], pad_width=(0, Bp - c), constant_values=1),
+                self.opt.mat, o_del=self.opt.o_del, e_del=self.opt.e_del,
+                o_ins=self.opt.o_ins, e_ins=self.opt.e_ins,
+                max_mat=int(self.opt.a), p=p)
+            outs.append([x.cpu().numpy()[:c] for x in res])
+        return local_sw.KswResult(*(np.concatenate(xs) for xs in zip(*outs)))
 
     # ------------------------------------------------ shared host phases
 
     def begin_batch(self, reads: list[Read]) -> dict:
-        """Pack a batch and DISPATCH its device front without fetching.
-        The returned token feeds align_batch_se's `_front` parameter;
-        align_stream calls this for batch k+1 before batch k's host tail so
-        the device computes ahead."""
+        """Pack a batch and (when the device front supports it) DISPATCH
+        its device front without fetching.  The returned token feeds
+        align_batch_se's `_front` parameter; align_stream calls this for
+        batch k+1 before batch k's host tail so the device computes
+        ahead."""
         from bwamem_tpu_torch.pipeline import device_front
         n = len(reads)
-        N = _bucket(n, lo=8)
+        N = pow2_bucket(n, lo=8)
         L = _lbucket(max(r.l_seq for r in reads))
         seq, l_seq = pack_batch(reads, N, L)
-        if not device_front.supported(self, reads):
-            raise FallbackRowsError(range(n))
-        return dict(tok=device_front.front_start(self, reads, seq, l_seq))
+        tok = None
+        if device_front.supported(self, reads):
+            tok = device_front.front_start(self, reads, seq, l_seq)
+        return dict(seq=seq, l_seq=l_seq, tok=tok)
 
     def _regs_from_device(self, reads: list[Read],
                           front: dict | None = None, _prefetch=None
                           ) -> list[list[fin.AlnReg]]:
-        """Device front half + the tail of mem_align1_core (dedup + is_alt,
+        """Front half + the tail of mem_align1_core (dedup + is_alt,
         bwamem.c:1083-1095).  Returns per-read reg lists, pre-mark_primary.
-        Raises FallbackRowsError when rows need the host-compacted front."""
+
+        Primary path: pipeline.device_front (everything through extension
+        on the device, one fetch).  Rows it cannot take (cap overflows,
+        long reads needing mem_flt_chained_seeds, demoted rows) are re-run
+        through the host-compacted front and merged by row; so are whole
+        batches it does not support."""
         from bwamem_tpu_torch.pipeline import device_front
         n = len(reads)
         if front is None:
             front = self.begin_batch(reads)
-        out, fb_rows = device_front.front_finish(self, front["tok"])
-        timers.count("front.fallback_rows", len(fb_rows))
-        if fb_rows:
-            raise FallbackRowsError(fb_rows)
+        if front["tok"] is not None:
+            out, fb_rows = device_front.front_finish(self, front["tok"])
+            timers.count("front.fallback_rows", len(fb_rows))
+            if fb_rows:
+                sub_regs = self._regs_host_front([reads[i] for i in fb_rows])
+                for gi, i in enumerate(fb_rows):
+                    out[i] = sub_regs[gi]
+        else:
+            timers.count("front.fallback_rows", n)
+            out = self._regs_host_front(reads, seq=front["seq"],
+                                        l_seq=front["l_seq"])
         if _prefetch is not None:
             # the device is idle for this batch from here on — enqueue the
             # NEXT batch's front now so the host tail overlaps it
@@ -130,6 +169,32 @@ class Aligner:
                     if r.rid >= 0 and self.ctg_is_alt_np[r.rid]:
                         r.is_alt = 1
                 out[i] = ri
+        return out
+
+    def _regs_host_front(self, reads: list[Read], seq=None, l_seq=None):
+        """Host-compacted front half (pipeline.seeding_host +
+        pipeline.extend_host) — for the rows and batches the device front
+        cannot take.  Returns per-read reg lists in mem_chain2aln emission
+        order (pre-dedup)."""
+        from bwamem_tpu_torch.pipeline import (chainflt_host, extend_host,
+                                               seeding_host)
+        n = len(reads)
+        if seq is None:
+            N = pow2_bucket(n, lo=8)
+            L = _lbucket(max(r.l_seq for r in reads))
+            seq, l_seq = pack_batch(reads, N, L)
+        groups = seeding_host.front_half(self, reads, seq, l_seq)
+        out: list[list[fin.AlnReg]] = [[] for _ in range(n)]
+        for ridx, wr in groups:
+            g_reads = [reads[i] for i in ridx]
+            # long-read seed re-scoring (mem_flt_chained_seeds) — no-op for
+            # short reads, see the gate in chainflt_host
+            with timers.section("seed.flt_chained"):
+                chainflt_host.flt_chained_seeds(self, g_reads, wr)
+            g_regs = extend_host.extend_regions(self, g_reads, seq[ridx],
+                                                wr)
+            for gi, i in enumerate(ridx):
+                out[i] = g_regs[gi]
         return out
 
     def _phaseA_batch(self, all_regs, reads, jobs):

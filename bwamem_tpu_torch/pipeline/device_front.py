@@ -2,7 +2,9 @@
 chained device programs with ONE fetch of their results.
 
   P1/P2/P3  3-pass SMEM seeding (ops/smem) emitting flat interval arenas
-            (mem_collect_intv, reference bwamem.c:137-185)
+            (mem_collect_intv, reference bwamem.c:137-185); the programs
+            and their arena sizing live in pipeline/seeding_host, which
+            runs them too
   EXPAND    occurrence sampling + SA walk + rid filter + l_rep union +
             scatter into per-read seed grids (mem_chain head,
             bwamem.c:272-307)
@@ -24,8 +26,10 @@ Every arena has a static size; a program that overflows one reports it in
 its meta vector, and the driver grows the arena and reruns the batch.
 Reads that overflow the per-read seed cap, long reads that enter
 mem_flt_chained_seeds (bwamem.c:607-625) and reads the final two-round
-walk demotes need the host-compacted front, which this package does not
-have yet: the driver returns them as fallback rows and the caller raises.
+walk demotes need the host-compacted front (pipeline/seeding_host +
+pipeline/extend_host): front_finish returns them as fallback rows and
+the caller re-runs them there.  A batch in which half the rows or more are
+such long reads is not dispatched at all: every row is handed back.
 """
 from __future__ import annotations
 
@@ -41,32 +45,17 @@ from bwamem_tpu_torch.ops import align_ext
 from bwamem_tpu_torch.ops import chain as chainops
 from bwamem_tpu_torch.ops import ext_kernel
 from bwamem_tpu_torch.ops import fm as fmops
-from bwamem_tpu_torch.ops import smem as smemops
-from bwamem_tpu_torch.pipeline.seeding_host import _compact_flat
+from bwamem_tpu_torch.pipeline.chainflt_host import (
+    MEM_HSP_COEF, MEM_MINSC_COEF, MEM_SEEDSW_COEF)
+from bwamem_tpu_torch.pipeline._shapes import pow2_bucket
+from bwamem_tpu_torch.pipeline.seeding_host import (
+    _ar, _compact_flat, _fetch, _grow_sizes, _note_hwm, _note_seeding_hwm,
+    _p1_body, _p2_body, _p3_body, _seeding_kw, _seeding_overflows,
+    _sizes_for, _zero, use_kmer_table)
 from bwamem_tpu_torch.utils import timers
 
 i32 = torch.int32
 i64 = torch.int64
-
-# bwamem.c:574-576 (mem_flt_chained_seeds gate)
-MEM_HSP_COEF = 1.1
-MEM_MINSC_COEF = 5.5
-MEM_SEEDSW_COEF = 0.05
-
-
-def _bucket(x: int, lo: int = 8) -> int:
-    n = lo
-    while n < x:
-        n <<= 1
-    return n
-
-
-def _ar(n, dtype, dev):
-    return torch.arange(n, dtype=dtype, device=dev)
-
-
-def _zero(dtype, dev):
-    return torch.zeros((), dtype=dtype, device=dev)
 
 
 def _put(shape, fill, dtype, dev, idx, vals):
@@ -76,166 +65,6 @@ def _put(shape, fill, dtype, dev, idx, vals):
                      device=dev)
     out[idx] = vals.to(dtype)
     return out[tuple(slice(0, s) for s in shape)]
-
-
-# ---------------------------------------------------------------------------
-# P1: pass-1 SMEM scan (bwt_smem1a forward+backward over every pivot chain)
-# ---------------------------------------------------------------------------
-
-def _stage_ladder(base: int, width: int):
-    """Static halving arena ladder for back_extend_flat compaction; empty
-    for small batches (compaction overhead beats the win only at scale).
-    Candidate lifetimes are front-loaded (median 6 left steps), so deep
-    halving keeps the arena tracking the survivor count."""
-    if width < 8192:
-        return ()
-    out = []
-    for j in range(8):
-        # cap at the input arena width: a stage wider than its input can
-        # never overflow but still runs its k steps
-        w = min(max(base >> j, 512), width)
-        if out and w == out[-1] == 512:
-            break           # ladder hit the floor
-        out.append(w)
-    return tuple(out)
-
-
-def _p1_body(fm, seq, l_seq, *, cap, kmax, emax, min_seed_len, use_kmer,
-             b1s, t1s):
-    N, L = seq.shape
-    it = fm.itype
-    dev = seq.device
-    pre = smemops.kmer_pre0(fm, seq, l_seq) if use_kmer else None
-    c1 = smemops.forward_scan(fm, seq, l_seq, torch.zeros((N,), dtype=i32,
-                                                          device=dev),
-                              torch.ones((N,), dtype=it, device=dev), cap,
-                              multi_pivot=True, pre=pre, max_steps=t1s)
-    rows = _ar(N, i32, dev)[:, None].expand(N, cap)
-    slots = _ar(cap, i32, dev)[None, :].expand(N, cap)
-    mask1 = (slots < c1.n[:, None]).reshape(-1)
-    (lane_read, pivot, fx0, fx1, fx2), nk, k_over, pos1 = _compact_flat(
-        mask1, [(rows, i32), (c1.pivot, i32), (c1.x0, it), (c1.x1, it),
-                (c1.x2, it)], kmax)
-    fvalid = _ar(kmax, i32, dev) < nk
-    st1 = _stage_ladder(b1s, kmax)
-    ones = torch.ones((kmax,), dtype=it, device=dev)
-    if st1:
-        s_f, x0_f, x2_f, b1_over, b1_need = smemops.back_extend_flat(
-            fm, seq, lane_read, pivot, fx0, fx1, fx2, ones, fvalid,
-            stage_w=st1)
-    else:
-        s_f, x0_f, x2_f = smemops.back_extend_flat(
-            fm, seq, lane_read, pivot, fx0, fx1, fx2, ones, fvalid)
-        b1_over = _zero(torch.bool, dev)
-        b1_need = _zero(i32, dev)
-    maskg = mask1.reshape(N, cap)
-    back = torch.where(maskg, pos1.reshape(N, cap).clamp(max=kmax - 1),
-                       0).to(i64)
-    s_grid = torch.where(maskg, s_f[back], 0)
-    x0_grid = torch.where(maskg, x0_f[back], 0)
-    x2_grid = torch.where(maskg, x2_f[back], 0)
-    emit1 = smemops.emit_mask(c1, s_grid.reshape(-1))
-    smem1 = emit1 & ((c1.end - s_grid) >= min_seed_len)
-    (e_read, e_s, e_e, e_x0, e_x2), n1, e_over, _ = _compact_flat(
-        smem1.reshape(-1), [(rows, it), (s_grid, it), (c1.end, it),
-                            (x0_grid, it), (x2_grid, it)], emax)
-    sec1 = torch.stack([e_read, e_s, e_e, e_x0, e_x2])
-    flags = (c1.overflow.any().to(i32)
-             | (k_over.to(i32) << 1) | (e_over.to(i32) << 2)
-             | (b1_over.to(i32) << 9)
-             | (c1.unfinished.to(i32) << 11))
-    meta = torch.stack([n1.to(i32), flags, c1.n.max().to(i32),
-                        nk.to(i32), n1.to(i32), b1_need.to(i32),
-                        c1.steps.to(i32), _zero(i32, dev)])
-    return sec1, meta
-
-
-# ---------------------------------------------------------------------------
-# P2: re-seeding of long low-occurrence SMEMs (bwamem.c:155-165)
-# ---------------------------------------------------------------------------
-
-def _p2_body(fm, seq, l_seq, sec1, n1, *, pmax, cand2, k2max, e2max,
-             min_seed_len, split_len, split_width, b2s, t2s):
-    it = fm.itype
-    dev = seq.device
-    emax = sec1.shape[1]
-    e_read, e_s, e_e, e_x0, e_x2 = (sec1[k] for k in range(5))
-    lane1 = _ar(emax, i32, dev)
-    qual = ((lane1 < n1) & ((e_e - e_s) >= split_len)
-            & (e_x2 <= split_width))
-    (p_read, p_start, p_min), n_par, p_over, _ = _compact_flat(
-        qual, [(e_read.to(i32), i32),
-               ((e_s + e_e).to(i32) >> 1, i32), (e_x2 + 1, it)], pmax)
-    p_alive = _ar(pmax, i32, dev) < n_par
-    p_lseq = torch.where(p_alive, l_seq[p_read.to(i64)], 0).to(l_seq.dtype)
-    c2 = smemops.forward_scan(
-        fm, seq, p_lseq, torch.where(p_alive, p_start, 0),
-        torch.where(p_alive, p_min, 1), cand2, multi_pivot=False,
-        lane_read=p_read, max_steps=t2s)
-    rows2 = p_read[:, None].expand(pmax, cand2)
-    slots2 = _ar(cand2, i32, dev)[None, :].expand(pmax, cand2)
-    mask2 = (slots2 < c2.n[:, None]).reshape(-1)
-    min2g = p_min[:, None].expand(pmax, cand2)
-    (lr2, pv2, bx0, bx1, bx2, mi2), nk2, k2_over, pos2 = _compact_flat(
-        mask2, [(rows2, i32), (c2.pivot, i32), (c2.x0, it), (c2.x1, it),
-                (c2.x2, it), (min2g, it)], k2max)
-    v2 = _ar(k2max, i32, dev) < nk2
-    st2 = _stage_ladder(b2s, k2max)
-    if st2:
-        s2f, x0f2, x2f2, b2_over, b2_need = smemops.back_extend_flat(
-            fm, seq, lr2, pv2, bx0, bx1, bx2, mi2, v2, stage_w=st2)
-    else:
-        s2f, x0f2, x2f2 = smemops.back_extend_flat(
-            fm, seq, lr2, pv2, bx0, bx1, bx2, mi2, v2)
-        b2_over = _zero(torch.bool, dev)
-        b2_need = _zero(i32, dev)
-    mask2g = mask2.reshape(pmax, cand2)
-    back2 = torch.where(mask2g, pos2.reshape(pmax, cand2).clamp(
-        max=k2max - 1), 0).to(i64)
-    s2_grid = torch.where(mask2g, s2f[back2], 0)
-    x0_2g = torch.where(mask2g, x0f2[back2], 0)
-    x2_2g = torch.where(mask2g, x2f2[back2], 0)
-    emit2 = smemops.emit_mask(c2, s2_grid.reshape(-1))
-    smem2 = emit2 & ((c2.end - s2_grid) >= min_seed_len)
-    (e2_read, e2_s, e2_e, e2_x0, e2_x2), n2, e2_over, _ = _compact_flat(
-        smem2.reshape(-1), [(rows2, it), (s2_grid, it), (c2.end, it),
-                            (x0_2g, it), (x2_2g, it)], e2max)
-    sec2 = torch.stack([e2_read, e2_s, e2_e, e2_x0, e2_x2])
-    flags = ((p_over.to(i32) << 3) | (c2.overflow.any().to(i32) << 4)
-             | (k2_over.to(i32) << 5) | (e2_over.to(i32) << 6)
-             | (b2_over.to(i32) << 10)
-             | (c2.unfinished.to(i32) << 12))
-    meta = torch.stack([n2.to(i32), flags, n_par.to(i32),
-                        c2.n.max().to(i32), nk2.to(i32),
-                        n2.to(i32), b2_need.to(i32), c2.steps.to(i32)])
-    return sec2, meta
-
-
-# ---------------------------------------------------------------------------
-# P3: LAST-like forward-only pass (bwt_seed_strategy1, bwt.c:358-379)
-# ---------------------------------------------------------------------------
-
-def _p3_body(fm, seq, l_seq, *, p3cap, e3max, min_seed_len, max_mem_intv,
-             use_kmer, t3s):
-    N, L = seq.shape
-    it = fm.itype
-    dev = seq.device
-    pre = smemops.kmer_pre(fm, seq, l_seq) if use_kmer else None
-    p3x0, p3x2, p3s, p3e, p3n, p3over, p3steps, p3unf = smemops.pass3_scan(
-        fm, seq, l_seq, min_seed_len, max_mem_intv, p3cap, pre=pre,
-        max_steps=t3s)
-    rows3 = _ar(N, i32, dev)[:, None].expand(N, p3cap)
-    m3 = _ar(p3cap, i32, dev)[None, :].expand(N, p3cap) < p3n[:, None]
-    (e3_read, e3_s, e3_e, e3_x0, e3_x2), n3, e3_over, _ = _compact_flat(
-        m3.reshape(-1), [(rows3, it), (p3s, it), (p3e, it),
-                         (p3x0, it), (p3x2, it)], e3max)
-    sec3 = torch.stack([e3_read, e3_s, e3_e, e3_x0, e3_x2])
-    flags = ((p3over.any().to(i32) << 7) | (e3_over.to(i32) << 8)
-             | (p3unf.to(i32) << 13))
-    z = _zero(i32, dev)
-    meta = torch.stack([n3.to(i32), flags, p3n.max().to(i32),
-                        n3.to(i32), p3steps.to(i32), z, z, z])
-    return sec3, meta
 
 
 # ---------------------------------------------------------------------------
@@ -624,65 +453,6 @@ def _ext_body(fm, seq, l_seq, seed_chain, seeds_valid, seeds_qbeg, seeds_len,
 # Host driver
 # ---------------------------------------------------------------------------
 
-_GROW1 = ("cap", "kmax", "emax")
-_GROW2 = ("pmax", "cand2", "k2max", "e2max")  # bits 3..6 of p2 flags
-_GROW3 = ("p3cap", "e3max")                   # bits 7..8 of p3 flags
-_GROWB = ("b1s", "b2s")                       # bits 9..10: back-ext ladders
-_GROWT = ("t1s", "t2s", "t3s")                # bits 11..13: scan trip counts
-
-
-def _sizes_for(al, N: int, Lr: int):
-    """Arena sizes from the aligner's in-memory high-water history (25%
-    headroom), falling back to shape-scaled defaults on the first batch."""
-    hist = al._front_hist
-    defaults = {
-        "cap": 2 * Lr,
-        "kmax": _bucket(N * 16, lo=1024),
-        "emax": _bucket(N * 8, lo=1024),
-        "pmax": _bucket(N * 2, lo=256),
-        "cand2": 48,
-        "k2max": _bucket(N * 8, lo=1024),
-        "e2max": _bucket(N * 4, lo=1024),
-        "p3cap": 32,
-        "e3max": _bucket(N * 2, lo=1024),
-        "a_seed": _bucket(N * 8, lo=1024),
-        "s_cap": 64,
-        "a_ch": _bucket(N * 4, lo=1024),
-        "a_it": _bucket(N * 8, lo=1024),
-        "a_sel": _bucket(N * 2, lo=1024),
-        "b1s": _bucket(N * 8, lo=1024),
-        "b2s": _bucket(N * 4, lo=1024),
-    }
-    # scan trip counts: multiples of 32 (a trip count scales time, not
-    # memory, so fine granularity avoids a 2x overshoot)
-    defaults["t1s"] = -(-(Lr + (Lr >> 1) + 24) // 32) * 32
-    defaults["t2s"] = -(-(Lr + 8) // 32) * 32
-    defaults["t3s"] = defaults["t1s"]
-    floors = {"cap": 64, "kmax": 1024, "emax": 1024, "pmax": 256,
-              "cand2": 16, "k2max": 1024, "e2max": 1024, "p3cap": 16,
-              "e3max": 1024, "a_seed": 1024, "s_cap": 16, "a_ch": 1024,
-              "a_it": 1024, "a_sel": 1024, "b1s": 1024, "b2s": 1024,
-              "t1s": 32, "t2s": 32, "t3s": 32}
-    sizes = {}
-    for k, d in defaults.items():
-        h = hist.get(("hwm", k, (N, Lr)))
-        if h is None:
-            sizes[k] = d
-        elif k in _GROWT:
-            sizes[k] = max(-(-(int(h) + (int(h) >> 3) + 1) // 32) * 32,
-                           floors[k])
-        else:
-            sizes[k] = _bucket(int(h + (h >> 2) + 1), lo=floors[k])
-    return hist, sizes
-
-
-def _note_hwm(hist, N, **vals):
-    for k, v in vals.items():
-        key = ("hwm", k, N)
-        if int(v) > hist.get(key, 0):
-            hist[key] = int(v)
-
-
 def gate_rows(opt: MemOptions, reads) -> set:
     """Rows entering mem_flt_chained_seeds (bwamem.c:607-611) — long reads
     whose seed re-scoring mutates the work order; they need the host
@@ -701,12 +471,15 @@ def gate_rows(opt: MemOptions, reads) -> set:
 
 
 def supported(al, reads) -> bool:
-    """Whether this batch can take the device front: the (h<<12)|col
-    packing of the extension's row max needs every reachable score
-    < 2^18."""
+    """Whether this batch can take the device front: its EXT program
+    extends at the padded read length, and the extension kernel takes
+    queries up to 4095 bases and (by the (h<<12)|col packing of its plain
+    version's row max) reachable scores below 2^18."""
     mat_max = int(np.max(np.asarray(al.opt.mat)))
     Lr = max((r.l_seq for r in reads), default=0)
-    return 2 * Lr * max(al.opt.a, mat_max) < (1 << 18)
+    # the batch is padded to the next multiple of 32 (align._lbucket)
+    return (-(-Lr // 32) * 32 <= ext_kernel.LQ_MAX
+            and 2 * Lr * max(al.opt.a, mat_max) < (1 << 18))
 
 
 def front_start(al, reads, seq: np.ndarray, l_seq: np.ndarray):
@@ -718,16 +491,19 @@ def front_start(al, reads, seq: np.ndarray, l_seq: np.ndarray):
     n = len(reads)
     N, Lr = seq.shape
     Nkey = (N, Lr)     # (rows, read-len bucket) hwm key
-    hist, sizes = _sizes_for(al, N, Lr)
-    use_kmer = (al.fm.kmer is not None
-                and getattr(opt, "use_kmer_table", True)
-                and opt.min_seed_len >= smemops.KMER_K)
+    hist = al._front_hist
+    sizes = _sizes_for(hist, N, Lr)
+    use_kmer = use_kmer_table(al)
     # two-round extension (round-1 select + host prepass + round-2 subset);
     # sel_cap == 0 keeps the single-round program
     if os.environ.get("BWAMEM_TPU_EXT2", "1") != "1":
         sizes["a_sel"] = 0
     # long reads that enter mem_flt_chained_seeds keep the host path
     fallback = gate_rows(opt, reads)
+    if len(fallback) * 2 >= max(n, 1):
+        # mostly long-read batch: dispatching the device front first would
+        # only spend device time on rows that all fall back anyway
+        return dict(abort=True, n=n)
 
     dev = al.device
     seq_dev = torch.from_numpy(seq).to(dev)
@@ -741,19 +517,16 @@ def front_start(al, reads, seq: np.ndarray, l_seq: np.ndarray):
     gmax = min(max((Lr * opt.a - min(opt.o_del, opt.o_ins))
                    // min(opt.e_del, opt.e_ins) + 1, 1), 2 * opt.w)
     bound = Lr + opt.w + 2 * gmax + 8
-    sizes["t_span"] = _bucket(min(int(h_ts + (h_ts >> 3) + 1), bound),
+    sizes["t_span"] = pow2_bucket(min(int(h_ts + (h_ts >> 3) + 1), bound),
                               lo=128) if h_ts is not None \
-        else _bucket(bound, lo=128)
+        else pow2_bucket(bound, lo=128)
 
     with timers.section("front.dispatch"):
         *arrs, ext2ctx = _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr)
-    return dict(reads=reads, n=n, N=N, Lr=Lr, hist=hist, sizes=sizes,
+    return dict(abort=False, reads=reads, n=n, N=N, Lr=Lr, hist=hist,
+                sizes=sizes,
                 use_kmer=use_kmer, fallback=fallback, seq_dev=seq_dev,
                 l_dev=l_dev, arrs=tuple(arrs), Nkey=Nkey, ext2ctx=ext2ctx)
-
-
-def _fetch(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
 
 
 def front_finish(al, tok):
@@ -766,6 +539,8 @@ def front_finish(al, tok):
     mem_flt_chained_seeds, reads the final two-round walk demotes) need
     the host-compacted front.  Raises RuntimeError when arena growth does
     not converge within 16 retries."""
+    if tok["abort"]:
+        return [[] for _ in range(tok["n"])], list(range(tok["n"]))
     reads, n, N, Lr = tok["reads"], tok["n"], tok["N"], tok["Lr"]
     hist, sizes, use_kmer = tok["hist"], tok["sizes"], tok["use_kmer"]
     fallback = tok["fallback"]
@@ -776,12 +551,7 @@ def front_finish(al, tok):
         with timers.section("front.fetch"):
             meta = _fetch(meta_all)
         m1, m2, m3, m4, m5, m6 = (meta[8 * k: 8 * k + 8] for k in range(6))
-        grow = []
-        flags = int(m1[1]) | int(m2[1]) | int(m3[1])
-        for bit, name in enumerate(_GROW1 + _GROW2 + _GROW3 + _GROWB
-                                   + _GROWT):
-            if (flags >> bit) & 1:
-                grow.append(name)
+        grow = _seeding_overflows(m1, m2, m3)
         if m4[0]:
             grow.append("a_seed")
         if m5[1]:
@@ -791,7 +561,7 @@ def front_finish(al, tok):
         if int(m5[6]) > sizes["t_span"]:
             # an extension window exceeded the hwm-sized t_max: results
             # would be silently truncated — grow and rerun
-            sizes["t_span"] = _bucket(int(m5[6]), lo=128)
+            sizes["t_span"] = pow2_bucket(int(m5[6]), lo=128)
             _note_hwm(hist, Nkey, t_span=m5[6])
             grow.append(None)
         if not grow:
@@ -800,17 +570,7 @@ def front_finish(al, tok):
         if retries > 16:
             raise RuntimeError(f"front arena growth did not converge: "
                                f"{grow} sizes={sizes}")
-        for g in grow:
-            if g is not None:
-                sizes[g] *= 2
-        # the back-extend ladders report the exact base width that would
-        # have fit (b*_need) — jump straight there
-        if "b1s" in grow:
-            sizes["b1s"] = max(sizes["b1s"], _bucket(int(m1[5]) + 1,
-                                                     lo=1024))
-        if "b2s" in grow:
-            sizes["b2s"] = max(sizes["b2s"], _bucket(int(m2[6]) + 1,
-                                                     lo=1024))
+        _grow_sizes(sizes, grow, m1, m2)
         timers.count("front.retries")
         with timers.section("front.dispatch"):
             (meta_all, out32, out_it, chain32, c_pos, scl,
@@ -823,12 +583,9 @@ def front_finish(al, tok):
     timers.add_bytes("d2h.front", out32.nbytes + out_it.nbytes
                      + chain32.nbytes + c_pos.nbytes + scl.nbytes
                      + meta.nbytes)
-    _note_hwm(hist, Nkey, cap=m1[2], kmax=m1[3], emax=m1[4],
-              pmax=m2[2], cand2=m2[3], k2max=m2[4], e2max=m2[5],
-              p3cap=m3[2], e3max=m3[3],
-              a_seed=m4[1], s_cap=m4[2], a_ch=m5[3], a_it=m5[4],
-              t_span=m5[6], b1s=m1[5], b2s=m2[6],
-              t1s=m1[6], t2s=m2[7], t3s=m3[4], a_sel=m6[0])
+    _note_seeding_hwm(hist, Nkey, m1, m2, m3)
+    _note_hwm(hist, Nkey, a_seed=m4[1], s_cap=m4[2], a_ch=m5[3], a_it=m5[4],
+              t_span=m5[6], a_sel=m6[0])
     if m5[0]:
         raise RuntimeError("chain table overflow with chain_cap == seed cap")
 
@@ -864,7 +621,7 @@ def _ext2_run(al, ctx, I32, IIT, needed, hist, Nkey):
     hwm-bucketed on the needed count)."""
     k = len(needed)
     h = hist.get(("hwm", "a_e2", Nkey), 0)
-    a2 = _bucket(max(int(h + (h >> 2) + 1), k), lo=1024)
+    a2 = pow2_bucket(max(int(h + (h >> 2) + 1), k), lo=1024)
     sub32 = np.zeros((5, a2), np.int32)
     sub32[:, :k] = I32[:5, needed]
     subit = np.zeros((3, a2), IIT.dtype)
@@ -888,18 +645,7 @@ def _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr):
     """Enqueue the device program chain; returns device tensors (no
     fetch)."""
     opt: MemOptions = al.opt
-    s1 = dict(cap=sizes["cap"], kmax=sizes["kmax"], emax=sizes["emax"],
-              min_seed_len=opt.min_seed_len, use_kmer=use_kmer,
-              b1s=sizes["b1s"], t1s=sizes["t1s"])
-    s2 = dict(pmax=sizes["pmax"], cand2=sizes["cand2"],
-              k2max=sizes["k2max"], e2max=sizes["e2max"],
-              min_seed_len=opt.min_seed_len, split_len=opt.split_len,
-              split_width=opt.split_width,
-              b2s=sizes["b2s"], t2s=sizes["t2s"])
-    s3 = dict(p3cap=sizes["p3cap"], e3max=sizes["e3max"],
-              min_seed_len=opt.min_seed_len,
-              max_mem_intv=opt.max_mem_intv, use_kmer=use_kmer,
-              t3s=sizes["t3s"])
+    s1, s2, s3 = _seeding_kw(opt, sizes, use_kmer)
     s4 = dict(max_occ=opt.max_occ, a_seed=sizes["a_seed"],
               s_cap=sizes["s_cap"], n_reads=N)
     s5 = dict(w=opt.w, max_chain_gap=opt.max_chain_gap,

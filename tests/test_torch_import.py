@@ -18,6 +18,12 @@ PKG = REPO / "bwamem_tpu_torch"
 MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
            "bwamem_tpu_torch.pipeline.align",
            "bwamem_tpu_torch.pipeline.device_front",
+           "bwamem_tpu_torch.pipeline._shapes",
+           "bwamem_tpu_torch.pipeline.seeding_host",
+           "bwamem_tpu_torch.pipeline.chainflt_host",
+           "bwamem_tpu_torch.pipeline.extend_host",
+           "bwamem_tpu_torch.ops.chain", "bwamem_tpu_torch.ops.align_ext",
+           "bwamem_tpu_torch.ops.local_sw",
            "bwamem_tpu_torch.ops.ext_kernel", "bwamem_tpu_torch.finalize",
            "bwamem_tpu_torch.io.sam", "bwamem_tpu_torch.index",
            "bwamem_tpu_torch.native"]

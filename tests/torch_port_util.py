@@ -95,6 +95,54 @@ def front_setup(dirpath, *, n_reads=96, kmer=True):
     while Nb < n:
         Nb <<= 1
     seq, l_seq = pack_batch(reads, Nb, 128)
-    _, sizes = tdf._sizes_for(ta, Nb, 128)
+    sizes = tdf._sizes_for(ta._front_hist, Nb, 128)
     return dict(data=data, reads=reads, ja=ja, ta=ta, seq=seq, l_seq=l_seq,
                 N=Nb, L=128, sizes=sizes)
+
+
+# ---- the reference's host-front state carried across as numpy ----
+
+def worklist_from(jwr):
+    """The reference's WorklistNp (with its SeedsNp) as the port's, field
+    by field, every array copied (the host passes mutate them in place)."""
+    from bwamem_tpu_torch.pipeline import seeding_host as tsh
+    seeds = tsh.SeedsNp(*(np.array(getattr(jwr.seeds, f))
+                          for f in tsh.SeedsNp._fields))
+    rest = {f: np.array(getattr(jwr, f)) for f in tsh.WorklistNp._fields
+            if f != "seeds"}
+    return tsh.WorklistNp(seeds=seeds, **rest)
+
+
+def copy_worklist(wr):
+    """A deep copy of a WorklistNp of either package."""
+    seeds = type(wr.seeds)(*(np.array(x) for x in wr.seeds))
+    return type(wr)(seeds, *(np.array(x) for x in wr[1:]))
+
+
+def assert_worklist_same(jwr, twr, what=""):
+    for f in jwr.seeds._fields:
+        assert_same(getattr(jwr.seeds, f), getattr(twr.seeds, f),
+                    f"{what}seeds.{f}")
+    for f in jwr._fields[1:]:
+        assert_same(getattr(jwr, f), getattr(twr, f), f"{what}{f}")
+
+
+def tensors_from(jtuple, cls):
+    """A reference NamedTuple of arrays (Seeds, Chains, FilteredChains) as
+    the port's class of CPU tensors."""
+    return cls(*(T(x) for x in jtuple))
+
+
+def long_reads_fq(path, contigs, n, read_len, seed, sub_rate=0.02,
+                  indel_rate=0.003):
+    import simdata
+    simdata.write_fastq(simdata.sim_reads(
+        contigs, n, read_len=read_len, seed=seed, sub_rate=sub_rate,
+        indel_rate=indel_rate), str(path))
+    return str(path)
+
+
+def dataset_contigs(genome_len=50_000, seed=3, n_contigs=2):
+    """The genome make_dataset indexes (same arguments, same seed)."""
+    import simdata
+    return simdata.make_genome(genome_len, seed=seed, n_contigs=n_contigs)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of bwamem_tpu_torch's single-end path goes on a GPU.
 
-    python3 tools/torch_se_profile.py [--out chiprun_out/se_trace.json]
+    python3 tools/torch_se_profile.py [--read-len 101|1000|5000]
+                                      [--out se_trace.json]
 
-Uses chip_smoke.py's data set (tools/se_smoke_data.py: a 5 Mbp genome and
-2 x 8192 reads of 101 bp, fixed seeds, cached under build/chip_smoke/).  Batch 0 runs unprofiled and sizes
-the arenas; batch 1 runs under torch.profiler (CPU + CUDA activities).
+Uses chip_smoke.py's data sets (tools/se_smoke_data.py: a 5 Mbp genome with
+2 x 8192 reads of 101 bp, 512 reads of 1000 bp or 128 reads of 5000 bp,
+fixed seeds, cached under build/chip_smoke/).  Batch 0 runs unprofiled and
+sizes the arenas; batch 1 (for the long reads: the same batch again) runs
+under torch.profiler (CPU + CUDA activities).
 Prints the wall time of batch 1, the device busy time (the union of the
 CUDA kernel and memcpy intervals) and the idle share, the launch count,
 the CUDA kernels with the most time, and the host timer sections.
@@ -39,6 +42,9 @@ def busy_us(events) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--read-len", type=int, default=101,
+                    choices=(101, 1000, 5000),
+                    help="which of the smoke data sets to align")
     ap.add_argument("--out", default=None,
                     help="write a chrome trace of batch 1 here")
     args = ap.parse_args()
@@ -56,8 +62,11 @@ def main() -> int:
     from bwamem_tpu_torch.utils import timers
 
     prefix, fq = sd.smoke_data()
-    reads = list(read_fastx(fq))
-    b0, b1 = reads[:sd.BATCH], reads[sd.BATCH:2 * sd.BATCH]
+    if args.read_len == sd.READ_LEN:
+        reads = list(read_fastx(fq))
+        b0, b1 = reads[:sd.BATCH], reads[sd.BATCH:2 * sd.BATCH]
+    else:
+        b0 = b1 = list(read_fastx(sd.long_reads(args.read_len)))
     al = Aligner(load_index(prefix), device="cuda")
     al.align_batch_se(b0, 0)                     # sizes the arenas
     torch.cuda.synchronize()
@@ -66,7 +75,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        al.align_batch_se(b1, sd.BATCH)
+        al.align_batch_se(b1, len(b0))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     timers.enable(False)
