@@ -1,11 +1,11 @@
-"""Command-line interface: single-end `mem`.
+"""Command-line interface: `mem`, single-end and paired-end.
 
-`python -m bwamem_tpu_torch.cli mem [options] <idxbase> <in.fq>` mirrors
-main_mem's getopt (reference fastmap.c:77-238), mode presets (:240-268),
-update_a rescaling (:43-57) and the header/ordering behavior of main()
-(main.c:57-137).  The bwa flag surface is parsed whole; paired-end input
-(a second FASTQ or -p) is not ported yet and is refused.  The command runs
-on the card unless the caller passes another device to main().
+`python -m bwamem_tpu_torch.cli mem [options] <idxbase> <in1.fq> [in2.fq]`
+mirrors main_mem's getopt (reference fastmap.c:77-238), mode presets
+(:240-268), update_a rescaling (:43-57) and the header/ordering behavior of
+main() (main.c:57-137).  Two FASTQs, or -p on one interleaved file, align as
+pairs; -I fixes the insert-size distribution.  The command runs on the card
+unless the caller passes another device to main().
 """
 from __future__ import annotations
 
@@ -197,19 +197,25 @@ def cmd_mem(argv: list[str], device=None) -> int:
         sys.stderr.write(
             "Usage: bwamem_tpu mem [options] <idxbase> <in1.fq> [in2.fq]\n")
         return 1
-    if len(args) == 3 or opt.flag & MEM_F_PE:
-        sys.stderr.write("[E::mem] paired-end alignment is not ported to "
-                         "this package yet\n")
-        return 1
     from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.io import sam as samio
-    from bwamem_tpu_torch.io.fastq import read_fastx
+    from bwamem_tpu_torch.io.fastq import read_fastx, interleave
     from bwamem_tpu_torch.pipeline.align import Aligner, align_stream
 
     idx = load_index(args[0])
     if x["ignore_alt"]:
         for c in idx.contigs:
             c.is_alt = 0
+    rdr = read_fastx(args[1])
+    pe = bool(opt.flag & MEM_F_PE)
+    if len(args) == 3:
+        if opt.flag & MEM_F_SMARTPE:
+            sys.stderr.write("[W::mem] when '-p' is in use, the second "
+                             "query file is ignored.\n")
+        else:
+            rdr = interleave(rdr, read_fastx(args[2]))
+            opt.flag |= MEM_F_PE
+            pe = True
     al = Aligner(idx, opt, device=device)
     out = open(x["out"], "w") if x["out"] else sys.stdout
     pg = ("@PG\tID:bwamem_tpu\tPN:bwamem_tpu\tVN:0.1.0\tCL:" +
@@ -224,8 +230,8 @@ def cmd_mem(argv: list[str], device=None) -> int:
     chunk = x["fixed_chunk"] if x["fixed_chunk"] > 0 else \
         opt.chunk_size * opt.n_threads
     # reads per batch ~ chunk bases (bseq_read semantics, bwa.c:195-210)
-    for n, sams in align_stream(al, _batches_by_bases(read_fastx(args[1]),
-                                                      chunk), rg_id=rg):
+    for n, sams in align_stream(al, _batches_by_bases(rdr, chunk, pe),
+                                pe=pe, rg_id=rg, pes0=x["pes"]):
         for s in sams:
             out.write(s)
         n_processed += n
@@ -235,13 +241,14 @@ def cmd_mem(argv: list[str], device=None) -> int:
     return 0
 
 
-def _batches_by_bases(reads, max_bases: int):
-    """bseq_read chunking: stop after >= max_bases (bwa.c:195-210)."""
+def _batches_by_bases(reads, max_bases: int, pe: bool):
+    """bseq_read chunking: stop after >= max_bases, keeping pairs together
+    (bwa.c:195-210)."""
     buf, nb = [], 0
     for r in reads:
         buf.append(r)
         nb += r.l_seq
-        if nb >= max_bases:
+        if nb >= max_bases and (not pe or len(buf) % 2 == 0):
             yield buf
             buf, nb = [], 0
     if buf:
@@ -253,7 +260,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] != "mem":
         sys.stderr.write("Usage: bwamem_tpu_torch mem [options] <idxbase> "
-                         "<in.fq>\n")
+                         "<in1.fq> [in2.fq]\n")
         return 1
     return cmd_mem(argv[1:], device=device)
 

@@ -38,6 +38,20 @@ PATCH_MAX_R_BW = 0.05
 PATCH_MIN_SC_RATIO = 0.90
 
 
+def hash_64(key: int) -> int:
+    """64-bit mix (reference utils.h:97-108)."""
+    M = (1 << 64) - 1
+    key = (key + (~(key << 32) & M)) & M
+    key ^= key >> 22
+    key = (key + (~(key << 13) & M)) & M
+    key ^= key >> 8
+    key = (key + (key << 3)) & M
+    key ^= key >> 15
+    key = (key + (~(key << 27) & M)) & M
+    key ^= key >> 31
+    return key
+
+
 @dataclasses.dataclass(slots=True)
 class AlnReg:
     """mem_alnreg_t (reference bwa.h:145-163).  slots: ~10k instances are

@@ -84,6 +84,16 @@ def read_fastx(path: str, keep_raw: bool = False) -> Iterator[Read]:
                 line = f.readline()
 
 
+def interleave(r1: Iterator[Read], r2: Iterator[Read]) -> Iterator[Read]:
+    """PE interleaving with /1 /2 suffix trim (bwa.c:150-171)."""
+    for a, b in zip(r1, r2):
+        for r in (a, b):
+            if len(r.name) > 2 and r.name[-2] == "/" and r.name[-1] in "12":
+                r.name = r.name[:-2]
+        yield a
+        yield b
+
+
 def batches(reads: Iterator[Read], n_batch: int) -> Iterator[list[Read]]:
     buf: list[Read] = []
     for r in reads:

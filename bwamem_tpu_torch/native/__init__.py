@@ -1,6 +1,7 @@
 """Native host-side kernels (hostops.c): the exact chain-filter and
-accept/skip replay of the device front, primary marking, banded global
-alignment + CIGAR, NM/MD and SAM rendering.
+accept/skip replay of the device front, primary marking, the unbanded local
+SW of mate rescue, pair scoring, banded global alignment + CIGAR, NM/MD and
+SAM rendering.
 
 hostops.c is compiled with the system C compiler into the repository's
 `build/` directory on first use.  The port has no Python fallback for these
@@ -25,6 +26,7 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
+_f64p = ctypes.POINTER(ctypes.c_double)
 
 
 def _load():
@@ -62,6 +64,20 @@ def _load():
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             _u8p, _i64p, _i64p,              # has_res, out_need, out_nn
             _i64p, _i64p, _i32p]
+        lib.ksw_align_host_batch.restype = ctypes.c_int
+        lib.ksw_align_host_batch.argtypes = [
+            ctypes.c_int64, _u8p, _i64p, _u8p, _i64p, _i32p, _i8p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            _i32p, _i32p, _i32p, _i32p, _i32p, _i32p, _i32p]
+        lib.pair_batch.restype = ctypes.c_int
+        lib.pair_batch.argtypes = [
+            ctypes.c_int64, _i64p, _i64p,
+            _i64p, _i32p, _i32p, _i64p, _i32p, _i32p,
+            _i64p, _i64p, ctypes.c_int64,
+            _i32p, _i32p, _i32p, _f64p, _f64p,
+            ctypes.c_int32, ctypes.c_int32,
+            _i32p, _i32p, _i32p, _i32p, _i32p]
         lib.sam_batch.restype = ctypes.c_int64
         lib.sam_batch.argtypes = [
             ctypes.c_int64, _i32p,
@@ -151,6 +167,64 @@ def mark_primary_batch(off, ids, score, qb, qe, is_alt, tmp, mask_level):
     if rc != 0:
         raise MemoryError("mark_primary_batch native failure")
     return (*outs, n_pri)
+
+
+def ksw_align_host(queries, targets, minsc, mat, o_del, e_del, o_ins,
+                   e_ins, max_mat, p):
+    """Unbanded local SW, ksw_align2 semantics (the device counterpart is
+    ops/local_sw.ksw_align_batch).  queries/targets: lists of nt4 uint8
+    arrays; p: emulated SIMD stripe (16 = ksw_u8, 8 = ksw_i16).  Returns a
+    dict of int32 arrays score/te/qe/score2/te2/tb/qb."""
+    lib = _load()
+    n = len(queries)
+    q, qo = _cat(queries, np.uint8)
+    t, to = _cat(targets, np.uint8)
+    m = np.ascontiguousarray(np.asarray(mat, np.int8).reshape(-1))
+    ms = np.ascontiguousarray(minsc, np.int32)
+    keys = ("score", "te", "qe", "score2", "te2", "tb", "qb")
+    outs = {k: np.zeros(n, np.int32) for k in keys}
+    rc = lib.ksw_align_host_batch(
+        n, q.ctypes.data_as(_u8p), qo.ctypes.data_as(_i64p),
+        t.ctypes.data_as(_u8p), to.ctypes.data_as(_i64p),
+        ms.ctypes.data_as(_i32p), m.ctypes.data_as(_i8p),
+        int(o_del), int(e_del), int(o_ins), int(e_ins), int(max_mat),
+        int(p), *(outs[k].ctypes.data_as(_i32p) for k in keys))
+    if rc != 0:
+        raise MemoryError("ksw_align_host_batch native failure")
+    return outs
+
+
+def pair_batch(off0, off1, rb0, rid0, sc0, rb1, rid1, sc1, ids, ctg_off,
+               l_pac, pes, a_sc, tmp):
+    """mem_pair over all eligible pairs at once (bwamem_pair.c:208-269;
+    plain counterpart: pair.mem_pair).  off0/off1 [n+1] index the flat
+    per-end reg arrays (first n_pri regs per read).  pes: list of 4 PeStat.
+    Returns (o, sub, n_sub, z0, z1) int32 arrays [n]."""
+    lib = _load()
+    n = len(off0) - 1
+    c = np.ascontiguousarray
+    outs = [np.zeros(n, np.int32) for _ in range(5)]
+    rc = lib.pair_batch(
+        n, c(off0, np.int64).ctypes.data_as(_i64p),
+        c(off1, np.int64).ctypes.data_as(_i64p),
+        c(rb0, np.int64).ctypes.data_as(_i64p),
+        c(rid0, np.int32).ctypes.data_as(_i32p),
+        c(sc0, np.int32).ctypes.data_as(_i32p),
+        c(rb1, np.int64).ctypes.data_as(_i64p),
+        c(rid1, np.int32).ctypes.data_as(_i32p),
+        c(sc1, np.int32).ctypes.data_as(_i32p),
+        c(ids, np.int64).ctypes.data_as(_i64p),
+        c(ctg_off, np.int64).ctypes.data_as(_i64p), int(l_pac),
+        c([p.failed for p in pes], np.int32).ctypes.data_as(_i32p),
+        c([p.low for p in pes], np.int32).ctypes.data_as(_i32p),
+        c([p.high for p in pes], np.int32).ctypes.data_as(_i32p),
+        c([p.avg for p in pes], np.float64).ctypes.data_as(_f64p),
+        c([p.std for p in pes], np.float64).ctypes.data_as(_f64p),
+        int(a_sc), int(tmp),
+        *(o.ctypes.data_as(_i32p) for o in outs))
+    if rc != 0:
+        raise MemoryError("pair_batch native failure")
+    return tuple(outs)
 
 
 def replay_batch(ch_base, c_w, c_beg, c_end, c_alt, c_pos, c_rid,

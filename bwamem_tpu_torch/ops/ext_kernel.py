@@ -44,6 +44,8 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "ext_kernel.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# longest query of the fused two-pass route (extend_batch_pl2), and of one
+# plain-extension dispatch at the narrow (h << 12) | col packing
 LQ_MAX = 4095
 
 launches = 0        # kernel launches by extend_batch_pl2 (CUDA tensors)
@@ -101,8 +103,6 @@ def _bands(qlen, end_bonus, *, mat_bytes, o_del, e_del, o_ins, e_ins,
 def _checked_lanes(name, queryT, qlen, targetT, tlen, h0, lq_max, t_max):
     """Shape/device checks shared by the two wrappers; returns the int32
     contiguous (qT, tT, qlen, tlen, h0) the kernels read."""
-    if lq_max > LQ_MAX:
-        raise ValueError(f"{name}: lq_max {lq_max} > {LQ_MAX}")
     B = queryT.shape[1]
     if queryT.shape != (lq_max, B) or targetT.shape != (t_max, B):
         raise ValueError(f"{name}: queryT {tuple(queryT.shape)} "
@@ -136,6 +136,10 @@ def extend_batch_pl2(queryT, qlen, targetT, tlen, h0, end_bonus, *,
             t_max=t_max, mat_bytes=mat_bytes, o_del=o_del, e_del=e_del,
             o_ins=o_ins, e_ins=e_ins, zdrop=zdrop, w_opt=w_opt)
     global launches
+    if lq_max > LQ_MAX:
+        # the bound of the fused two-pass route, as the reference routes
+        # its lanes
+        raise ValueError(f"extend_batch_pl2: lq_max {lq_max} > {LQ_MAX}")
     B = queryT.shape[1]
     dev = queryT.device
     i32 = torch.int32
@@ -208,8 +212,10 @@ def extend_batch_pl(queryT, qlen, targetT, tlen, h0, w, end_bonus, *,
     per lane as ksw.c:399-407 does), no retry.
 
     queryT: [lq_max, B] int32 nt4 (already reversed for left extensions,
-    every qlen <= lq_max <= 4095); targetT: [t_max, B] int32; per-lane
-    vectors [B].  Returns ExtendResult."""
+    every qlen <= lq_max; any lq_max: the scalar lane loop packs nothing,
+    scores are plain int32, and the eh scratch is sized from lq_max);
+    targetT: [t_max, B] int32; per-lane vectors [B].  Returns
+    ExtendResult."""
     kw = dict(lq_max=lq_max, t_max=t_max, mat_bytes=mat_bytes, o_del=o_del,
               e_del=e_del, o_ins=o_ins, e_ins=e_ins, zdrop=zdrop)
     if queryT.device.type != "cuda":

@@ -1,0 +1,155 @@
+"""The chained FM-row gather probe: the hand-written CUDA kernels
+(csrc/fm_probe_kernel.cu) and their plain PyTorch version.
+
+The seeding scans (ops/smem over ops/fm.extend) are chains of dependent
+index-row gathers that PyTorch issues one step at a time.  This probe runs
+the same dependent chain — for each lane independently, `steps` times:
+
+    blk = k >> 7
+    acc = the sum of the W 32-bit words of row cmb[blk], each taken as
+          int32, in wrapping int32 arithmetic
+    k   = (k + acc) mod seq_len      wrapping add; the result is in
+                                     [0, seq_len) as Python's % gives it
+
+— inside one kernel, so the per-step cost of a host-issued scan step can be
+held against the cost of the same step with no launch between steps.
+
+chain_words and chain_rows replace the two Pallas TPU probe kernels of the
+reference package's tools/fm_step_probe.py (`kernel` at :120, `kernel_rows`
+at :150): on a CUDA tensor each launches its kernel (one thread per lane;
+word-by-word loads, or 16-byte vector loads of the 48- or 64-byte row); on a
+CPU tensor each runs chain_gather, the plain version.  There is no fallback
+between a kernel and the plain version: a failed build or launch raises.
+Each wrapper counts its own launches.
+
+What holds the kernels on an H100: the serial chain.  The table of a 5 Mbp
+genome is 3.75 MB, read from memory once and from L2 after that, and W adds
+a step are nothing; a lane cannot finish before `steps` dependent loads
+have come back from L2, and 8192 lanes are only 2 warps an SM to overlap
+them.
+
+The kernels are compiled with nvcc for sm_90a into the repository's build/
+directory at first use and loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import torch
+
+from bwamem_tpu_torch.ops.ext_kernel import NVCC_FLAGS, nvcc
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "fm_probe_kernel.cu")
+LANES = 128                  # lanes come in multiples of this
+
+launches_words = 0  # kernel launches by chain_words (CUDA tensors)
+launches_rows = 0   # kernel launches by chain_rows (CUDA tensors)
+_lock = threading.Lock()
+_lib = None
+
+
+def load():
+    """Build (at first use) and load the kernel library; raises on
+    failure."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            from bwamem_tpu_torch._build import shared_lib
+            lib = ctypes.CDLL(shared_lib(SRC, "libfm_probe_kernel.so",
+                                         [nvcc(), *NVCC_FLAGS]))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            for fn in (lib.fm_chain_words, lib.fm_chain_rows):
+                fn.restype = ci
+                fn.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+            _lib = lib
+    return _lib
+
+
+def words32(cmb: torch.Tensor) -> torch.Tensor:
+    """The combined-row table as contiguous int32 words [nb, W] with the
+    uint32 bit patterns kept.  ops/fm.FM holds the words as non-negative
+    int64 (PyTorch has no uint32 arithmetic on the CPU); narrow it ONCE and
+    hand the result to chain_gather / chain_words / chain_rows."""
+    if cmb.dtype == torch.int32:
+        return cmb.contiguous()
+    if cmb.dtype != torch.int64:
+        raise ValueError(f"cmb of dtype {cmb.dtype}")
+    return (((cmb + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(
+        torch.int32).contiguous()
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to the int32 range (two's complement)."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def chain_gather(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
+                 seq_len: int) -> torch.Tensor:
+    """The plain version: `steps` chained one-row gathers issued from
+    PyTorch, on the device of its tensors.  cmb: int32 [nb, W] (words32);
+    k0: int32 [N] in [0, seq_len).  Returns int32 [N].  The wrapping int32
+    arithmetic is spelled out in int64, so it does not lean on what a
+    backend does on overflow."""
+    cmb = words32(cmb)
+    k = k0.to(torch.int64)
+    for _ in range(steps):
+        acc = cmb[k >> 7].to(torch.int64).sum(-1)
+        k = torch.remainder(_wrap32(k + _wrap32(acc)), seq_len)
+    return k.to(torch.int32)
+
+
+def _launch(name: str, cmb, k0, steps: int, seq_len: int):
+    if cmb.dtype != torch.int32 or cmb.dim() != 2 or not cmb.is_contiguous():
+        raise ValueError(f"{name}: cmb must be contiguous int32 [nb, W] "
+                         "(see words32)")
+    nb, W = cmb.shape
+    if W % 4 or cmb.data_ptr() % 16:
+        raise ValueError(f"{name}: rows of {W} words at {cmb.data_ptr():#x} "
+                         "are not 16-byte aligned")
+    if k0.dtype != torch.int32 or k0.dim() != 1 or not k0.is_contiguous() \
+            or k0.device != cmb.device:
+        raise ValueError(f"{name}: k0 must be contiguous int32 [N] on "
+                         f"{cmb.device}")
+    N = k0.shape[0]
+    if N % LANES:
+        raise ValueError(f"{name}: {N} lanes is not a multiple of {LANES}")
+    if not 0 < seq_len < (1 << 31) or seq_len > nb * 128 or steps < 0:
+        raise ValueError(f"{name}: seq_len {seq_len} for {nb} rows, "
+                         f"steps {steps}")
+    out = torch.empty_like(k0)
+    lib = load()
+    with torch.cuda.device(cmb.device):
+        stream = torch.cuda.current_stream(cmb.device).cuda_stream
+    rc = getattr(lib, name)(cmb.data_ptr(), k0.data_ptr(), out.data_ptr(),
+                            int(N), int(W), int(steps), int(seq_len), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def chain_words(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
+                seq_len: int) -> torch.Tensor:
+    """chain_gather with the whole chain inside one kernel, the row read
+    word by word (fm_chain_words).  cmb: int32 [nb, W] from words32; k0:
+    int32 [N] in [0, seq_len), N a multiple of 128."""
+    if cmb.device.type != "cuda":
+        return chain_gather(cmb, k0, steps, seq_len)
+    global launches_words
+    out = _launch("fm_chain_words", cmb, k0, steps, seq_len)
+    launches_words += 1
+    return out
+
+
+def chain_rows(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
+               seq_len: int) -> torch.Tensor:
+    """As chain_words, the row read with 16-byte vector loads
+    (fm_chain_rows)."""
+    if cmb.device.type != "cuda":
+        return chain_gather(cmb, k0, steps, seq_len)
+    global launches_rows
+    out = _launch("fm_chain_rows", cmb, k0, steps, seq_len)
+    launches_rows += 1
+    return out

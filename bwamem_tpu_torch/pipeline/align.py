@@ -1,4 +1,4 @@
-"""End-to-end single-end alignment driver: reads -> SAM records.
+"""End-to-end alignment, single-end and paired-end: reads -> SAM records.
 
 Maps the reference's per-batch flow (mem_process_seqs, bwamem.c:1215-1244)
 onto the device/host split:
@@ -11,6 +11,9 @@ onto the device/host split:
   host   (device_front._replay, finalize.py): exact chain filter and
       accept/skip walk -> dedup/patch -> primary marking -> record
       selection & XA phase A -> native banded global alignment (CIGAR)
+  host   (pair.py, paired-end only): insert-size stats over the batch,
+      mate rescue (native unbanded SW in lockstep rounds), pair scoring
+      (native pair_batch) between primary marking and record selection
   host   (io.sam): NM/MD, clips, flags, SAM text
 
 Entry points run on the card: Aligner(device=None) uses "cuda" and raises
@@ -24,8 +27,11 @@ import numpy as np
 import torch
 
 from bwamem_tpu_torch import finalize as fin
+from bwamem_tpu_torch import native
+from bwamem_tpu_torch import pair as pairmod
 from bwamem_tpu_torch.config import (MemOptions, MEM_F_ALL, MEM_F_NO_MULTI,
-                                     MEM_F_KEEP_SUPP_MAPQ, MEM_F_PRIMARY5)
+                                     MEM_F_KEEP_SUPP_MAPQ, MEM_F_PRIMARY5,
+                                     MEM_F_NOPAIRING, MEM_F_NO_RESCUE)
 from bwamem_tpu_torch.io import sam as samio
 from bwamem_tpu_torch.io.fastq import Read, pack_batch
 from bwamem_tpu_torch.ops import fm as fmops
@@ -39,6 +45,11 @@ def _lbucket(x: int) -> int:
     """Read-length pad: next multiple of 32 (the seeding scans' trip counts
     grow with the padded L)."""
     return max(32, -(-x // 32) * 32)
+
+
+def raw_mapq(diff: int, a: int) -> int:
+    """bwamem_pair.c:276"""
+    return int(6.02 * diff / a + .499)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,10 +83,12 @@ class Aligner:
         self.ctg_annos = [c.anno for c in idx.contigs]
         self.pac = idx.pac
         self.l_pac = int(idx.l_pac)
+        # insert-size distribution of the last paired-end batch (pair.PeStat
+        # per orientation), inferred by pestat or given by the caller
+        self.last_pes = None
         # arena high-water histories of the two fronts, by batch shape
         self._front_hist: dict = {}
         self._seed_arena_hist: dict = {}
-        from bwamem_tpu_torch import native
         native.load()
 
     # ---------------------------------------------------------- device ops
@@ -279,6 +292,54 @@ class Aligner:
                 sel[i].append((kl[g], len(jobs) - 1))
         return xa_jobs, sel
 
+    def _phaseA_gen_alt(self, regs, read, jobs):
+        """mem_gen_alt accounting (bwamem_extra.c:117-141) → XA cigar jobs.
+        Returns [(reg_idx, primary_idx, job_idx)]."""
+        opt = self.opt
+        xas = []
+        if opt.flag & MEM_F_ALL:
+            return xas
+        cnt = [0] * len(regs)
+        has_alt = [False] * len(regs)
+        pri_of = []
+        for k, p in enumerate(regs):
+            r = p.secondary_all
+            ok = r >= 0 and p.score >= regs[r].score * opt.XA_drop_ratio
+            pri_of.append(r if ok else -1)
+            if ok:
+                cnt[r] += 1
+                if p.is_alt:
+                    has_alt[r] = True
+        for k, p in enumerate(regs):
+            r = pri_of[k]
+            if r < 0:
+                continue
+            if cnt[r] > opt.max_XA_hits_alt or \
+                    (not has_alt[r] and cnt[r] > opt.max_XA_hits):
+                continue
+            jobs.append(fin.CigarJob(reg=p, query=read.seq,
+                                     l_query=read.l_seq))
+            xas.append((k, r, len(jobs) - 1))
+        return xas
+
+    def _phaseA_reg2sam(self, regs, read, jobs):
+        """mem_reg2sam selection (bwamem.c:1025-1041) → cigar jobs.
+        Returns [(reg_idx, job_idx)]."""
+        opt = self.opt
+        picks = []
+        for k, p in enumerate(regs):
+            if p.score < opt.T:
+                continue
+            if p.secondary >= 0 and (p.is_alt or not (opt.flag & MEM_F_ALL)):
+                continue
+            if p.secondary >= 0 and p.secondary < fin.INT_MAX and \
+                    p.score < regs[p.secondary].score * opt.drop_ratio:
+                continue
+            jobs.append(fin.CigarJob(reg=p, query=read.seq,
+                                     l_query=read.l_seq))
+            picks.append((k, len(jobs) - 1))
+        return picks
+
     def _xa_strings(self, xas, fins):
         """mem_gen_alt rendering (bwamem_extra.c:142-160).  `fins` is the
         batched finish_jobs output, aligned with the job list."""
@@ -360,14 +421,362 @@ class Aligner:
             lines = sb.render()
         return ["".join(lines[j] for j in ix) for ix in idxs]
 
+    # ------------------------------------------------------------ PE batch
 
-def align_stream(al: Aligner, batch_iter, *, rg_id: str | None = None):
-    """Pipelined single-end batch driver: a dispatch-ahead serial loop.
-    Batch k+1's device front is ENQUEUED right after batch k's front
-    results are fetched, so the device computes batch k+1's seeding,
-    chaining and extension while the host runs batch k's finalization tail
-    and SAM render.  CUDA launches are asynchronous, so no threads are
-    needed.
+    def _matesw_rounds(self, reads, all_regs, pes, n_pairs):
+        """Mate rescue (mem_sam_pe head, bwamem_pair.c:291-301): per pair a
+        sequential list of mem_matesw calls; executed in lockstep rounds so
+        the unbanded SW batches across pairs (native ksw_align_host)."""
+        opt = self.opt
+        # per-pair candidate lists b[0], b[1] (snapshot copies,
+        # bwamem_pair.c:293-297)
+        _t0 = timers.start("matesw.worklists")
+        worklists = []
+        for p in range(n_pairs):
+            calls = []
+            for i in range(2):
+                a_i = all_regs[2 * p + i]
+                if not a_i:
+                    continue
+                b = [r for r in a_i
+                     if r.score >= a_i[0].score - opt.pen_unpaired]
+                for reg in b[: opt.max_matesw]:
+                    calls.append((i, copy.copy(reg)))
+            worklists.append(calls)
+        timers.stop("matesw.worklists", _t0)
+        step = 0
+        while True:
+            batch_jobs = []
+            owners = []
+            any_left = False
+            _t0 = timers.start("matesw.prepare")
+            for p in range(n_pairs):
+                if step >= len(worklists[p]):
+                    continue
+                any_left = True
+                i, anchor = worklists[p][step]
+                mate_read = reads[2 * p + (1 - i)]
+                ma = all_regs[2 * p + (1 - i)]
+                js = pairmod.prepare_matesw_call(
+                    opt, self.pac, self.l_pac, self.ctg_offsets_np, pes,
+                    anchor, mate_read.l_seq, mate_read.seq, ma)
+                for j in js:
+                    j.pair_i = p
+                    j.end = 1 - i
+                    owners.append(j)
+                    if j.valid:
+                        batch_jobs.append(j)
+            timers.stop("matesw.prepare", _t0)
+            if not any_left:
+                break
+            timers.count("matesw.rounds")
+            timers.count("matesw.jobs", len(batch_jobs))
+            _t0 = timers.start("matesw.sw")
+            if batch_jobs:
+                # group by ksw precision (XBYTE stripe 16 vs i16 stripe 8)
+                for p_stripe, grp in (
+                        (16, [j for j in batch_jobs
+                              if j.l_ms * opt.a < 250]),
+                        (8, [j for j in batch_jobs
+                             if j.l_ms * opt.a >= 250])):
+                    if not grp:
+                        continue
+                    # these are tiny branchy DPs: the native scalar loop
+                    # (hostops.c ksw_align_host_batch) takes them on the
+                    # host; ops/local_sw.ksw_align_batch computes the same
+                    # function on the device
+                    refs = [fin.get_seq_np(self.pac, self.l_pac,
+                                           j.rb, j.re) for j in grp]
+                    minsc = [opt.min_seed_len * opt.a] * len(grp)
+                    r = native.ksw_align_host(
+                        [j.seq for j in grp], refs, minsc, opt.mat,
+                        opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+                        int(opt.a), p_stripe)
+                    for b, j in enumerate(grp):
+                        j.result = (int(r["score"][b]), int(r["tb"][b]),
+                                    int(r["te"][b]), int(r["qb"][b]),
+                                    int(r["qe"][b]), int(r["score2"][b]))
+            timers.stop("matesw.sw", _t0)
+            # apply in (pair, r) order — r ascending within each call
+            _t0 = timers.start("matesw.apply")
+            for j in owners:
+                ma = all_regs[2 * j.pair_i + j.end]
+                if j.valid:
+                    sc, tb, te, qb, qe, sc2 = j.result
+                    pairmod.apply_matesw_result(opt, self.l_pac, j, sc, tb,
+                                                te, qb, qe, sc2, ma)
+            timers.stop("matesw.apply", _t0)
+            step += 1
+
+    def align_batch_pe(self, reads: list[Read], n_processed: int = 0,
+                       rg_id: str | None = None,
+                       pes0: dict | None = None, *, _front: dict = None,
+                       _prefetch=None) -> list[str]:
+        """Paired-end batch (mem_sam_pe, bwamem_pair.c:278-419); reads are
+        interleaved R1,R2.  Returns one SAM string per read.
+        `_front`/`_prefetch`: see align_batch_se."""
+        opt = self.opt
+        if not reads:
+            return []
+        assert len(reads) % 2 == 0, "PE batch must be interleaved pairs"
+        n_pairs = len(reads) // 2
+        # mate-rescue SW, CIGAR and SAM run in the native library, so the
+        # device is done with this batch after the front fetch — the next
+        # batch's front is prefetched there and the whole PE host tail
+        # overlaps device compute (same schedule as align_batch_se)
+        all_regs = self._regs_from_device(reads, _front,
+                                          _prefetch=_prefetch)
+
+        if pes0 is not None:
+            pes = pairmod.pes_from_spec(pes0)
+        else:
+            with timers.section("pestat.batch"):
+                pes = pairmod.pestat(
+                    opt, self.l_pac,
+                    [(all_regs[2 * p], all_regs[2 * p + 1])
+                     for p in range(n_pairs)])
+        self.last_pes = pes
+
+        if not (opt.flag & MEM_F_NO_RESCUE):
+            with timers.section("matesw.batch"):
+                self._matesw_rounds(reads, all_regs, pes, n_pairs)
+
+        # per-pair phase A
+        jobs: list[fin.CigarJob] = []
+        plans = []
+        with timers.section("mark.batch"):
+            ids = [(((n_processed >> 1) + (e >> 1)) << 1) | (e & 1)
+                   for e in range(2 * n_pairs)]
+            n_pri_all = fin.mark_primary_many(opt, all_regs, ids)
+
+        # mem_pair over every eligible pair in ONE native pass
+        # (hostops.c:pair_batch; pair.mem_pair is its plain counterpart).
+        # Precomputable because nothing before the per-pair mem_pair call
+        # mutates the reg tables — except -5 reordering, which keeps the
+        # per-pair path.
+        pair_pre = None
+        if n_pairs and not (opt.flag & (MEM_F_PRIMARY5 | MEM_F_NOPAIRING)):
+            with timers.section("pair.native"):
+                elig = [p for p in range(n_pairs)
+                        if n_pri_all[2 * p] and n_pri_all[2 * p + 1]]
+                if elig:
+                    n0 = np.fromiter((n_pri_all[2 * p] for p in elig),
+                                     np.int64, len(elig))
+                    n1 = np.fromiter((n_pri_all[2 * p + 1] for p in elig),
+                                     np.int64, len(elig))
+                    off0 = np.zeros(len(elig) + 1, np.int64)
+                    off1 = np.zeros(len(elig) + 1, np.int64)
+                    np.cumsum(n0, out=off0[1:])
+                    np.cumsum(n1, out=off1[1:])
+
+                    def flat(end, field, dt, tot):
+                        return np.fromiter(
+                            (getattr(r, field) for p in elig for r in
+                             all_regs[2 * p + end]
+                             [:n_pri_all[2 * p + end]]), dt, tot)
+                    t0_, t1_ = int(off0[-1]), int(off1[-1])
+                    tmp = max(opt.a + opt.b, opt.o_del + opt.e_del,
+                              opt.o_ins + opt.e_ins)
+                    o_a, sub_a, nsub_a, z0_a, z1_a = native.pair_batch(
+                        off0, off1,
+                        flat(0, "rb", np.int64, t0_),
+                        flat(0, "rid", np.int32, t0_),
+                        flat(0, "score", np.int32, t0_),
+                        flat(1, "rb", np.int64, t1_),
+                        flat(1, "rid", np.int32, t1_),
+                        flat(1, "score", np.int32, t1_),
+                        [(n_processed >> 1) + p for p in elig],
+                        self.ctg_offsets_np, self.l_pac, pes, opt.a, tmp)
+                    pair_pre = {
+                        p: (int(o_a[k]), int(sub_a[k]), int(nsub_a[k]),
+                            [int(z0_a[k]), int(z1_a[k])])
+                        for k, p in enumerate(elig)}
+        _pair_t0 = timers.start("pair.batch")
+        for p in range(n_pairs):
+            pid = (n_processed >> 1) + p
+            a = (all_regs[2 * p], all_regs[2 * p + 1])
+            s = (reads[2 * p], reads[2 * p + 1])
+            n_pri = [n_pri_all[2 * p], n_pri_all[2 * p + 1]]
+            if opt.flag & MEM_F_PRIMARY5:
+                fin.reorder_primary5(opt, a[0])
+                fin.reorder_primary5(opt, a[1])
+            plan = dict(mode="un", n_pri=n_pri, extra=1)
+            paired = False
+            if not (opt.flag & MEM_F_NOPAIRING) and n_pri[0] and n_pri[1]:
+                if pair_pre is not None:
+                    o, subo, n_sub, z = pair_pre[p]
+                else:
+                    o, subo, n_sub, z = pairmod.mem_pair(
+                        opt, self.l_pac, self.ctg_offsets_np, pes, a, pid,
+                        n_pri)
+                if o > 0:
+                    is_multi = False
+                    for i in range(2):
+                        if any(a[i][j].secondary < 0
+                               and a[i][j].score >= opt.T
+                               for j in range(1, n_pri[i])):
+                            is_multi = True
+                    if not is_multi:
+                        paired = True
+                        score_un = a[0][0].score + a[1][0].score - \
+                            opt.pen_unpaired
+                        subo = max(subo, score_un)
+                        q_pe = raw_mapq(o - subo, opt.a)
+                        if n_sub > 0:
+                            q_pe -= int(4.343 * np.log(n_sub + 1) + .499)
+                        q_pe = min(max(q_pe, 0), 60)
+                        q_pe = int(q_pe * (1. - .5 * (a[0][0].frac_rep
+                                                      + a[1][0].frac_rep))
+                                   + .499)
+                        extra = 1
+                        if o > score_un:   # paired alignment preferred
+                            q_se = [0, 0]
+                            for i in range(2):
+                                c = a[i][z[i]]
+                                if c.secondary >= 0:
+                                    c.sub = a[i][c.secondary].score
+                                    c.secondary = -2
+                                q_se[i] = fin.approx_mapq_se(opt, c)
+                            for i in range(2):
+                                q_se[i] = q_se[i] if q_se[i] > q_pe else \
+                                    (q_pe if q_pe < q_se[i] + 40
+                                     else q_se[i] + 40)
+                            extra |= 2
+                            for i in range(2):
+                                c = a[i][z[i]]
+                                cap = raw_mapq(c.score - c.csub, opt.a)
+                                q_se[i] = min(q_se[i], cap)
+                        else:
+                            z = [0, 0]
+                            q_se = [fin.approx_mapq_se(opt, a[0][0]),
+                                    fin.approx_mapq_se(opt, a[1][0])]
+                        # secondary/primary switcheroo (bwamem_pair.c:352)
+                        for i in range(2):
+                            k = a[i][z[i]].secondary_all
+                            if 0 <= k < n_pri[i]:
+                                for j in range(len(a[i])):
+                                    if a[i][j].secondary_all == k or j == k:
+                                        a[i][j].secondary_all = z[i]
+                                a[i][z[i]].secondary_all = -1
+                        xa = [self._phaseA_gen_alt(a[i], s[i], jobs)
+                              for i in range(2)]
+                        hjob = [None, None]
+                        gjob = [None, None]
+                        for i in range(2):
+                            jobs.append(fin.CigarJob(reg=a[i][z[i]],
+                                                     query=s[i].seq,
+                                                     l_query=s[i].l_seq))
+                            hjob[i] = len(jobs) - 1
+                            if n_pri[i] < len(a[i]):
+                                pp = a[i][n_pri[i]]
+                                if pp.score < opt.T or pp.secondary >= 0 \
+                                        or not pp.is_alt:
+                                    continue
+                                jobs.append(fin.CigarJob(reg=pp,
+                                                         query=s[i].seq,
+                                                         l_query=s[i].l_seq))
+                                gjob[i] = len(jobs) - 1
+                        plan = dict(mode="pair", n_pri=n_pri, z=z,
+                                    q_se=q_se, extra=extra, xa=xa,
+                                    hjob=hjob, gjob=gjob)
+            if not paired:
+                extra = 1
+                which = [-1, -1]
+                hjob = [None, None]
+                for i in range(2):
+                    if a[i]:
+                        if a[i][0].score >= opt.T:
+                            which[i] = 0
+                        elif n_pri[i] < len(a[i]) and \
+                                a[i][n_pri[i]].score >= opt.T:
+                            which[i] = n_pri[i]
+                    if which[i] >= 0:
+                        jobs.append(fin.CigarJob(reg=a[i][which[i]],
+                                                 query=s[i].seq,
+                                                 l_query=s[i].l_seq))
+                        hjob[i] = len(jobs) - 1
+                # proper-pair flag from the selected records
+                # (bwamem_pair.c:410-415)
+                hrid = [a[i][which[i]].rid if which[i] >= 0 else -1
+                        for i in range(2)]
+                if not (opt.flag & MEM_F_NOPAIRING) and \
+                        hrid[0] == hrid[1] and hrid[0] >= 0:
+                    d, dist = pairmod.infer_dir(self.l_pac, a[0][0].rb,
+                                                a[1][0].rb)
+                    if not pes[d].failed and \
+                            pes[d].low <= dist <= pes[d].high:
+                        extra |= 2
+                xa = [self._phaseA_gen_alt(a[i], s[i], jobs)
+                      for i in range(2)]
+                sel = [self._phaseA_reg2sam(a[i], s[i], jobs)
+                       for i in range(2)]
+                plan = dict(mode="un", n_pri=n_pri, extra=extra,
+                            hjob=hjob, xa=xa, sel=sel)
+            plans.append(plan)
+        timers.stop("pair.batch", _pair_t0)
+
+        with timers.section("cigar.jobs"):
+            fin.run_cigar_jobs(opt, self.pac, self.l_pac, jobs)
+
+        # phase C
+        fins = fin.finish_jobs(opt, self.ctg_offsets_np, self.l_pac, jobs)
+        sb = samio.SamBatch(opt, self.ctg_names, rg_id, self.ctg_annos)
+        idxs: list[list[int]] = [[] for _ in range(len(reads))]
+        for p in range(n_pairs):
+            plan = plans[p]
+            a = (all_regs[2 * p], all_regs[2 * p + 1])
+            s = (reads[2 * p], reads[2 * p + 1])
+            if plan["mode"] == "pair":
+                z, q_se, extra = plan["z"], plan["q_se"], plan["extra"]
+                h = [None, None]
+                aa = [[], []]
+                for i in range(2):
+                    xa_by_pri = self._xa_strings(plan["xa"][i], fins)
+                    hi = copy.copy(fins[plan["hjob"][i]])
+                    hi.mapq = q_se[i]
+                    hi.flag |= (0x40 << i) | extra
+                    if z[i] in xa_by_pri:
+                        hi.XA = "".join(xa_by_pri[z[i]])
+                    h[i] = hi
+                    aa[i].append(hi)
+                    if plan["gjob"][i] is not None:
+                        gi = copy.copy(fins[plan["gjob"][i]])
+                        gi.flag |= 0x800 | (0x40 << i) | extra
+                        npr = plan["n_pri"][i]
+                        if npr in xa_by_pri:
+                            gi.XA = "".join(xa_by_pri[npr])
+                        aa[i].append(gi)
+                for i in range(2):
+                    idxs[2 * p + i] = [
+                        sb.add(s[i], len(aa[i]), aa[i], w, m=h[1 - i])
+                        for w in range(len(aa[i]))]
+            else:
+                extra = plan["extra"]
+                h = [None, None]
+                for i in range(2):
+                    if plan["hjob"][i] is not None:
+                        h[i] = fins[plan["hjob"][i]]
+                    else:
+                        h[i] = fin.unmapped_aln()
+                for i in range(2):
+                    xa_by_pri = self._xa_strings(plan["xa"][i], fins)
+                    idxs[2 * p + i] = self._phaseC_reg2sam(
+                        s[i], a[i], plan["sel"][i], xa_by_pri, fins,
+                        (0x41 if i == 0 else 0x81) | extra, h[1 - i], sb)
+        with timers.section("sam.render"):
+            lines = sb.render()
+        return ["".join(lines[j] for j in ix) for ix in idxs]
+
+
+def align_stream(al: Aligner, batch_iter, *, pe: bool = False,
+                 rg_id: str | None = None, pes0: dict | None = None):
+    """Pipelined batch loop, single-end or paired-end (`pe`; batches are
+    then interleaved R1,R2 and `pes0` is an optional -I spec): a
+    dispatch-ahead serial loop.  Batch k+1's device front is ENQUEUED right
+    after batch k's front results are fetched, so the device computes batch
+    k+1's seeding, chaining and extension while the host runs batch k's
+    finalization tail and SAM render.  CUDA launches are asynchronous, so
+    no threads are needed.
 
     `batch_iter` yields lists of Reads; yields (n_reads, sam_list) per
     batch in input order."""
@@ -388,8 +797,13 @@ def align_stream(al: Aligner, batch_iter, *, rg_id: str | None = None):
         if nxt is not None:
             def prefetch(_b=nxt):
                 holder.append(al.begin_batch(_b))
-        sams = al.align_batch_se(cur, n_processed, rg_id=rg_id,
-                                 _front=front, _prefetch=prefetch)
+        if pe:
+            sams = al.align_batch_pe(cur, n_processed, rg_id=rg_id,
+                                     pes0=pes0, _front=front,
+                                     _prefetch=prefetch)
+        else:
+            sams = al.align_batch_se(cur, n_processed, rg_id=rg_id,
+                                     _front=front, _prefetch=prefetch)
         yield len(cur), sams
         n_processed += len(cur)
         if nxt is None:

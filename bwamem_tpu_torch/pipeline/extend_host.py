@@ -13,11 +13,10 @@ item — only its acceptance does.  So this module:
          right extension with retry (two launches of ext_pl2_kernel);
        * otherwise the side path: a pass at w, then a pass at 2w over the
          lanes that need it (bwamem.c:732-741), left side first, then the
-         right side seeded with the left score.  On a card the lanes the
-         one-pass kernel takes (qlen <= 4095, reachable score < 2^18) go to
-         ext_pl_kernel; wider lanes, and every lane on the CPU, go to the
-         plain ops/extend.extend_batch, whose row-max packing widens with
-         the query;
+         right side seeded with the left score.  On a card every lane goes
+         to ext_pl_kernel, whatever its query length and score; on the CPU
+         every lane goes to the plain ops/extend.extend_batch, whose
+         row-max packing widens with the query;
   3. replays the sequential skip/accept logic on the host with the
      extension results in hand — bit-identical to the reference, since a
      skipped item's (discarded) extension costs only device work.
@@ -59,12 +58,11 @@ def _score_kw(opt: MemOptions, mat) -> dict:
                 e_ins=opt.e_ins, zdrop=opt.zdrop)
 
 
-def _extend_flat(pac, l_pac, seqbatch, packed, *, lq_max, t_max, use_kernel,
-                 **kw):
+def _extend_flat(pac, l_pac, seqbatch, packed, *, lq_max, t_max, **kw):
     """One extension pass at a per-lane band over a [10, B] int64 lane
     block (read row, q_start, q_sign, qlen, t_start, t_sign, tlen, h0, w,
-    end_bonus).  use_kernel: ops/ext_kernel.extend_batch_pl (the CUDA
-    kernel on a card); else the plain ops/extend.extend_batch, which takes
+    end_bonus) through ops/ext_kernel.extend_batch_pl: the CUDA kernel for
+    tensors on a card, its plain version for tensors on the CPU; both take
     any query length.  Returns the six result rows stacked [6, B]."""
     (lane_read, q_start, q_sign, qlen, t_start, t_sign, tlen, h0, w,
      end_bonus) = (packed[i] for i in range(10))
@@ -73,10 +71,9 @@ def _extend_flat(pac, l_pac, seqbatch, packed, *, lq_max, t_max, use_kernel,
     qT, tT = _qt_blocks(pac, l_pac, seqbatch, lane_read, q_start, q_sign,
                         qlen, t_start, t_sign, tlen, lq_max=lq_max,
                         t_max=t_max)
-    ext = (ext_kernel.extend_batch_pl if use_kernel
-           else ext_kernel.extend_batch_pl_plain)
-    return torch.stack(list(ext(qT, qlen, tT, tlen, h0, w, end_bonus,
-                                lq_max=lq_max, t_max=t_max, **kw)))
+    return torch.stack(list(ext_kernel.extend_batch_pl(
+        qT, qlen, tT, tlen, h0, w, end_bonus, lq_max=lq_max, t_max=t_max,
+        **kw)))
 
 
 def _extend_fused(pac, l_pac, seqbatch, packed, *, lq_max, t_max, a,
@@ -156,7 +153,7 @@ class _ExtBatcher:
         self.fm = fm
         self.seq_dev = seq_dev
 
-    def _dispatch(self, idx, B, arrays, *, lq_max, t_max, use_kernel):
+    def _dispatch(self, idx, B, arrays, *, lq_max, t_max):
         """Pack the lanes `idx` of the nine per-lane arrays into one
         [10, B] block (pad lanes: qlen = tlen = 0, h0 = 1) and enqueue."""
         packed = np.zeros((10, B), np.int64)
@@ -170,8 +167,7 @@ class _ExtBatcher:
         dev = self.seq_dev.device
         return _extend_flat(self.fm.pac, self.fm.l_pac, self.seq_dev,
                             torch.from_numpy(packed).to(dev), lq_max=lq_max,
-                            t_max=t_max, use_kernel=use_kernel,
-                            **_score_kw(self.opt, self.mat))
+                            t_max=t_max, **_score_kw(self.opt, self.mat))
 
     def submit(self, lane_read, q_start, q_sign, qlen, t_start, t_sign,
                tlen, h0, w):
@@ -185,34 +181,34 @@ class _ExtBatcher:
         on_card = dev.type != "cpu"
         arrays = (lane_read, q_start, q_sign, qlen, t_start, t_sign, tlen,
                   h0, w)
-        # long-read lanes: the one-pass kernel's routing bound is the
-        # (h << 12) | col packing of the plain and TPU versions (queries to
-        # 4095, scores below 2^18); wider lanes take the plain extension,
-        # whose packing shift widens with LQ (ops/extend.py SH)
-        max_mat = int(np.max(np.asarray(self.mat)))
-        need = h0.astype(np.int64) + qlen.astype(np.int64) * max_mat
-        long_sel = (qlen > ext_kernel.LQ_MAX) | (need >= (1 << 18))
-        if long_sel.any():
-            lqb = pow2_bucket(int(qlen[long_sel].max()), lo=16)
-            sh = max(12, int(lqb).bit_length())
-            if int(need[long_sel].max()) >= (1 << (31 - sh)):
-                raise ValueError(
-                    "extension score bound exceeded even for the widened "
-                    "packing: %d >= 2^%d; lower -A" %
-                    (int(need.max()), 31 - sh))
-            idx = np.nonzero(long_sel)[0]
-            B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=8)
-            LT = pow2_bucket(max(int(tlen[idx].max()), 1), lo=16)
-            timers.count("dispatch.extend_long")
-            plan["parts"].append((idx, self._dispatch(
-                idx, B, arrays, lq_max=lqb, t_max=LT, use_kernel=False)))
-        elig = ~long_sel
+        assigned = np.zeros(M, bool)
+        if not on_card:
+            # the plain extension packs a row's maximum as (h << sh) | col:
+            # sh = 12 holds queries to 4095 bases and scores below 2^18;
+            # wider lanes go in a dispatch of their own, whose shift widens
+            # with LQ (ops/extend.py SH).  The CUDA kernel's scalar lane
+            # loop packs nothing, so on a card every lane takes the
+            # classes below.
+            max_mat = int(np.max(np.asarray(self.mat)))
+            need = h0.astype(np.int64) + qlen.astype(np.int64) * max_mat
+            long_sel = (qlen > ext_kernel.LQ_MAX) | (need >= (1 << 18))
+            if long_sel.any():
+                lqb = pow2_bucket(int(qlen[long_sel].max()), lo=16)
+                sh = max(12, int(lqb).bit_length())
+                if int(need[long_sel].max()) >= (1 << (31 - sh)):
+                    raise ValueError(
+                        "extension score bound exceeded even for the "
+                        "widened packing: %d >= 2^%d; lower -A" %
+                        (int(need.max()), 31 - sh))
+                idx = np.nonzero(long_sel)[0]
+                B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=8)
+                LT = pow2_bucket(max(int(tlen[idx].max()), 1), lo=16)
+                timers.count("dispatch.extend_long")
+                plan["parts"].append((idx, self._dispatch(
+                    idx, B, arrays, lq_max=lqb, t_max=LT)))
+                assigned = long_sel
         # size classes by target length (the row count of the DP)
         classes = [64, 256, max(1024, pow2_bucket(int(tlen.max()), lo=16))]
-        lq_fixed = min(pow2_bucket(max(int(qlen[elig].max()) if elig.any()
-                                       else 1, 1), lo=16),
-                       ext_kernel.LQ_MAX)
-        assigned = ~elig
         for tcap in classes:
             sel = (~assigned) & (tlen <= tcap)
             assigned |= sel
@@ -220,10 +216,11 @@ class _ExtBatcher:
             if cls_idx.size == 0:
                 continue
             if on_card:
-                # exact class width: a lane costs one thread whatever the
-                # block's rows, and few distinct shapes keep the allocator's
-                # blocks reusable
-                LQ, LT = lq_fixed, tcap
+                # one query width for the call and the exact class height:
+                # a lane costs one thread whatever the block's rows, and few
+                # distinct shapes keep the allocator's blocks reusable
+                LQ = pow2_bucket(max(int(qlen.max()), 1), lo=16)
+                LT = tcap
                 tile = _kernel_tile(LQ, LT)
             else:
                 # snug classes: padded rows/cols are real work for the
@@ -237,8 +234,7 @@ class _ExtBatcher:
                 B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=512)
                 timers.count("dispatch.extend")
                 plan["parts"].append((idx, self._dispatch(
-                    idx, B, arrays, lq_max=LQ, t_max=LT,
-                    use_kernel=on_card)))
+                    idx, B, arrays, lq_max=LQ, t_max=LT)))
         return plan
 
     @staticmethod
@@ -392,9 +388,9 @@ def extend_regions(al, reads, seq: np.ndarray, wr) -> list[list[AlnReg]]:
     ltl = np.where(s_qb > 0, s_rb - rmax0, 0).astype(np.int32)
     h0 = np.maximum(s_len * opt.a, 1).astype(np.int32)
     neg1 = np.full(M, -1, np.int64)
-    # the fused kernel takes queries to 4095 — longer reads take the side
-    # path, whose _ExtBatcher routes oversized lanes through the
-    # width-adaptive plain extension
+    # the fused path takes queries to 4095, as the reference routes
+    # them — longer reads take the side path, whose one-pass kernel takes
+    # any length
     fused = al.device.type != "cpu" and \
         int(l_seq.max()) <= ext_kernel.LQ_MAX
     if fused:

@@ -6,42 +6,63 @@
 Three phases; any failure exits non-zero without printing a result.
 
 1. Environment: the card's name and power limit, then the build of every
-   native source the main path needs (the CUDA extension kernels with nvcc
-   for sm_90a — one source holds both —, the host kernels and the
-   suffix-array code with cc), all compilers started together.
+   native source the paths below need (the CUDA extension kernels — one
+   source holds both — and the FM probe kernels with nvcc for sm_90a, the
+   host kernels and the suffix-array code with cc), all compilers started
+   together.
 2. Kernels against plain, on lanes made with numpy from a fixed seed:
    * ext_pl2_kernel (band-doubling retry in the lane): ~16k lanes shaped
      like the front's EXT lanes (query rows 128, target rows 256, default
      scoring; lanes that retry at the doubled band, empty queries and
      z-drop cuts included), all 7 outputs;
    * ext_pl_kernel (one pass at a per-lane band): the same 16k lanes with
-     bands 100 and 200 alternating, and ~1k long lanes (query rows 4095,
-     target rows 4608, queries of 1000-4095 bases), all 6 outputs.
+     bands 100 and 200 alternating, ~1k long lanes (query rows 4095,
+     target rows 4608, queries of 1000-4095 bases) and 256 over-long lanes
+     (query rows 5000, target rows 5376, queries of 4096-5000 bases: past
+     what the TPU kernel's packing held), all 6 outputs.
    A kernel must equal its plain PyTorch version; both are timed with
    CUDA events.
 3. Main paths at full size on a 5 Mbp genome (tools/se_smoke_data.py:
    simdata.py with fixed seeds, indexed with the port's build_index and
    cached under build/):
    * 2 x 8192 single-end 101 bp reads through align_stream: the device
-     front and ext_pl2_kernel; no row may fall back;
+     front and ext_pl2_kernel; no row may fall back.  align_stream
+     enqueues a batch's front during the tail of the batch before, so the
+     stream carries batch 0 a second time behind batch 1 (its SAM is
+     dropped) and the rate of batch 1, in mid-stream, is the one printed;
+   * 2 x 4096 pairs of 150 bp (insert 400 +- 40) through
+     align_stream(pe=True), streamed the same way: the same device front,
+     then insert-size inference, mate rescue and pair scoring on the
+     host.  No row may fall back; both mates of at least 90 % of the pairs
+     lie where simdata sampled them, at least 90 % of the pairs are flagged
+     proper, the inferred FR insert mean is within 400 +- 10 and mate
+     rescue ran; one batch of 256 pairs run whole on the card and on the
+     CPU gives byte-identical SAM;
    * 512 reads of 1000 bp: every row is handed to the host-compacted
      front, whose fused path launches ext_pl2_kernel;
-   * 128 reads of 5000 bp: the host-compacted front's side path, which
-     launches ext_pl_kernel and sends queries over 4095 bases to the plain
-     extension.
-   Each path runs with both launch counts set to 0 just before it and
+   * 64 reads of 5000 bp: the host-compacted front's side path, which
+     gives every lane, the ones with a query over 4095 bases included, to
+     ext_pl_kernel: 0 dispatches of the plain extension;
+   * the FM-step probe (tools/torch_fm_step_probe.py, 8192 lanes, 64
+     steps): the chained index-row gather inside one kernel
+     (fm_chain_words, fm_chain_rows) beside the same chain and the real
+     scan step issued from PyTorch, and beside one serial step measured
+     on a single block.
+   Each path runs with every launch count set to 0 just before it and
    read just after; a path that never launched its kernel, or launched
-   the other path's, fails.  Each prints reads/s, the stage timers and the
-   peak device memory; requires nearly every read of the path mapped, and
-   mapped where simdata sampled it (the read's name says where); then
-   reruns its first reads (256, 32, 2) on the CPU and requires
-   byte-identical SAM.  The 5000 bp path also reruns its first 32 reads on
-   the card as a batch of their own, byte-identical again.  The widest
-   call of each kernel in its path is kept, and the kernel is held against
-   its plain version on those lanes too; the kernels line reports these
-   main-path lanes.
+   another path's, fails.  Each alignment path prints reads/s, the stage
+   timers and the peak device memory; requires nearly every read mapped,
+   and mapped where simdata sampled it; then reruns its first reads (256,
+   16, 1) on the CPU and requires byte-identical SAM.  The 5000 bp path
+   also reruns its first 16 reads on the card as a batch of their own,
+   byte-identical again.  The widest call of each extension kernel in its
+   path (for the 5000 bp path: the widest with a query over 4095 bases) is
+   kept, and the kernel is held against its plain version on those lanes
+   too; the kernels line reports these main-path lanes.  The FM probe
+   kernels are held against their plain version on the probe's own lanes.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, one entry for each of the
+four kernels; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA device and no network.
 """
 from __future__ import annotations
@@ -59,18 +80,31 @@ CPU_CHECK_READS = 256
 # reads of each long-read batch rerun on the CPU (a 5000 bp read takes the
 # CPU tens of seconds, most of it the plain extension), and reads rerun on
 # the card as a batch of their own
-LONG_CPU_CHECK = {1000: 32, 5000: 2}
-LONG_SUB_BATCH = {5000: 32}
+LONG_CPU_CHECK = {1000: 16, 5000: 1}
+LONG_SUB_BATCH = {5000: 16}
+# reads of each long-read batch that the smoke run aligns (the first ones
+# of se_smoke_data's batch): seeding time is trips, not reads, so fewer
+# 5000 bp reads mostly cut the extension and the host tail
+LONG_READS = {1000: 512, 5000: 64}
+# pairs of the paired-end batch run whole on the card and on the CPU
+PE_CPU_CHECK_PAIRS = 256
 # lanes of the kernel comparison: the main path's EXT shape
 LANES, LQ, T_MAX = 16384, 128, 256
 # long lanes of the one-pass kernel's comparison
 LONG_LANES, LONG_LQ, LONG_T_MAX = 1024, 4095, 4608
+# over-long lanes: queries past the 4095 bases of the TPU kernel's packing
+OVER_LANES, OVER_LQ, OVER_T_MAX = 256, 5000, 5376
+# the FM probe's shape
+FM_LANES, FM_STEPS = 8192, 64
 # H100 SXM peaks: HBM bytes/s (data sheet), and the int32 rate outside the
 # tensor cores, half the 67 TFLOP/s float32 rate (an SM issues 64 int32
 # against 128 float32 operations per clock)
 PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 33.5e12
 OPS_PER_CELL = 16      # int32 operations of ksw's recurrence per DP cell
+# steps of the FM probe's one-block chain, which measures what one serial
+# step of a lane costs when nothing overlaps it
+FM_SERIAL_STEPS = 4096
 
 
 def log(msg: str) -> None:
@@ -109,7 +143,7 @@ def phase_env():
 
     from bwamem_tpu_torch import native
     from bwamem_tpu_torch.index import native as sais
-    from bwamem_tpu_torch.ops import ext_kernel
+    from bwamem_tpu_torch.ops import ext_kernel, fm_probe
     errors = []
 
     def build(name, fn):
@@ -126,6 +160,7 @@ def phase_env():
 
     jobs = [threading.Thread(target=build, args=a) for a in (
         ("ext_kernel.cu, both kernels (nvcc sm_90a)", ext_kernel.load),
+        ("fm_probe_kernel.cu, both entries (nvcc sm_90a)", fm_probe.load),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -270,26 +305,27 @@ def hold_kernel(label, qT, qlen, tT, tlen, h0, eb, **kw):
                 retried=n_retried)
 
 
-def ext_lanes_long():
-    """Long lanes for the one-pass kernel: queries of 1000-4095 bases
-    against their own mutated copy (2% substitutions, a deletion and an
-    insertion of a few bases, a random tail), one lane in eight against an
-    unrelated target (z-drop), and padding lanes (qlen = tlen = 0, h0 = 1)
-    at the end, as the long-read path builds them."""
+def ext_lanes_long(B=LONG_LANES, lq=LONG_LQ, t_max=LONG_T_MAX, q_lo=1000,
+                   pad=64, seed=1):
+    """Long lanes for the one-pass kernel: queries of q_lo-lq bases
+    (1000-4095 by default) against their own mutated copy (2% substitutions,
+    a deletion and an insertion of a few bases, a random tail), one lane in
+    eight against an unrelated target (z-drop), and `pad` padding lanes
+    (qlen = tlen = 0, h0 = 1) at the end, as the long-read path builds
+    them."""
     import numpy as np
     import se_smoke_data as sd
-    rng = np.random.default_rng(sd.SEED + 1)
-    B = LONG_LANES
-    qT = np.full((LONG_LQ, B), 4, np.int32)
-    tT = np.full((LONG_T_MAX, B), 4, np.int32)
+    rng = np.random.default_rng(sd.SEED + seed)
+    qT = np.full((lq, B), 4, np.int32)
+    tT = np.full((t_max, B), 4, np.int32)
     qlen = np.zeros(B, np.int32)
     tlen = np.zeros(B, np.int32)
     h0 = np.ones(B, np.int32)
-    for b in range(B - 64):
-        ql = int(rng.integers(1000, LONG_LQ + 1))
+    for b in range(B - pad):
+        ql = int(rng.integers(q_lo, lq + 1))
         q = rng.integers(0, 4, ql)
         if b % 8 == 7:
-            t = rng.integers(0, 4, int(rng.integers(500, LONG_T_MAX)))
+            t = rng.integers(0, 4, int(rng.integers(500, t_max)))
         else:
             m = q.copy()
             sub = rng.random(ql) < 0.02
@@ -299,7 +335,7 @@ def ext_lanes_long():
             t = np.concatenate([m[:cut], rng.integers(0, 4, gap),
                                 m[cut + gap // 2:],
                                 rng.integers(0, 4, int(rng.integers(0, 300)))])
-        t = t[:LONG_T_MAX]
+        t = t[:t_max]
         qT[:ql, b] = q
         tT[:len(t), b] = t
         qlen[b], tlen[b], h0[b] = ql, len(t), int(rng.integers(19, 300))
@@ -362,8 +398,8 @@ def hold_kernel_pl(label, qT, qlen, tT, tlen, h0, w, eb, plain_reps=5,
 
 
 def phase_kernel():
-    """Both kernels against their plain versions on generated lanes;
-    returns the largest error of each kernel."""
+    """Both extension kernels against their plain versions on generated
+    lanes; returns the largest error of each kernel."""
     import numpy as np
     import torch
     from bwamem_tpu_torch.config import MemOptions
@@ -391,8 +427,21 @@ def phase_kernel():
     long_ = hold_kernel_pl("generated long lanes", qT, qlen, tT, tlen, h0,
                            w, eb, plain_reps=1, lq_max=LONG_LQ,
                            t_max=LONG_T_MAX, **score)
+    # queries of 4096-5000 bases: every lane is past the TPU kernel's limit
+    qT, tT, qlen, tlen, h0, eb = (torch.from_numpy(a).to(dev)
+                                  for a in ext_lanes_long(
+                                      OVER_LANES, OVER_LQ, OVER_T_MAX,
+                                      q_lo=4096, pad=16, seed=2))
+    if int(qlen[:-16].min()) <= 4095:
+        raise RuntimeError("the over-long lanes are not over-long")
+    w = torch.where(torch.arange(OVER_LANES, device=dev) % 2 == 0, opt.w,
+                    2 * opt.w).to(torch.int32)
+    over = hold_kernel_pl("generated over-long lanes", qT, qlen, tT, tlen,
+                          h0, w, eb, plain_reps=1, lq_max=OVER_LQ,
+                          t_max=OVER_T_MAX, **score)
     return res["max_abs_err"], max(short["max_abs_err"],
-                                   long_["max_abs_err"])
+                                   long_["max_abs_err"],
+                                   over["max_abs_err"])
 
 
 # ------------------------------------------------------------------ phase 3
@@ -400,17 +449,18 @@ def phase_kernel():
 class WidestCall:
     """Wraps a kernel wrapper of ops/ext_kernel for one main-path run: the
     launch count starts at 0, and a copy of the widest call (most lanes
-    times target rows) is kept so the kernel can be held against its plain
-    version on lanes the main path built."""
+    times target rows; a call with over 4095 query rows before any other)
+    is kept so the kernel can be held against its plain version on lanes
+    the main path built."""
 
     def __init__(self, name, counter):
         from bwamem_tpu_torch.ops import ext_kernel
         self.mod, self.name, self.counter = ext_kernel, name, counter
         self.wrapper = getattr(ext_kernel, name)
-        self.size, self.args, self.kw = 0, None, None
+        self.size, self.args, self.kw = (False, 0), None, None
 
     def __call__(self, *args, **kw):
-        size = args[1].shape[0] * kw["t_max"]
+        size = (kw["lq_max"] > 4095, args[1].shape[0] * kw["t_max"])
         if size >= self.size:
             self.size, self.kw = size, dict(kw)
             self.args = [a.clone() for a in args]
@@ -426,6 +476,27 @@ class WidestCall:
         self.launches = getattr(self.mod, self.counter)
 
 
+def primary_start(sam, read_len):
+    """(contig, 0-based start less the clipped bases before it, MAPQ) of
+    the primary line of one read's SAM, or None when the read is unmapped
+    or the line does not cover the read."""
+    for line in sam.splitlines():
+        f = line.split("\t")
+        flag = int(f[1])
+        if flag & 0x900:
+            continue
+        if flag & 4:
+            return None
+        clip = re.match(r"(\d+)[SH]", f[5])
+        qlen = sum(int(n) for n, op in re.findall(r"(\d+)([MIDNSHP=X])", f[5])
+                   if op in "MIS=XH")
+        if qlen != read_len:
+            return None
+        return (f[2], int(f[3]) - 1 - (int(clip.group(1)) if clip else 0),
+                int(f[4]))
+    return None
+
+
 def placement(read, sam):
     """Where the read's primary SAM line puts it, against where simdata
     sampled it: the read is named rd<i>_<contig>_<0-based start>, and the
@@ -434,23 +505,13 @@ def placement(read, sam):
     bases).  "origin", or "repeat" for another place at a mapping quality
     under 20 (the genome carries repeats), else "wrong"."""
     contig, start = read.name.split("_", 1)[1].rsplit("_", 1)
-    for line in sam.splitlines():
-        f = line.split("\t")
-        flag = int(f[1])
-        if flag & 0x900:
-            continue
-        if flag & 4:
-            break
-        clip = re.match(r"(\d+)[SH]", f[5])
-        qlen = sum(int(n) for n, op in re.findall(r"(\d+)([MIDNSHP=X])", f[5])
-                   if op in "MIS=XH")
-        got = int(f[3]) - 1 - (int(clip.group(1)) if clip else 0)
-        if qlen != read.seq.shape[0]:
-            break
-        if f[2] == contig and abs(got - int(start)) <= 20 + qlen // 50:
-            return "origin"
-        return "repeat" if int(f[4]) < 20 else "wrong"
-    return "wrong"
+    qlen = read.seq.shape[0]
+    got = primary_start(sam, qlen)
+    if got is None:
+        return "wrong"
+    if got[0] == contig and abs(got[1] - int(start)) <= 20 + qlen // 50:
+        return "origin"
+    return "repeat" if got[2] < 20 else "wrong"
 
 
 def check_sams(label, sams, reads, min_mapped=0.9, min_origin=0.8,
@@ -517,29 +578,39 @@ def phase_main(idx, cpu_al):
     assert len(reads) == sd.BATCH * sd.N_BATCHES
     batches = [reads[k * sd.BATCH:(k + 1) * sd.BATCH]
                for k in range(sd.N_BATCHES)]
+    # batch 0 once more behind the last: align_stream enqueues a batch's
+    # front during the tail of the batch before, so only a batch with one
+    # on either side pays both a front and a tail; the extra batch's SAM
+    # is dropped
+    stream = batches + batches[:1]
     al = Aligner(idx, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timers.reset()
     timers.enable(True)
-    sams = []
+    sams, walls = [], []
     t0 = time.perf_counter()
     tb = t0
     with WidestCall("extend_batch_pl2", "launches") as pl2, \
             WidestCall("extend_batch_pl", "launches_pl") as pl:
-        for k, (n, ss) in enumerate(align_stream(al, batches)):
+        for k, (n, ss) in enumerate(align_stream(al, stream)):
             torch.cuda.synchronize()
             now = time.perf_counter()
+            walls.append(now - tb)
             log(f"batch {k}: {n} reads in {now - tb:.3f} s")
             tb = now
-            sams.extend(ss)
+            if k < len(batches):
+                sams.extend(ss)
     wall = time.perf_counter() - t0
     timers.enable(False)
     snap = timers.snapshot()
     peak = torch.cuda.max_memory_allocated()
     fb = snap.get("front.fallback_rows.count", 0)
-    log(f"main path: {len(sams)} reads in {wall:.3f} s = "
-        f"{len(sams) / wall:.1f} reads/s on {torch.cuda.get_device_name(0)}")
+    log(f"main path: {sum(map(len, stream))} reads in {wall:.3f} s = "
+        f"{sum(map(len, stream)) / wall:.1f} reads/s; batch 1 in mid-stream "
+        f"{len(stream[1]) / walls[1]:.1f} reads/s; the last batch "
+        f"({walls[-1]:.3f} s) is a host tail only; on "
+        f"{torch.cuda.get_device_name(0)}")
     log("stage timers:\n" + timers.report())
     log(f"ext_pl2_kernel launches: {pl2.launches}; ext_pl_kernel launches: "
         f"{pl.launches}; fallback rows: {fb}; peak CUDA memory: "
@@ -566,6 +637,7 @@ def phase_long(al, cpu_al, read_len):
     label = f"{read_len} bp path"
     reads = list(read_fastx(sd.long_reads(read_len, log)))
     assert len(reads) == sd.LONG_SETS[read_len][0]
+    reads = reads[:LONG_READS[read_len]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timers.reset()
@@ -590,11 +662,228 @@ def phase_long(al, cpu_al, read_len):
         f"{peak / 2**20:.1f} MiB")
     if snap.get("front.fallback_rows.count", 0) != len(reads):
         raise RuntimeError(f"{label}: not every row took the host front")
+    if snap.get("dispatch.extend_long.count", 0) != 0:
+        raise RuntimeError(f"{label}: the plain extension was dispatched on "
+                           f"the card")
     check_sams(label, sams, reads)
     check_cpu(label, cpu_al, reads, sams, LONG_CPU_CHECK[read_len])
     if read_len in LONG_SUB_BATCH:
         check_sub_batch(label, al, reads, sams, LONG_SUB_BATCH[read_len])
     return pl2, pl
+
+
+def phase_pe(al, cpu_al):
+    """The paired-end path: 2 x 4096 pairs of 150 bp through
+    align_stream(pe=True) on the card.  Returns the two extension kernels'
+    hooks."""
+    import torch
+    from bwamem_tpu_torch.io.fastq import interleave, read_fastx
+    from bwamem_tpu_torch.pipeline.align import align_stream
+    from bwamem_tpu_torch.utils import timers
+    import se_smoke_data as sd
+    label = "PE 150 bp path"
+    fq1, fq2, origins = sd.pe_reads(log)
+    reads = list(interleave(read_fastx(fq1), read_fastx(fq2)))
+    assert len(reads) == 2 * sd.PE_PAIRS == 2 * len(origins)
+    per = 2 * sd.PE_BATCH_PAIRS
+    batches = [reads[k:k + per] for k in range(0, len(reads), per)]
+    # batch 0 once more behind the last, as in phase_main: batch 1 is then
+    # in mid-stream; the extra batch's SAM is dropped
+    stream = batches + batches[:1]
+    inferred = []      # the insert-size distribution each batch infers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timers.reset()
+    timers.enable(True)
+    sams, walls, snaps = [], [], []
+    t0 = time.perf_counter()
+    tb = t0
+    with WidestCall("extend_batch_pl2", "launches") as pl2, \
+            WidestCall("extend_batch_pl", "launches_pl") as pl:
+        for k, (n, ss) in enumerate(align_stream(al, stream, pe=True)):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            walls.append(now - tb)
+            log(f"PE batch {k}: {n} reads in {now - tb:.3f} s")
+            tb = now
+            snaps.append(timers.snapshot())
+            if k < len(batches):
+                sams.extend(ss)
+                inferred.append(al.last_pes)
+    wall = time.perf_counter() - t0
+    timers.enable(False)
+    snap = timers.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    fb = snap.get("front.fallback_rows.count", 0)
+    log(f"{label}: {sum(map(len, stream))} reads in {wall:.3f} s = "
+        f"{sum(map(len, stream)) / wall:.1f} reads/s; batch 1 in mid-stream "
+        f"{len(stream[1]) / walls[1]:.1f} reads/s; the last batch "
+        f"({walls[-1]:.3f} s) is a host tail only; on "
+        f"{torch.cuda.get_device_name(0)}")
+    log("stage timers:\n" + timers.report())
+
+    def mid(name):
+        return snaps[1].get(name, (0, 0.0))[1] - snaps[0].get(name,
+                                                              (0, 0.0))[1]
+    log(f"{label}, host sections of batch 1 (s): " + ", ".join(
+        f"{k} {mid(k):.3f}" for k in ("pestat.batch", "matesw.batch",
+                                         "pair.native", "pair.batch",
+                                         "cigar.jobs")))
+    jobs = snap.get("matesw.jobs.count", 0)
+    log(f"{label}: ext_pl2_kernel launches {pl2.launches}, ext_pl_kernel "
+        f"launches {pl.launches}, fallback rows {fb}, mate-rescue jobs "
+        f"{jobs}, peak CUDA memory {peak / 2**20:.1f} MiB")
+    if pl2.launches <= 0 or pl.launches != 0:
+        raise RuntimeError(f"{label}: expected the device front's kernel "
+                           f"only, got {pl2.launches} and {pl.launches} "
+                           f"launches")
+    if fb != 0:
+        raise RuntimeError(f"{label}: {fb} fallback rows")
+    if jobs <= 0:
+        raise RuntimeError(f"{label}: mate rescue never ran")
+    if len(sams) != len(reads) or not all(x.endswith("\n") for x in sams):
+        raise RuntimeError(f"{label}: SAM output does not cover every read")
+
+    # both mates where simdata sampled the pair, and the proper-pair flag
+    L = sd.PE_READ_LEN
+    tol = 20 + L // 50
+    placed = proper = 0
+    for p, (contig, a, b) in enumerate(origins):
+        got = [primary_start(sams[2 * p + e], L) for e in range(2)]
+        want = (a, b - L)
+        if all(g is not None and g[0] == contig for g in got) and any(
+                abs(got[0][1] - want[e]) <= tol
+                and abs(got[1][1] - want[1 - e]) <= tol for e in range(2)):
+            placed += 1
+        proper += all(int(sams[2 * p + e].split("\t")[1]) & 2
+                      for e in range(2))
+    means = [pes[1].avg for pes in inferred]
+    log(f"{label}: both mates at their origin in {placed}/{len(origins)} "
+        f"pairs, proper-pair flag on {proper}/{len(origins)}, inferred FR "
+        f"insert mean per batch {[round(m, 2) for m in means]} (sd "
+        f"{[round(pes[1].std, 2) for pes in inferred]})")
+    if placed < 0.9 * len(origins) or proper < 0.9 * len(origins):
+        raise RuntimeError(f"{label}: {placed} pairs placed and {proper} "
+                           f"proper of {len(origins)}")
+    if len(means) != len(batches) or any(
+            pes[1].failed or abs(pes[1].avg - sd.PE_INSERT[0]) > 10
+            for pes in inferred):
+        raise RuntimeError(f"{label}: inferred FR insert means {means}")
+
+    # pestat is per batch: compare the card and the CPU on one batch of 256
+    # pairs that each runs whole
+    k = 2 * PE_CPU_CHECK_PAIRS
+    t1 = time.perf_counter()
+    gpu = al.align_batch_pe(reads[:k])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cpu = cpu_al.align_batch_pe(reads[:k])
+    if cpu != gpu:
+        bad = [i for i in range(k) if cpu[i] != gpu[i]]
+        raise RuntimeError(f"{label}: GPU and CPU SAM differ on {len(bad)} "
+                           f"of {k} reads (first {bad[:5]}):\n"
+                           f"{gpu[bad[0]]}{cpu[bad[0]]}")
+    log(f"{label}: a batch of {PE_CPU_CHECK_PAIRS} pairs on the card "
+        f"({t2 - t1:.1f} s) and on the CPU ({time.perf_counter() - t2:.1f} "
+        f"s): SAM identical")
+    return pl2, pl
+
+
+def fm_bound(n_lanes, steps, nb, W):
+    """Least time the card could take for the chained gather, from the
+    shapes: (bound_ms, bound_by, bytes, operations).  Bytes: each input
+    read once and the output written once — of the table no more rows than
+    the chain can touch, min(nb, lanes x steps) rows of W words (a row read
+    again comes from L2 and is not counted), plus k0 and the result.
+    Operations: W adds, the shift and address, the add and the non-negative
+    remainder per lane and step (W + 6 int32 operations).  Neither is what
+    holds the kernel: a lane's steps are serial, so it cannot finish before
+    `steps` dependent loads have come back; phase_fm_probe measures that
+    step and prints it beside the bound."""
+    nbytes = min(nb, n_lanes * steps) * W * 4 + 2 * 4 * n_lanes
+    ops = n_lanes * steps * (W + 6)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_INT32_OPS * 1e3
+    return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else
+            "bytes", nbytes, ops)
+
+
+def phase_fm_probe():
+    """The FM-step probe as its users run it (launch counts from 0), then
+    both kernel entries against the plain chain_gather on the probe's
+    lanes, timed with CUDA events.  Returns the two kernels-line entries."""
+    import numpy as np
+    import torch
+    import se_smoke_data as sd
+    import torch_fm_step_probe as probe
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.ops import fm as fmops
+    from bwamem_tpu_torch.ops import fm_probe
+    fm_probe.launches_words = fm_probe.launches_rows = 0
+    times = probe.probe(FM_LANES, FM_STEPS, log)
+    torch.cuda.synchronize()
+    launches = {"fm_chain_words": fm_probe.launches_words,
+                "fm_chain_rows": fm_probe.launches_rows}
+    log(f"FM probe: launches {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError("the FM probe never launched its kernels")
+
+    dev = torch.device("cuda")
+    fm = fmops.fm_from_index(load_index(sd.smoke_data(log)[0]), dev)
+    cmb32 = fm_probe.words32(fm.cmb)
+    nb, W = cmb32.shape
+    seq_len = fm.seq_len
+    k0 = torch.from_numpy(np.random.default_rng(sd.SEED).integers(
+        0, seq_len, FM_LANES).astype(np.int32)).to(dev)
+    args = (cmb32, k0, FM_STEPS, seq_len)
+    want = fm_probe.chain_gather(*args).to(torch.int64)
+    plain_ms = median_ms(lambda: fm_probe.chain_gather(*args))
+    # the same chain as int32 PyTorch calls (probe() holds it against
+    # chain_gather): the nearest thing to a library call
+    library_ms = median_ms(lambda: probe.torch_chain(*args))
+    bound_ms, bound_by, nbytes, ops = fm_bound(FM_LANES, FM_STEPS, nb, W)
+    extend_us = times["torch chained fm.extend"] / FM_STEPS * 1e3
+    log(f"FM probe: plain chain_gather {plain_ms:.2f} ms, PyTorch-issued "
+        f"int32 chain {library_ms:.2f} ms "
+        f"({library_ms / FM_STEPS * 1e3:.1f} us/step), PyTorch-issued "
+        f"fm.extend step {extend_us:.1f} us/step; bytes {nbytes}, "
+        f"operations {ops}, bound {bound_ms:.5f} ms ({bound_by})")
+    entries = []
+    for name, fn, line in (("fm_chain_words", fm_probe.chain_words, 120),
+                           ("fm_chain_rows", fm_probe.chain_rows, 150)):
+        got = fn(*args).to(torch.int64)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max().item())
+        log(f"{name} vs plain: {FM_LANES} lanes x {FM_STEPS} steps on the "
+            f"{(nb, W)} table, {int((got != want).sum())} differ, "
+            f"max_abs_err {err}")
+        if err:
+            raise RuntimeError(f"{name} disagrees with chain_gather")
+        ms = median_ms(lambda: fn(*args))
+        # one block of 128 lanes: its 4 warps share an SM and no lane waits
+        # on another, so time / steps is one serial step with nothing to
+        # overlap it — the dependent load from L2, the sum and the
+        # remainder
+        serial_ms = median_ms(lambda: fn(cmb32, k0[:fm_probe.LANES],
+                                         FM_SERIAL_STEPS, seq_len))
+        step_ns = serial_ms / FM_SERIAL_STEPS * 1e6
+        floor = FM_STEPS * step_ns * 1e-6
+        log(f"{name} {ms:.4f} ms ({ms / FM_STEPS * 1e3:.3f} us/step), "
+            f"{ms / bound_ms:.1f} times the bound; one serial step "
+            f"measured on one block over {FM_SERIAL_STEPS} steps: "
+            f"{step_ns:.1f} ns, so {FM_STEPS} steps cannot take under "
+            f"{floor:.5f} ms: the "
+            f"{'serial chain' if floor > bound_ms else 'bound'} is the "
+            f"larger ({ms / floor:.2f} times the serial chain)")
+        entries.append(dict(
+            name=name, route="cuda",
+            source="bwamem_tpu_torch/csrc/fm_probe_kernel.cu",
+            replaces=f"tools/fm_step_probe.py:{line}",
+            launches=launches[name], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, serial_step_ns=step_ns,
+            torch_extend_step_us=extend_us))
+    return entries
 
 
 def main() -> int:
@@ -616,12 +905,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_env()
     err_pl2, err_pl = phase_kernel()
+    kerns3 = phase_fm_probe()
     from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.pipeline.align import Aligner
     import se_smoke_data as sd
     idx = load_index(sd.smoke_data(log)[0])
     cpu_al = Aligner(idx, device="cpu")
     al, main_pl2, main_pl = phase_main(idx, cpu_al)
+    pe_pl2, pe_pl = phase_pe(al, cpu_al)
     fused_pl2, none_pl = phase_long(al, cpu_al, 1000)
     if fused_pl2.launches <= 0 or none_pl.launches != 0:
         raise RuntimeError(
@@ -631,29 +922,37 @@ def main() -> int:
     side_pl2, side_pl = phase_long(al, cpu_al, 5000)
     if side_pl.launches <= 0:
         raise RuntimeError("5000 bp path: ext_pl_kernel was never launched")
+    if side_pl.kw["lq_max"] <= 4095 or int(side_pl.args[1].max()) <= 4095:
+        raise RuntimeError("5000 bp path: no kernel call held a query over "
+                           "4095 bases")
     # the line reports each kernel on its main path's own widest call; the
     # other held calls (generated lanes with retries, empty queries and
     # z-drop cuts; the fused path's lanes) add their error
     kern2 = hold_kernel("main-path lanes, 101 bp", *main_pl2.args,
                         **main_pl2.kw)
+    pe_k = hold_kernel("PE-path lanes, 150 bp", *pe_pl2.args, **pe_pl2.kw)
     fused = hold_kernel("fused-path lanes, 1000 bp", *fused_pl2.args,
                         **fused_pl2.kw)
     kern2.pop("retried")
     kern2["launches"] = main_pl2.launches
     kern2["launches_by_path"] = {"101bp": main_pl2.launches,
+                                 "pe150bp": pe_pl2.launches,
                                  "1000bp": fused_pl2.launches,
                                  "5000bp": side_pl2.launches}
-    kern2["max_abs_err"] = max(kern2["max_abs_err"], fused["max_abs_err"],
-                               err_pl2)
-    kern1 = hold_kernel_pl("main-path lanes, 5000 bp", *side_pl.args,
+    kern2["max_abs_err"] = max(kern2["max_abs_err"], pe_k["max_abs_err"],
+                               fused["max_abs_err"], err_pl2)
+    kern2["ms_pe150bp"] = pe_k["ms"]
+    kern1 = hold_kernel_pl("main-path lanes, 5000 bp, the widest call with "
+                           "queries over 4095 bases", *side_pl.args,
                            plain_reps=1, **side_pl.kw)
     kern1["launches"] = side_pl.launches
     kern1["launches_by_path"] = {"101bp": main_pl.launches,
+                                 "pe150bp": pe_pl.launches,
                                  "1000bp": none_pl.launches,
                                  "5000bp": side_pl.launches}
     kern1["max_abs_err"] = max(kern1["max_abs_err"], err_pl)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kern2, kern1]}))
+    print(json.dumps({"kernels": [kern2, kern1, *kerns3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

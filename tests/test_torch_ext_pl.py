@@ -2,8 +2,9 @@
 Pallas kernel (extend_batch_pl in interpret mode) on the test_extend
 gen_cases corpora with per-lane bands w and 2w, and the CUDA source's
 one-pass lane loop, compiled for the host, against the plain version on
-the same lanes and on long lanes (queries of 1000-4095 bases).  Exact
-equality of all six outputs."""
+the same lanes, on long lanes (queries of 1000-4095 bases), on lanes past
+the Pallas kernel's packing limit (queries of 4096-5000 bases) and on lanes
+whose score starts at 2^18 and more.  Exact equality of all six outputs."""
 import ctypes
 
 import numpy as np
@@ -97,8 +98,9 @@ def test_kernel_source_lane_loop_matches_plain(seed, n, w):
         assert_same(want[k], out[k], nm)
 
 
-def _long_lanes(seed=5, B=12, LQ=4095, Tm=4352):
-    """Queries of 1000-4095 bases against a mutated copy with an indel and
+def _long_lanes(seed=5, B=12, LQ=4095, Tm=4352, qlo=1000, h0_lo=19,
+                h0_hi=400):
+    """Queries of qlo-LQ bases (1000-4095 by default) against a mutated copy with an indel and
     a tail; an unrelated target; a lane with an empty query; padding lanes
     (qlen = tlen = 0, h0 = 1) as the long-read path builds them."""
     rng = np.random.default_rng(seed)
@@ -108,7 +110,7 @@ def _long_lanes(seed=5, B=12, LQ=4095, Tm=4352):
     tlen = np.zeros(B, np.int32)
     h0 = np.ones(B, np.int32)
     for b in range(B - 2):
-        ql = LQ if b == 0 else int(rng.integers(1000, LQ + 1))
+        ql = LQ if b == 0 else int(rng.integers(qlo, LQ + 1))
         if b == 1:
             ql = 0
         q = rng.integers(0, 4, ql)
@@ -125,7 +127,7 @@ def _long_lanes(seed=5, B=12, LQ=4095, Tm=4352):
                                 rng.integers(0, 4, 150)])[:Tm]
         qT[:ql, b] = q
         tT[:len(t), b] = t
-        qlen[b], tlen[b], h0[b] = ql, len(t), int(rng.integers(19, 400))
+        qlen[b], tlen[b], h0[b] = ql, len(t), int(rng.integers(h0_lo, h0_hi))
     eb = np.full(B, 5, np.int32)
     return qT, tT, qlen, tlen, h0, eb, LQ, Tm
 
@@ -140,6 +142,33 @@ def test_kernel_source_lane_loop_matches_plain_long():
     assert want[1].max() > 1000          # extensions ran far into the query
     # padding lanes cost nothing and return score = h0
     assert (out[0][-2:] == 1).all() and (out[1:, -2:] <= 0).all()
+
+
+def test_kernel_source_lane_loop_matches_plain_over_4095():
+    """Lanes the Pallas kernel's (h << 12) | col packing cannot hold: the
+    scalar lane loop takes them as any other."""
+    lanes = _long_lanes(seed=17, B=8, LQ=5000, Tm=5376, qlo=4096)
+    assert (lanes[2][[0, 3, 4, 5]] > 4095).all()
+    wv = _bands(lanes[2].shape[0], 100)
+    want = _pl_plain(lanes, wv)
+    out = _host_pl(lanes, wv)
+    for k, nm in enumerate(OUT_NAMES):
+        assert_same(want[k], out[k], nm)
+    assert want[1].max() > 4095          # ran past the old column limit
+    assert (out[0][-2:] == 1).all() and (out[1:, -2:] <= 0).all()
+
+
+def test_kernel_source_lane_loop_matches_plain_score_over_2p18():
+    """Scores from 2^18 up (under 2^19, what the plain version's packing
+    holds at this width): int32 holds them in the lane loop."""
+    lanes = _long_lanes(seed=23, B=8, LQ=2000, Tm=2304, qlo=1000,
+                        h0_lo=1 << 18, h0_hi=(1 << 19) - 2001)
+    wv = _bands(lanes[2].shape[0], 100)
+    want = _pl_plain(lanes, wv)
+    out = _host_pl(lanes, wv)
+    for k, nm in enumerate(OUT_NAMES):
+        assert_same(want[k], out[k], nm)
+    assert want[0][:-2].min() >= 1 << 18 and want[1].max() > 1000
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -1,8 +1,9 @@
 """bwamem_tpu_torch stands alone: importing it loads neither JAX nor
 bwamem_tpu (checked in a subprocess, since this test process has both),
-no source file of the package or chip_smoke.py imports them, its entry
-points refuse to run without a GPU unless asked for the CPU, and
-chip_smoke.py fails without a GPU or outside a checkout."""
+no source file of the package, chip_smoke.py or the port's tools
+(tools/torch_*.py, tools/se_smoke_data.py) imports them, its entry points
+refuse to run without a GPU unless asked for the CPU, and chip_smoke.py and
+the FM-step probe fail without a GPU or outside a checkout."""
 import os
 import re
 import shutil
@@ -24,7 +25,8 @@ MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
            "bwamem_tpu_torch.pipeline.extend_host",
            "bwamem_tpu_torch.ops.chain", "bwamem_tpu_torch.ops.align_ext",
            "bwamem_tpu_torch.ops.local_sw",
-           "bwamem_tpu_torch.ops.ext_kernel", "bwamem_tpu_torch.finalize",
+           "bwamem_tpu_torch.ops.ext_kernel", "bwamem_tpu_torch.ops.fm_probe",
+           "bwamem_tpu_torch.pair", "bwamem_tpu_torch.finalize",
            "bwamem_tpu_torch.io.sam", "bwamem_tpu_torch.index",
            "bwamem_tpu_torch.native"]
 
@@ -57,7 +59,9 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|bwamem_tpu)\b"
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]))
+    list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    + list((REPO / "tools").glob("torch_*.py"))
+    + [REPO / "tools" / "se_smoke_data.py"]))
 def test_sources_import_neither(path):
     text = (REPO / path).read_text()
     hits = [m.group(0).strip() for m in _IMPORT.finditer(text)]
@@ -83,10 +87,20 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tmp_path):
 
 
 def test_cli_refuses_paired_end(tmp_path, capsys):
+    """Paired-end input is aligned now (tests/test_torch_align_pe_cli.py):
+    what the CLI still refuses is a command line that is not `mem` with an
+    index and one or two read files, and it no longer says that paired-end
+    is not ported."""
     from bwamem_tpu_torch import cli
-    assert cli.main(["mem", "x", "r1.fq", "r2.fq"], device="cpu") == 1
-    assert cli.main(["mem", "-p", "x", "r.fq"], device="cpu") == 1
-    assert "paired-end" in capsys.readouterr().err
+    assert cli.main(["mem", "x", "r1.fq", "r2.fq", "r3.fq"],
+                    device="cpu") == 1
+    assert cli.main(["mem", "-p", "x"], device="cpu") == 1
+    err = capsys.readouterr().err
+    assert "Usage" in err and "[in2.fq]" in err
+    assert "not ported" not in err
+    with pytest.raises(FileNotFoundError):      # goes on to load the index
+        cli.main(["mem", str(tmp_path / "none"), "r1.fq", "r2.fq"],
+                 device="cpu")
 
 
 def _run_smoke(cwd):
@@ -99,6 +113,15 @@ def test_chip_smoke_fails_without_gpu():
     r = _run_smoke(REPO)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_fm_probe_tool_fails_without_gpu():
+    r = subprocess.run([sys.executable, "tools/torch_fm_step_probe.py"],
+                       cwd=REPO,
+                       env=_clean_env() | {"CUDA_VISIBLE_DEVICES": ""},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr and "us/step" not in r.stdout
 
 
 def test_chip_smoke_fails_outside_checkout(tmp_path):

@@ -20,9 +20,11 @@ torch.set_num_threads(1)
 
 
 def make_dataset(dirpath, *, genome_len=50_000, n_reads=96, seed=3,
-                 kmer=True, n_contigs=2):
-    """Genome + 101 bp reads + both packages' index of it under dirpath.
-    Returns dict(prefix, fa, fq, jidx, tidx)."""
+                 kmer=True, n_contigs=2, n_pairs=0, pe_read_len=101):
+    """Genome + 101 bp reads + both packages' index of it under dirpath;
+    with n_pairs, also a paired read set of pe_read_len bases (insert 400
+    +- 40) as two FASTQs.  Returns dict(prefix, fa, fq, jidx, tidx) plus
+    fq1, fq2 when pairs were asked for."""
     import simdata
     from bwamem_tpu.index import build_index
     from bwamem_tpu_torch.index import load_index
@@ -33,10 +35,17 @@ def make_dataset(dirpath, *, genome_len=50_000, n_reads=96, seed=3,
     simdata.write_fasta(contigs, fa)
     simdata.write_fastq(simdata.sim_reads(contigs, n_reads, read_len=101,
                                           seed=seed + 1), fq)
+    pe = {}
+    if n_pairs:
+        pe = dict(fq1=str(d / "r1.fq"), fq2=str(d / "r2.fq"))
+        pairs = simdata.sim_reads(contigs, 2 * n_pairs, seed=seed + 2,
+                                  read_len=pe_read_len, paired=True)
+        simdata.write_fastq(pairs[0::2], pe["fq1"])
+        simdata.write_fastq(pairs[1::2], pe["fq2"])
     jidx = build_index(fa, with_kmer_table=kmer)
     jidx.save(prefix)
     return dict(prefix=prefix, fa=fa, fq=fq, jidx=jidx,
-                tidx=load_index(prefix))
+                tidx=load_index(prefix), **pe)
 
 
 def torch_opt(jopt=None):
@@ -146,3 +155,41 @@ def dataset_contigs(genome_len=50_000, seed=3, n_contigs=2):
     """The genome make_dataset indexes (same arguments, same seed)."""
     import simdata
     return simdata.make_genome(genome_len, seed=seed, n_contigs=n_contigs)
+
+
+# ---- paired-end: both packages on the same interleaved reads ----
+
+def pe_reads(d, which, n_pairs=None):
+    """The paired FASTQs of a make_dataset(n_pairs=...) dict interleaved by
+    package `which` ("j": bwamem_tpu, "t": bwamem_tpu_torch)."""
+    if which == "j":
+        from bwamem_tpu.io.fastq import interleave, read_fastx
+    else:
+        from bwamem_tpu_torch.io.fastq import interleave, read_fastx
+    reads = list(interleave(read_fastx(d["fq1"]), read_fastx(d["fq2"])))
+    return reads if n_pairs is None else reads[:2 * n_pairs]
+
+
+def first_diff(a, b):
+    bad = [i for i in range(min(len(a), len(b))) if a[i] != b[i]]
+    return (len(a), len(b), bad[:3], [(a[i], b[i]) for i in bad[:1]])
+
+
+def pe_both(d, *, flag=0, n_pairs=None, pes0=None, n_processed=0):
+    """align_batch_pe of both packages on the CPU; asserts equal SAM and
+    returns it (one string per read)."""
+    from bwamem_tpu.config import MemOptions as JOpt
+    from bwamem_tpu.pipeline.align import Aligner as JAligner
+    from bwamem_tpu_torch.pipeline.align import Aligner as TAligner
+    jopt = JOpt()
+    jopt.flag |= flag
+    want = JAligner(d["jidx"], jopt).align_batch_pe(
+        pe_reads(d, "j", n_pairs), n_processed, pes0=pes0)
+    got = TAligner(d["tidx"], torch_opt(jopt), device="cpu").align_batch_pe(
+        pe_reads(d, "t", n_pairs), n_processed, pes0=pes0)
+    assert want == got, first_diff(want, got)
+    return got
+
+
+def sam_flags(sams):
+    return [int(s.split("\t")[1]) for s in sams]

@@ -1,8 +1,10 @@
-"""The single-end data sets of chip_smoke.py and tools/torch_se_profile.py:
-a 5 Mbp one-contig genome and 2 x 8192 reads of 101 bp from simdata.py
-(fixed seeds), indexed with bwamem_tpu_torch's build_index, and long-read
-batches from the same genome (512 reads of 1000 bp, 128 reads of 5000 bp).
-Everything is cached under build/chip_smoke/."""
+"""The data sets of chip_smoke.py, tools/torch_se_profile.py and
+tools/torch_fm_step_probe.py: a 5 Mbp one-contig genome and 2 x 8192
+single-end reads of 101 bp from simdata.py (fixed seeds), indexed with
+bwamem_tpu_torch's build_index; long-read batches from the same genome (512
+reads of 1000 bp, 128 reads of 5000 bp); and 8192 pairs of 150 bp (insert
+400 +- 40) with the place each pair was sampled from.  Everything is cached
+under build/chip_smoke/."""
 from __future__ import annotations
 
 import os
@@ -19,6 +21,11 @@ READ_LEN = 101
 # long-read batches: read length -> (reads, substitution rate, indel rate);
 # the 5000 bp reads pass the extension kernels' 4095-base query bound
 LONG_SETS = {1000: (512, 0.02, 0.003), 5000: (128, 0.02, 0.002)}
+# paired-end: pairs, pairs per batch, read length, insert mean and sd
+PE_PAIRS = 8192
+PE_BATCH_PAIRS = 4096
+PE_READ_LEN = 150
+PE_INSERT = (400, 40)
 
 
 def _simdata():
@@ -46,6 +53,58 @@ def long_reads(read_len: int, log=print) -> str:
         log(f"data, {n} reads of {read_len} bp: "
             f"{time.perf_counter() - t0:.1f} s")
     return fq
+
+
+class _Tracked(str):
+    """A contig that notes every slice taken from it: simdata's paired
+    sampler slices the contig once per pair (the fragment) and its read
+    names carry no position, so this is where the pairs' origins come
+    from."""
+
+    def __new__(cls, seq, name, taken):
+        self = super().__new__(cls, seq)
+        self.name, self.taken = name, taken
+        return self
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            self.taken.append((self.name, key.start, key.stop))
+        return str.__getitem__(self, key)
+
+
+def pe_reads(log=print) -> tuple[str, str, list]:
+    """(FASTQ of mates 1, FASTQ of mates 2, origins): PE_PAIRS pairs of
+    PE_READ_LEN bases sampled from smoke_data's genome on first use.
+    origins[p] = (contig, fragment start, fragment end), 0-based: one mate
+    of pair p starts at the fragment's start on the forward strand, the
+    other ends at its end on the reverse strand."""
+    simdata = _simdata()
+    os.makedirs(WORK, exist_ok=True)
+    fq1, fq2, org = (os.path.join(WORK, f"pe{PE_READ_LEN}_{x}")
+                     for x in ("1.fq", "2.fq", "origin.tsv"))
+    if not all(os.path.exists(f) for f in (fq1, fq2, org)):
+        t0 = time.perf_counter()
+        taken = []
+        contigs = {n: _Tracked(seq, n, taken)
+                   for n, seq in _genome().items()}
+        pairs = simdata.sim_reads(
+            contigs, 2 * PE_PAIRS, read_len=PE_READ_LEN,
+            seed=SEED + PE_READ_LEN, paired=True, insert_mean=PE_INSERT[0],
+            insert_std=PE_INSERT[1])
+        if len(taken) != PE_PAIRS:
+            raise RuntimeError(f"{len(taken)} fragments for {PE_PAIRS} "
+                               "pairs: simdata's paired sampler changed")
+        simdata.write_fastq(pairs[0::2], fq1)
+        simdata.write_fastq(pairs[1::2], fq2)
+        with open(org, "w") as f:
+            for name, a, b in taken:
+                f.write(f"{name}\t{a}\t{b}\n")
+        log(f"data, {PE_PAIRS} pairs of {PE_READ_LEN} bp: "
+            f"{time.perf_counter() - t0:.1f} s")
+    with open(org) as f:
+        origins = [(n, int(a), int(b)) for n, a, b in
+                   (line.split("\t") for line in f)]
+    return fq1, fq2, origins
 
 
 def smoke_data(log=print) -> tuple[str, str]:
