@@ -1,11 +1,17 @@
-"""Command-line interface: `mem`, single-end and paired-end.
+"""Command-line interface — the reference CLI surface, as far as ported.
 
 `python -m bwamem_tpu_torch.cli mem [options] <idxbase> <in1.fq> [in2.fq]`
 mirrors main_mem's getopt (reference fastmap.c:77-238), mode presets
 (:240-268), update_a rescaling (:43-57) and the header/ordering behavior of
 main() (main.c:57-137).  Two FASTQs, or -p on one interleaved file, align as
-pairs; -I fixes the insert-size distribution.  The command runs on the card
-unless the caller passes another device to main().
+pairs; -I fixes the insert-size distribution.
+
+The index tools (`index`, `fa2pac`, `pac2bwt`, `pac2bwtgen`, `bwtupdate`,
+`bwt2sa`, `shm`) run on the host; `fastmap`, `maxk` and `pemerge` run their
+scans or SW on the card.  Flags, messages and exit codes are the JAX
+package's (bwamem_tpu/cli.py).  Every device command runs on the card
+unless the caller passes another device to main().  `aln`, `samse`,
+`sampe` and `bwasw` are not ported yet and exit 1 saying so.
 """
 from __future__ import annotations
 
@@ -255,14 +261,363 @@ def _batches_by_bases(reads, max_bases: int, pe: bool):
         yield buf
 
 
-def main(argv: list[str] | None = None, device=None) -> int:
-    """`mem` on `device` ("cuda" when None; raises without a GPU)."""
-    argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] != "mem":
-        sys.stderr.write("Usage: bwamem_tpu_torch mem [options] <idxbase> "
-                         "<in1.fq> [in2.fq]\n")
+def cmd_index(argv: list[str]) -> int:
+    if len(argv) < 1:
+        sys.stderr.write("Usage: bwamem_tpu index <in.fa> [prefix]\n")
         return 1
-    return cmd_mem(argv[1:], device=device)
+    fa = argv[0]
+    prefix = argv[1] if len(argv) > 1 else fa
+    from bwamem_tpu_torch.index import build_index
+    idx = build_index(fa, with_kmer_table=True)
+    idx.save(prefix)                   # native arrays (<prefix>.bt.npz …)
+    idx.save_reference_format(prefix)  # bit-identical .pac/.ann/.amb/.bwt/.sa
+    return 0
+
+
+def _smem_reads(argv_idx: str, reads_path: str, min_intv: int, device):
+    """(index, FM, per-batch (reads, SmemBatch)) of fastmap and maxk:
+    batches of 4096 reads, the SMEM scans of pipeline/seeding_host on
+    `device`.  timers: index.load (the index and its FM on the device)."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.io.fastq import batches, read_fastx
+    from bwamem_tpu_torch.ops import fm as fmops
+    from bwamem_tpu_torch.pipeline import seeding_host as sh
+    from bwamem_tpu_torch.pipeline.align import resolve_device
+    from bwamem_tpu_torch.utils import timers
+    dev = resolve_device(device)
+    with timers.section("index.load"):
+        idx = load_index(argv_idx)
+        fm = fmops.fm_from_index(idx, dev)
+
+    def gen():
+        for batch in batches(read_fastx(reads_path), 4096):
+            yield batch, sh.smem_batch(fm, batch, min_intv)
+    return idx, fm, gen()
+
+
+def cmd_fastmap(argv: list[str], device=None) -> int:
+    """SMEM dump — output format of `bwa fastmap` (fastmap.c:324-399):
+    SQ/EM lines, per-pivot SMEMs sorted by start, reference coordinates for
+    intervals of size <= -w."""
+    import numpy as np
+    import torch
+    min_iwidth, min_len, min_intv, print_seq = 20, 17, 1, False
+    try:
+        opts, args = getopt_mod.getopt(argv, "w:l:pi:I:L:")
+    except getopt_mod.GetoptError as e:
+        raise SystemExit(f"[E::fastmap] {e}")
+    for c, v in opts:
+        if c == "-w":
+            min_iwidth = int(v)
+        elif c == "-l":
+            min_len = int(v)
+        elif c == "-p":
+            print_seq = True
+        elif c == "-i":
+            min_intv = int(v)
+        elif c in ("-I", "-L"):
+            sys.stderr.write(f"[W::fastmap] {c} not supported yet\n")
+    if len(args) < 2:
+        sys.stderr.write("Usage: bwamem_tpu fastmap [options] "
+                         "<idxbase> <in.fq>\n")
+        return 1
+    from bwamem_tpu_torch.ops import fm as fmops
+    from bwamem_tpu_torch.pipeline import seeding_host as sh
+    idx, fm, smems = _smem_reads(args[0], args[1], min_intv, device)
+    it = sh._np_itype(fm)
+    offs = idx.contig_offsets()
+    names = [c.name for c in idx.contigs]
+    l_pac = int(idx.l_pac)
+
+    for batch, sm in smems:
+        n = len(batch)
+        cnt, s, end, x0a, x2a = sm.cnt, sm.s, sm.end, sm.x0, sm.x2
+        emit = sm.emit & ((end - s) >= min_len)
+        # SA positions for hits of small intervals
+        er, ec = np.nonzero(emit & (x2a <= min_iwidth) & (x2a > 0))
+        hit_ranks, hit_owner = [], []
+        for hi in range(er.size):
+            x0v, x2v = int(x0a[er[hi], ec[hi]]), int(x2a[er[hi], ec[hi]])
+            hit_ranks.extend(range(x0v, x0v + x2v))
+            hit_owner.extend([hi] * x2v)
+        pos_of = {}
+        if hit_ranks:
+            H = len(hit_ranks)
+            rk = np.zeros(sh.pow2_bucket(H, lo=256), it)
+            rk[:H] = hit_ranks
+            sa = sh._fetch(fmops.sa_lookup(
+                fm, torch.from_numpy(rk).to(fm.device)))[:H]
+            for hi, p in zip(hit_owner, sa):
+                pos_of.setdefault(hi, []).append(int(p))
+        hit_idx = {(int(er[i]), int(ec[i])): i for i in range(er.size)}
+        for i in range(n):
+            r = batch[i]
+            sq = "".join("ACGTN"[b] for b in r.seq)
+            extra = f"\t{sq}" if print_seq else ""
+            sys.stdout.write(f"SQ\t{r.name}\t{r.l_seq}{extra}\n")
+            # per-pivot groups; emitted slots are already start-ascending
+            # (back-extension start is non-decreasing in forward end), which
+            # is the reference's order after bwt_reverse_intvs (bwt.c:346)
+            k = 0
+            while k < cnt[i]:
+                j = k
+                while j < cnt[i] and sm.pivot[i, j] == sm.pivot[i, k]:
+                    j += 1
+                for slot in range(k, j):
+                    if not emit[i, slot]:
+                        continue
+                    st, en = int(s[i, slot]), int(end[i, slot])
+                    x2v = int(x2a[i, slot])
+                    line = [f"EM\t{st}\t{en}\t{x2v}"]
+                    if (i, slot) in hit_idx and x2v <= min_iwidth:
+                        ln = en - st
+                        for p in pos_of.get(hit_idx[(i, slot)], []):
+                            is_rev = p >= l_pac
+                            pf = 2 * l_pac - 1 - p if is_rev else p
+                            if is_rev:
+                                pf -= ln - 1
+                            rid = int(np.searchsorted(offs, pf,
+                                                      side="right") - 1)
+                            line.append(f"\t{names[rid]}:"
+                                        f"{'+-'[is_rev]}"
+                                        f"{pf - offs[rid] + 1}")
+                    else:
+                        line.append("\t*")
+                    sys.stdout.write("".join(line) + "\n")
+                k = j
+            sys.stdout.write("//\n")
+    return 0
+
+
+def cmd_maxk(argv: list[str], device=None) -> int:
+    """Max exact-match length histogram (main_maxk, maxk.c:12-67): for every
+    base of the input, the length of the longest SMEM covering it (clamped
+    to 255); prints the 256-bin histogram."""
+    import numpy as np
+    self_mode = False
+    try:
+        opts, args = getopt_mod.getopt(argv, "s")
+    except getopt_mod.GetoptError as e:
+        raise SystemExit(f"[E::maxk] {e}")
+    for c, _ in opts:
+        if c == "-s":
+            self_mode = True
+    if len(args) < 2:
+        sys.stderr.write("Usage: bwamem_tpu maxk [-s] <index.prefix> "
+                         "<seq.fa>\n")
+        return 1
+    min_intv = 2 if self_mode else 1   # smem_config(itr,2,INT_MAX,0)
+    # the reference passes its first arg straight to bwt_restore_bwt
+    # (maxk.c:31), i.e. it is the .bwt FILE; accept that or a bare prefix
+    if args[0].endswith(".bwt"):
+        args[0] = args[0][: -len(".bwt")]
+    _, _, smems = _smem_reads(args[0], args[1], min_intv, device)
+    hist = np.zeros(256, np.int64)
+    for batch, sm in smems:
+        for i in range(len(batch)):
+            ln = int(sm.l_seq[i])
+            cov = np.zeros(ln, np.uint8)
+            for slot in np.nonzero(sm.emit[i])[0]:
+                st, en = int(sm.s[i, slot]), int(sm.end[i, slot])
+                l = min(en - st, 255)
+                np.maximum(cov[st:en], l, out=cov[st:en])
+            hist += np.bincount(cov, minlength=256)
+    for i in range(256):
+        sys.stdout.write(f"{i}\t{int(hist[i])}\n")
+    return 0
+
+
+def cmd_pemerge(argv: list[str], device=None) -> int:
+    """Overlap-merge read pairs (main_pemerge, pemerge.c:217-291)."""
+    from bwamem_tpu_torch import pemerge as pm
+    from bwamem_tpu_torch.io.fastq import read_fastx, interleave
+    opt = pm.PemOptions()
+    flag, min_ovlp = 0, 10
+    try:
+        opts, args = getopt_mod.getopt(argv, "muQ:t:T:")
+    except getopt_mod.GetoptError as e:
+        raise SystemExit(f"[E::pemerge] {e}")
+    for c, v in opts:
+        if c == "-m":
+            flag |= 1
+        elif c == "-u":
+            flag |= 2
+        elif c == "-Q":
+            opt.q_thres = int(v)
+        elif c == "-t":
+            opt.n_threads = int(v)
+        elif c == "-T":
+            min_ovlp = int(v)
+    opt.flag = flag if flag else 3
+    opt.T = opt.a * min_ovlp
+    if not args:
+        sys.stderr.write(
+            "\nUsage:   bwamem_tpu pemerge [-mu] <read1.fq> [read2.fq]\n\n"
+            "Options: -m       output merged reads only\n"
+            "         -u       output unmerged reads only\n"
+            f"         -t INT   number of threads [{opt.n_threads}]\n"
+            f"         -T INT   minimum end overlap [{min_ovlp}]\n"
+            f"         -Q INT   max sum of errors [{opt.q_thres}]\n\n")
+        return 1
+    if len(args) >= 2:
+        it = interleave(read_fastx(args[0]), read_fastx(args[1]))
+        trim = False                     # interleave already trimmed
+    else:
+        it = read_fastx(args[0])
+        trim = True
+
+    def pair_iter():
+        prev = None
+        for r in it:
+            # trim_readno (bwa.c:73-77) also applies to single-file input
+            if trim and len(r.name) > 2 and r.name[-2] == "/" and \
+                    r.name[-1].isdigit():
+                r.name = r.name[:-2]
+            if prev is None:
+                prev = r
+            else:
+                yield prev, r
+                prev = None
+
+    pm.run_pemerge(opt, pair_iter(), device=device)
+    return 0
+
+
+def cmd_shm(argv: list[str]) -> int:
+    """Stage/list/drop shared-memory index copies (main_shm,
+    bwashm.c:179-213)."""
+    import os
+    from bwamem_tpu_torch.index import shm
+    to_list = to_drop = force = False
+    try:
+        opts, args = getopt_mod.getopt(argv, "ldf")
+    except getopt_mod.GetoptError as e:
+        raise SystemExit(f"[E::shm] {e}")
+    for c, _ in opts:
+        if c == "-l":
+            to_list = True
+        elif c == "-d":
+            to_drop = True
+        elif c == "-f":
+            force = True
+    if to_list:
+        for p in shm.list_staged():
+            sys.stdout.write(p + "\n")
+        return 0
+    if to_drop:
+        n = shm.destroy(args[0] if args else None)
+        sys.stderr.write(f"[M::shm] dropped {n} staged index(es)\n")
+        return 0
+    if not args:
+        sys.stderr.write(
+            "Usage: bwamem_tpu shm [-d|-l|-f] [idxbase]\n"
+            "  stage <idxbase> into shared memory; -l list; -d drop\n")
+        return 1
+    if shm.test(args[0]) and not force:
+        sys.stderr.write(f"[M::shm] index '{args[0]}' is already in "
+                         "shared memory\n")
+        return 0
+    path = shm.stage(args[0], force=force)
+    sz = os.path.getsize(path)
+    sys.stderr.write(f"[M::shm] staged '{args[0]}' "
+                     f"({sz / 1e6:.1f} MB) at {path}\n")
+    return 0
+
+
+def cmd_index_micro(cmd: str, argv: list[str]) -> int:
+    """Low-level index steps (reference main.c:105-109): fa2pac, pac2bwt,
+    pac2bwtgen, bwtupdate, bwt2sa — file-identical to the reference."""
+    from bwamem_tpu_torch.index import microcmd
+    args = list(argv)
+    if cmd == "fa2pac":
+        for_only = "-f" in args
+        args = [a for a in args if a != "-f"]
+        if not args:
+            sys.stderr.write(
+                "Usage: bwamem_tpu fa2pac [-f] <in.fasta> [<out.prefix>]\n")
+            return 1
+        microcmd.fa2pac(args[0], args[1] if len(args) > 1 else args[0],
+                        for_only=for_only)
+        return 0
+    if cmd in ("pac2bwt", "pac2bwtgen"):
+        # -d (ropebwt) / -b (block size) select reference-internal
+        # construction algorithms; the BWT is unique, we always use SA-IS
+        flt = []
+        skip = False
+        for a in args:
+            if skip:
+                skip = False
+                continue
+            if a == "-d":
+                continue
+            if a == "-b":
+                skip = True
+                continue
+            flt.append(a)
+        if len(flt) < 2:
+            sys.stderr.write(
+                f"Usage: bwamem_tpu {cmd} [-d] <in.pac> <out.bwt>\n")
+            return 1
+        microcmd.pac2bwt(flt[0], flt[1])
+        return 0
+    if cmd == "bwtupdate":
+        if len(args) != 1:
+            sys.stderr.write("Usage: bwamem_tpu bwtupdate <the.bwt>\n")
+            return 1
+        microcmd.bwtupdate(args[0])
+        return 0
+    # bwt2sa
+    sa_intv = 32
+    flt = []
+    i = 0
+    while i < len(args):
+        if args[i] == "-i":
+            sa_intv = int(args[i + 1])
+            i += 2
+            continue
+        flt.append(args[i])
+        i += 1
+    if len(flt) < 2:
+        sys.stderr.write(
+            "Usage: bwamem_tpu bwt2sa [-i 32] <in.bwt> <out.sa>\n")
+        return 1
+    microcmd.bwt2sa(flt[0], flt[1], sa_intv)
+    return 0
+
+
+NOT_PORTED = ("aln", "samse", "sampe", "bwasw")
+
+
+def main(argv: list[str] | None = None, device=None) -> int:
+    """Dispatch a command; the device commands (mem, fastmap, maxk,
+    pemerge) run on `device` ("cuda" when None; raises without a GPU)."""
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        sys.stderr.write(
+            "Usage: bwamem_tpu <mem|aln|samse|sampe|bwasw|index|fastmap"
+            "|maxk|pemerge|shm> [options]\n")
+        return 1
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "mem":
+        return cmd_mem(rest, device=device)
+    if cmd == "index":
+        return cmd_index(rest)
+    if cmd == "fastmap":
+        return cmd_fastmap(rest, device=device)
+    if cmd == "maxk":
+        return cmd_maxk(rest, device=device)
+    if cmd == "pemerge":
+        return cmd_pemerge(rest, device=device)
+    if cmd == "shm":
+        return cmd_shm(rest)
+    if cmd in ("fa2pac", "pac2bwt", "pac2bwtgen", "bwtupdate", "bwt2sa"):
+        return cmd_index_micro(cmd, rest)
+    if cmd in NOT_PORTED:
+        sys.stderr.write(f"[E::main] '{cmd}' is not ported to "
+                         "bwamem_tpu_torch yet (bwamem_tpu has it)\n")
+        return 1
+    sys.stderr.write(f"[E::main] unknown command '{cmd}'\n")
+    return 1
 
 
 if __name__ == "__main__":

@@ -21,11 +21,17 @@ def _npz_matches_bwt(prefix: str) -> bool:
 
 
 def load_index(prefix: str) -> BwaIndex:
-    """bwa_idx_load (bwa.c:488-509) from disk.  Accepts either the native
-    .bt.npz or a stock bwa .pac/.ann/.amb/.bwt/.sa prefix; when both exist
-    the native sidecar is used only if consistent with the .bwt."""
+    """bwa_idx_load (bwa.c:488-509): shared-memory fast path when the
+    prefix was staged with `shm` (by either package), else disk.  Accepts
+    either the native .bt.npz or a stock bwa .pac/.ann/.amb/.bwt/.sa
+    prefix; when both exist the native sidecar is used only if consistent
+    with the .bwt."""
     import os
     import sys
+    from bwamem_tpu_torch.index import shm
+    idx = shm.load_staged(prefix)
+    if idx is not None:
+        return idx
     have_npz = os.path.exists(prefix + ".bt.npz")
     have_ref = os.path.exists(prefix + ".bwt")
     if have_npz and have_ref and not _npz_matches_bwt(prefix):

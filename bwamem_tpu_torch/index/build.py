@@ -139,6 +139,17 @@ def pack_2bit(codes: np.ndarray) -> np.ndarray:
     return (c[:, 0] << 6 | c[:, 1] << 4 | c[:, 2] << 2 | c[:, 3]).astype(np.uint8)
 
 
+def unpack_2bit(pac: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of pack_2bit: the first n nt4 codes of a .pac byte array."""
+    b = pac[: (n + 3) // 4]
+    out = np.empty(len(b) * 4, dtype=np.uint8)
+    out[0::4] = b >> 6 & 3
+    out[1::4] = b >> 4 & 3
+    out[2::4] = b >> 2 & 3
+    out[3::4] = b & 3
+    return out[:n]
+
+
 def suffix_array(t: np.ndarray) -> np.ndarray:
     """Suffix array of t (codes) with implicit terminal sentinel smaller than
     all symbols; returns ranks→positions for the n real suffixes (the sentinel
@@ -214,6 +225,18 @@ def _bwt_from_sa_full(t: np.ndarray, sa_full: np.ndarray):
     return bwt, primary
 
 
+def bwt_from_sa(t: np.ndarray, sa: np.ndarray):
+    """BWT string (sentinel removed) + primary + SA_full, matching is_bwt
+    (reference is.c:208-223): BWT over ranks 0..n of the sentinel-terminated
+    text, with the rank whose suffix starts at 0 (the sentinel output
+    position, `primary`) removed."""
+    n = len(t)
+    sa_full = np.empty(n + 1, dtype=np.int64)
+    sa_full[0] = n          # sentinel suffix is rank 0
+    sa_full[1:] = sa
+    return (*_bwt_from_sa_full(t, sa_full), sa_full)
+
+
 def pack_bwt_words(bwt: np.ndarray) -> np.ndarray:
     """BWT codes → uint32 words, base i at bits ((15-(i&15))<<1) of word i>>4
     (reference bwt.h:74-80 layout, occ-interleave removed).  Chunked: the
@@ -231,6 +254,13 @@ def pack_bwt_words(bwt: np.ndarray) -> np.ndarray:
         c = b.astype(np.uint32).reshape(-1, 16)
         out[s: s + len(c)] = (c << shifts).sum(axis=1, dtype=np.uint32)
     return out
+
+
+def unpack_bwt_words(words: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of pack_bwt_words: uint32 words → n BWT codes."""
+    shifts = np.arange(15, -1, -1, dtype=np.uint32) * 2
+    c = (words[:, None] >> shifts[None, :]) & 3
+    return c.reshape(-1)[:n].astype(np.uint8)
 
 
 def occ_checkpoints(bwt: np.ndarray) -> np.ndarray:

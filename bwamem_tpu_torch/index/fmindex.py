@@ -193,3 +193,65 @@ class BwaIndex:
         return cls(l_pac=l_pac, seq_len=seq_len, primary=primary, L2=L2,
                    bwt_words=bwt_words, occ=occ, sa_samples=sa_samples,
                    sa_intv=sa_intv, pac=pac, contigs=contigs, ambs=ambs)
+
+    def _interleaved_bwt(self) -> np.ndarray:
+        """Rebuild the reference's occ-interleaved .bwt array
+        (bwtindex.c:150-172): per 128-base block, 8 u32 words of checkpoint
+        counts (4 little-endian u64) then up to 8 u32 words of packed BWT;
+        a final checkpoint trails the last (possibly partial) block."""
+        n = self.seq_len
+        n_words = (n + 15) >> 4
+        n_ckpt = (n + OCC_INTERVAL - 1) // OCC_INTERVAL + 1
+        out = np.zeros(n_words + n_ckpt * 8, dtype=np.uint32)
+        occ64 = self.occ.astype(np.uint64)
+        k = 0
+        w = 0
+        nb = n_ckpt - 1
+        for b in range(nb):
+            ck = occ64[b].view(np.uint32)  # LE: lo word first
+            out[k:k + 8] = ck
+            k += 8
+            w_end = min(w + 8, n_words)
+            out[k:k + (w_end - w)] = self.bwt_words[w:w_end]
+            k += w_end - w
+            w = w_end
+        out[k:k + 8] = occ64[nb].view(np.uint32)
+        return out
+
+    def save_reference_format(self, prefix: str) -> None:
+        # .pac (bntseq.c:314-327)
+        with open(prefix + ".pac", "wb") as f:
+            f.write(self.pac.tobytes())
+            if self.l_pac % 4 == 0:
+                f.write(b"\0")
+            f.write(bytes([self.l_pac % 4]))
+        # .ann / .amb (bntseq.c:65-95)
+        with open(prefix + ".ann", "w") as f:
+            f.write(f"{self.l_pac} {self.n_seqs} 11\n")
+            for c in self.contigs:
+                anno = c.anno if c.anno else "(null)"
+                f.write(f"{c.gi} {c.name} {anno}\n")
+                f.write(f"{c.offset} {c.len} {c.n_ambs}\n")
+        with open(prefix + ".amb", "w") as f:
+            f.write(f"{self.l_pac} {self.n_seqs} {len(self.ambs)}\n")
+            for a in self.ambs:
+                f.write(f"{a.offset} {a.len} {a.amb}\n")
+        # .bwt (bwt.c:385-394): primary, L2[1..4], interleaved array
+        with open(prefix + ".bwt", "wb") as f:
+            np.array([self.primary], dtype=np.uint64).tofile(f)
+            self.L2[1:5].astype(np.uint64).tofile(f)
+            self._interleaved_bwt().tofile(f)
+        # .sa (bwt.c:396-407): primary, L2[1..4], sa_intv, seq_len, sa[1:].
+        # Our runtime stride may be denser than the reference's 32
+        # (build.runtime_sa_interval); the FILE is always written at stride
+        # 32 so it stays bit-identical to `bwa index` output.
+        file_intv, samples = self.sa_intv, self.sa_samples
+        if file_intv < 32 and 32 % file_intv == 0:
+            samples = samples[:: 32 // file_intv]
+            file_intv = 32
+        with open(prefix + ".sa", "wb") as f:
+            np.array([self.primary], dtype=np.uint64).tofile(f)
+            self.L2[1:5].astype(np.uint64).tofile(f)
+            np.array([file_intv, self.seq_len], dtype=np.uint64).tofile(f)
+            sa = samples.astype(np.uint64).copy()
+            sa[1:].tofile(f)

@@ -722,3 +722,109 @@ def collect_intervals_host(al, seq_np: np.ndarray, l_seq: np.ndarray,
     overflow = np.zeros(n, bool)
     return (read_iv[order], start[order], end[order], x0[order], x2[order],
             overflow)
+
+
+# --------------------------------------------------------------------------
+# Stand-alone single-pass scan wrappers.  The mem pipeline uses the three
+# seeding programs above; these are the building blocks of the SMEM-
+# enumeration CLI tools (fastmap, maxk — fastmap.c:324, maxk.c:12), which
+# need raw per-pivot SMEMs rather than the 3-pass seeding output.
+# --------------------------------------------------------------------------
+
+def scan_trips(L: int) -> int:
+    """First trip count of _fwd_scan for reads padded to L bases: the
+    pass-1 default of _sizes_for (t1s)."""
+    return -(-(L + (L >> 1) + 24) // 32) * 32
+
+
+def _fwd_scan(fm, seq, l_seq, start, min_intv, *, cap, multi_pivot):
+    """forward_scan run to completion, as the JAX package's while_loop
+    form (max_steps=None) does: rerun with twice the trips while a lane is
+    unfinished.  Candidates past `cap` are dropped (overflow), as there.
+    A lane needs at most one trip per base and one per pivot, so the trip
+    count converges.  timers: seed.scan.trips (every trip run, reruns
+    included) and seed.scan.reruns."""
+    trips = scan_trips(seq.shape[1])
+    while True:
+        c = smemops.forward_scan(fm, seq, l_seq, start, min_intv, cap,
+                                 multi_pivot=multi_pivot, max_steps=trips)
+        timers.count("seed.scan.trips", trips)
+        if not bool(c.unfinished):
+            return c
+        if trips > 4 * (seq.shape[1] + 1):
+            raise RuntimeError(f"forward_scan unfinished after {trips} "
+                               f"trips on reads of {seq.shape[1]} bases")
+        timers.count("seed.scan.reruns")
+        trips *= 2
+
+
+class SmemBatch(NamedTuple):
+    """Per-pivot SMEM candidates of one batch (host arrays, rows [n])."""
+    pivot: np.ndarray    # [n, cap] candidate's pivot
+    end: np.ndarray      # [n, cap] match end (exclusive)
+    s: np.ndarray        # [n, cap] leftmost start after back-extension
+    x0: np.ndarray       # [n, cap] interval of [s, end)
+    x2: np.ndarray       # [n, cap] its size
+    cnt: np.ndarray      # [n] candidates written
+    emit: np.ndarray     # [n, cap] bool: the candidate is an SMEM
+    l_seq: np.ndarray    # [n] read lengths
+
+
+def smem_batch(fm, reads, min_intv: int) -> SmemBatch:
+    """The SMEMs of every read of `reads` (bwt_smem1a over each pivot of
+    the read, min interval size min_intv): the forward scan, every
+    candidate back-extended in one flat lane set, then the emission rule —
+    the body of fastmap and maxk (bwamem_tpu/cli.py:360-398).  timers:
+    seed.scan, seed.back_ext (each up to its fetch)."""
+    from bwamem_tpu_torch.io.fastq import pack_batch
+    dev = fm.device
+    it = _np_itype(fm)
+    n = len(reads)
+    N = pow2_bucket(n, lo=8)
+    L = pow2_bucket(max(r.l_seq for r in reads), lo=32)
+    seq, l_seq = pack_batch(reads, N, L)
+    cap = 2 * L
+    seq_d = torch.from_numpy(seq).to(dev)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    with timers.section("seed.scan"):
+        c1 = _fwd_scan(fm, seq_d, put(l_seq),
+                       torch.zeros(N, dtype=i32, device=dev),
+                       torch.full((N,), min_intv, dtype=fm.itype,
+                                  device=dev), cap=cap, multi_pivot=True)
+        pivot, end, cx0, cx1, cx2, cnt = (_fetch(x)[:n] for x in (
+            c1.pivot, c1.end, c1.x0, c1.x1, c1.x2, c1.n))
+    rows, slots = np.nonzero(np.arange(cap)[None, :] < cnt[:, None])
+    M = rows.size
+    s = np.zeros((n, cap), np.int32)
+    x0a = np.zeros((n, cap), it)
+    x2a = np.zeros((n, cap), it)
+    if M:
+        Mp = pow2_bucket(M, lo=256)
+        lr = np.zeros(Mp, np.int32)
+        pv = np.zeros(Mp, np.int32)
+        bx = [np.zeros(Mp, it) for _ in range(3)]
+        va = np.zeros(Mp, bool)
+        lr[:M] = rows
+        pv[:M] = pivot[rows, slots]
+        bx[0][:M] = cx0[rows, slots]
+        bx[1][:M] = cx1[rows, slots]
+        bx[2][:M] = cx2[rows, slots]
+        va[:M] = True
+        # no compaction ladder: the closing loop runs L + 1 trips and a
+        # lane retires at the latest when its position passes 0 (pivot <
+        # L), so every lane runs to its end, as the JAX while_loop does
+        with timers.section("seed.back_ext"):
+            sf, x0f, x2f = (_fetch(x)[:M] for x in smemops.back_extend_flat(
+                fm, seq_d, put(lr), put(pv), put(bx[0]), put(bx[1]),
+                put(bx[2]), put(np.full(Mp, min_intv, it)), put(va)))
+        s[rows, slots] = sf
+        x0a[rows, slots] = x0f
+        x2a[rows, slots] = x2f
+    # the emission rule on the host copies (smem.emit_mask)
+    emit = smemops.emit_mask(c1._replace(pivot=torch.from_numpy(pivot),
+                                         n=torch.from_numpy(cnt)),
+                             torch.from_numpy(s).reshape(-1)).numpy()
+    return SmemBatch(pivot, end, s, x0a, x2a, cnt, emit, l_seq[:n])

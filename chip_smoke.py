@@ -7,9 +7,9 @@ Three phases; any failure exits non-zero without printing a result.
 
 1. Environment: the card's name and power limit, then the build of every
    native source the paths below need (the CUDA extension kernels — one
-   source holds both — and the FM probe kernels with nvcc for sm_90a, the
-   host kernels and the suffix-array code with cc), all compilers started
-   together.
+   source holds both —, the FM probe kernels and the four gather-probe
+   kernels with nvcc for sm_90a, the host kernels and the suffix-array code
+   with cc), all compilers started together.
 2. Kernels against plain, on lanes made with numpy from a fixed seed:
    * ext_pl2_kernel (band-doubling retry in the lane): ~16k lanes shaped
      like the front's EXT lanes (query rows 128, target rows 256, default
@@ -22,6 +22,12 @@ Three phases; any failure exits non-zero without printing a result.
      what the TPU kernel's packing held), all 6 outputs.
    A kernel must equal its plain PyTorch version; both are timed with
    CUDA events.
+2b. The gather-strategy probe (tools/torch_pl_gather_probe.py) at the TPU
+   script's defaults (8192 lanes, 16 passes, a table of 78208 rows; tables
+   from numpy with the smoke seed): gp_scalar, gp_scalar2, gp_onehot and
+   gp_take_ax0, each launched by the probe (counts from 0), then held
+   against its plain version (max_abs_err 0) and reported with the
+   probe's CUDA-event times, its plain and library times and its bound.
 3. Main paths at full size on a 5 Mbp genome (tools/se_smoke_data.py:
    simdata.py with fixed seeds, indexed with the port's build_index and
    cached under build/):
@@ -60,9 +66,16 @@ Three phases; any failure exits non-zero without printing a result.
    kept, and the kernel is held against its plain version on those lanes
    too; the kernels line reports these main-path lanes.  The FM probe
    kernels are held against their plain version on the probe's own lanes.
+   Last, the seeding and merging tools through cli.main on the card, with
+   the stage timers on: fastmap and maxk over the first 8192 reads of
+   101 bp (two CLI batches of 4096; no extension kernel may launch;
+   reads/s, scan trips and reruns, peak memory), and pemerge over 4096
+   pairs of 100 bp (some pair must merge); the first 256 reads, or pairs,
+   run on the card and on the CPU give identical output (stdout, and
+   pemerge's stderr too).
 
 The line before the last is {"kernels": [...]}, one entry for each of the
-four kernels; the last line is
+eight kernels; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA device and no network.
 """
 from __future__ import annotations
@@ -105,6 +118,12 @@ OPS_PER_CELL = 16      # int32 operations of ksw's recurrence per DP cell
 # steps of the FM probe's one-block chain, which measures what one serial
 # step of a lane costs when nothing overlaps it
 FM_SERIAL_STEPS = 4096
+# the gather-strategy probe at tools/pl_gather_probe.py's defaults
+GP_LANES, GP_STEPS = 8192, 16
+PEAK_BF16_OPS = 989e12   # tensor cores, dense (H100 SXM data sheet)
+# reads of the fastmap/maxk path (the first of the 101 bp set; two CLI
+# batches of 4096), and the reads and pairs rerun on the CPU
+TOOL_READS, TOOL_CPU_READS, PEM_CPU_PAIRS = 8192, 256, 256
 
 
 def log(msg: str) -> None:
@@ -143,7 +162,7 @@ def phase_env():
 
     from bwamem_tpu_torch import native
     from bwamem_tpu_torch.index import native as sais
-    from bwamem_tpu_torch.ops import ext_kernel, fm_probe
+    from bwamem_tpu_torch.ops import ext_kernel, fm_probe, gather_probe
     errors = []
 
     def build(name, fn):
@@ -161,6 +180,8 @@ def phase_env():
     jobs = [threading.Thread(target=build, args=a) for a in (
         ("ext_kernel.cu, both kernels (nvcc sm_90a)", ext_kernel.load),
         ("fm_probe_kernel.cu, both entries (nvcc sm_90a)", fm_probe.load),
+        ("gather_probe_kernel.cu, four kernels (nvcc sm_90a)",
+         gather_probe.load),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -442,6 +463,104 @@ def phase_kernel():
     return res["max_abs_err"], max(short["max_abs_err"],
                                    long_["max_abs_err"],
                                    over["max_abs_err"])
+
+
+def gp_bound(name, x, steps):
+    """Least time the card could take for one gather-probe kernel on the
+    probe's inputs x: (bound_ms, bound_by, bytes, operations).  Bytes: k
+    (or the take's kk) read once, the output written once, and of each
+    table only the words these indices touch (computed from the data: a
+    word read again, in a later pass or by another lane, is not counted).
+    Operations: gp_onehot's product, 2 x lanes x padded depth x 128 on the
+    bf16 tensor cores; the others' int32 work (address, add, remainder) at
+    the int32 rate."""
+    import torch
+    k = x["k"].reshape(-1).to(torch.int64)
+    n = k.numel()
+    if name == "gp_scalar":
+        words = torch.unique(k * 128 + torch.arange(n, device=k.device) % 128)
+        nbytes = 4 * (2 * n + words.numel())
+        t_ops = n * steps * 2 / PEAK_INT32_OPS * 1e3
+    elif name == "gp_scalar2":
+        nbytes = 4 * 2 * n + 8 * torch.unique(k).numel()
+        t_ops = n * steps * 3 / PEAK_INT32_OPS * 1e3
+    elif name == "gp_onehot":
+        A = x["tab3"].shape[0]
+        nbytes = 4 * (2 * n + x["tab3"].numel())
+        t_ops = 2 * n * (-(-A // 16) * 16) * 128 / PEAK_BF16_OPS * 1e3
+    else:
+        tab, kk = x["tab"], x["kfull"].to(torch.int64)
+        R = tab.shape[0]
+        touched = torch.zeros(tab.shape, dtype=torch.bool, device=tab.device)
+        col = torch.arange(128, device=tab.device)[None, :].expand_as(kk)
+        for _ in range(steps):
+            touched[kk, col] = True
+            kk = torch.remainder(kk + tab.gather(0, kk).to(torch.int64), R)
+        nbytes = 4 * (2 * kk.numel() + int(touched.sum()))
+        t_ops = kk.numel() * steps * 3 / PEAK_INT32_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else
+            "bytes", int(nbytes))
+
+
+def phase_gather_probe():
+    """The gather-strategy probe as its users run it
+    (tools/torch_pl_gather_probe.probe, launch counts from 0; it checks
+    every kernel against its plain version and times kernel, plain and
+    library with CUDA events), then each kernel held against its plain
+    version once more on the probe's inputs.  Returns the four
+    kernels-line entries."""
+    import torch
+    import se_smoke_data as sd
+    import torch_pl_gather_probe as probe
+    from bwamem_tpu_torch.ops import gather_probe as gp
+    counters = {"gp_scalar": "launches_scalar",
+                "gp_scalar2": "launches_scalar2",
+                "gp_onehot": "launches_onehot",
+                "gp_take_ax0": "launches_take"}
+    for c in counters.values():
+        setattr(gp, c, 0)
+    res = probe.probe(GP_LANES, GP_STEPS, sd.SEED, log)
+    torch.cuda.synchronize()
+    launches = {n: getattr(gp, c) for n, c in counters.items()}
+    log(f"gather probe: launches {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError("the gather probe never launched a kernel")
+    x = res["inputs"]
+    held = {"gp_scalar": (lambda: gp.gp_scalar(x["tab"], x["k"], GP_STEPS),
+                          lambda: gp.scalar_plain(x["tab"], x["k"]), 65),
+            "gp_scalar2": (lambda: gp.gp_scalar2(x["tabw"], x["k"],
+                                                 GP_STEPS),
+                           lambda: gp.scalar2_plain(x["tabw"], x["k"]), 93),
+            "gp_onehot": (lambda: gp.gp_onehot(x["tab3"], x["k"]),
+                          lambda: gp.onehot_plain(x["tab3"], x["k"]), 120),
+            "gp_take_ax0": (lambda: gp.gp_take_ax0(x["tab"], x["kfull"],
+                                                   GP_STEPS),
+                            lambda: gp.take_ax0_plain(x["tab"], x["kfull"],
+                                                      GP_STEPS), 151)}
+    entries = []
+    for name, (kern, plain, line) in held.items():
+        got = kern().to(torch.int64)
+        want = plain().to(torch.int64)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max().item())
+        r = res["results"][name]
+        bound_ms, bound_by, nbytes = gp_bound(name, x, GP_STEPS)
+        log(f"{name} vs plain: {tuple(want.shape)} outputs, "
+            f"{int((got != want).sum())} differ, max_abs_err {err}; kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']} ms, bytes {nbytes}, bound {bound_ms:.6f} ms "
+            f"({bound_by}), kernel / bound {r['ms'] / bound_ms:.1f}")
+        if err:
+            raise RuntimeError(f"{name} disagrees with its plain version")
+        entries.append(dict(
+            name=name, route="cuda",
+            source="bwamem_tpu_torch/csrc/gather_probe_kernel.cu",
+            replaces=f"tools/pl_gather_probe.py:{line}",
+            launches=launches[name], max_abs_err=err, ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=r["library_ms"]))
+    return entries
 
 
 # ------------------------------------------------------------------ phase 3
@@ -886,6 +1005,130 @@ def phase_fm_probe():
     return entries
 
 
+def run_cli(argv, device):
+    """cli.main(argv, device=device) with its standard output and error
+    captured: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+    from bwamem_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv, device=device)
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv[:1])} on {device} exited {rc}: "
+                           f"{err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def head_fastq(src, n):
+    """Path of a FASTQ holding the first n records of src (made once)."""
+    dst = f"{src[:-3]}.first{n}.fq"
+    if not os.path.exists(dst):
+        with open(src) as f, open(dst + ".tmp", "w") as g:
+            for _ in range(4 * n):
+                g.write(f.readline())
+        os.replace(dst + ".tmp", dst)
+    return dst
+
+
+def run_timed(label, argv, n_items, unit):
+    """One CLI command on the card with the stage timers on and the
+    extension kernels' launch counts from 0: (stdout, stderr, timer
+    snapshot).  Prints the rate, the timers, the launches and the peak
+    device memory."""
+    import torch
+    from bwamem_tpu_torch.ops import ext_kernel
+    from bwamem_tpu_torch.utils import timers
+    ext_kernel.launches = ext_kernel.launches_pl = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timers.reset()
+    timers.enable(True)
+    t0 = time.perf_counter()
+    try:
+        out, err = run_cli(argv, "cuda")
+        torch.cuda.synchronize()
+    finally:
+        timers.enable(False)
+    wall = time.perf_counter() - t0
+    snap = timers.snapshot()
+    ext = ext_kernel.launches + ext_kernel.launches_pl
+    sections = ", ".join(f"{k} {v[1]:.3f} s" for k, v in sorted(snap.items())
+                         if isinstance(v, tuple))
+    log(f"{label}: {n_items} {unit} in {wall:.3f} s = "
+        f"{n_items / wall:.1f} {unit}/s on {torch.cuda.get_device_name(0)}; "
+        f"{sections}; scan trips {snap.get('seed.scan.trips.count', 0)}, "
+        f"reruns "
+        f"{snap.get('seed.scan.reruns.count', 0)}; extension kernel launches "
+        f"{ext}; peak CUDA memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if ext:
+        raise RuntimeError(f"{label}: {ext} extension kernel launches")
+    return out, err, snap
+
+
+def phase_tools(prefix):
+    """fastmap and maxk over the first 8192 reads of 101 bp (two CLI
+    batches of 4096) and pemerge over 4096 pairs of 100 bp, each through
+    cli.main on the card; the first 256 reads or pairs rerun on the CPU
+    give the same bytes."""
+    import se_smoke_data as sd
+    fq = head_fastq(sd.smoke_data(log)[1], TOOL_READS)
+    fq_cpu = head_fastq(fq, TOOL_CPU_READS)
+
+    out, _, snap = run_timed("fastmap", ["fastmap", prefix, fq], TOOL_READS,
+                             "reads")
+    recs = out.split("//\n")
+    if len(recs) != TOOL_READS + 1 or recs[-1] != "":
+        raise RuntimeError(f"fastmap: {len(recs) - 1} records for "
+                           f"{TOOL_READS} reads")
+    if snap.get("seed.scan.trips.count", 0) <= 0:
+        raise RuntimeError("fastmap: no scan trip was counted")
+    em = out.count("\nEM\t")
+    t1 = time.perf_counter()
+    cpu, _ = run_cli(["fastmap", prefix, fq_cpu], "cpu")
+    head = "".join(r + "//\n" for r in recs[:TOOL_CPU_READS])
+    if cpu != head:
+        raise RuntimeError("fastmap: GPU and CPU output differ on the first "
+                           f"{TOOL_CPU_READS} reads")
+    log(f"fastmap: {em} SMEM lines; CPU rerun of {TOOL_CPU_READS} reads "
+        f"({time.perf_counter() - t1:.1f} s): output identical "
+        f"({len(cpu)} bytes)")
+
+    out, _, _ = run_timed("maxk", ["maxk", prefix, fq], TOOL_READS, "reads")
+    hist = [int(line.split("\t")[1]) for line in out.splitlines()]
+    if len(hist) != 256 or sum(hist) != TOOL_READS * sd.READ_LEN:
+        raise RuntimeError(f"maxk: {len(hist)} bins, {sum(hist)} bases")
+    gpu, _ = run_cli(["maxk", prefix, fq_cpu], "cuda")
+    t1 = time.perf_counter()
+    cpu, _ = run_cli(["maxk", prefix, fq_cpu], "cpu")
+    if cpu != gpu:
+        raise RuntimeError(f"maxk: GPU and CPU histograms differ on the "
+                           f"first {TOOL_CPU_READS} reads")
+    log(f"maxk: bases in bins 0-16 {sum(hist[:17])}, 17-100 "
+        f"{sum(hist[17:101])}, 101+ {sum(hist[101:])}; histogram of the "
+        f"first {TOOL_CPU_READS} reads on the CPU "
+        f"({time.perf_counter() - t1:.1f} s): identical")
+
+    fq1, fq2 = sd.pemerge_pairs(log)
+    _, err, _ = run_timed("pemerge", ["pemerge", fq1, fq2], sd.PEM_PAIRS,
+                          "pairs")
+    log("pemerge: " + "; ".join(line.strip() for line in err.splitlines()))
+    merged = int(err.split()[0])
+    if merged <= 0:
+        raise RuntimeError("pemerge: no pair merged")
+    p1, p2 = head_fastq(fq1, PEM_CPU_PAIRS), head_fastq(fq2, PEM_CPU_PAIRS)
+    gpu = run_cli(["pemerge", p1, p2], "cuda")
+    t1 = time.perf_counter()
+    cpu = run_cli(["pemerge", p1, p2], "cpu")
+    if cpu != gpu:
+        raise RuntimeError(f"pemerge: GPU and CPU output differ on the "
+                           f"first {PEM_CPU_PAIRS} pairs")
+    log(f"pemerge: {merged} of {sd.PEM_PAIRS} pairs merged; the first "
+        f"{PEM_CPU_PAIRS} pairs on the CPU ({time.perf_counter() - t1:.1f} "
+        f"s): stdout and stderr identical ({int(cpu[1].split()[0])} merged)")
+
+
 def main() -> int:
     try:
         import torch
@@ -906,6 +1149,7 @@ def main() -> int:
     phase_env()
     err_pl2, err_pl = phase_kernel()
     kerns3 = phase_fm_probe()
+    kerns_gp = phase_gather_probe()
     from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.pipeline.align import Aligner
     import se_smoke_data as sd
@@ -951,8 +1195,9 @@ def main() -> int:
                                  "1000bp": none_pl.launches,
                                  "5000bp": side_pl.launches}
     kern1["max_abs_err"] = max(kern1["max_abs_err"], err_pl)
+    phase_tools(sd.smoke_data(log)[0])
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kern2, kern1, *kerns3]}))
+    print(json.dumps({"kernels": [kern2, kern1, *kerns3, *kerns_gp]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,8 +2,9 @@
 bwamem_tpu (checked in a subprocess, since this test process has both),
 no source file of the package, chip_smoke.py or the port's tools
 (tools/torch_*.py, tools/se_smoke_data.py) imports them, its entry points
-refuse to run without a GPU unless asked for the CPU, and chip_smoke.py and
-the FM-step probe fail without a GPU or outside a checkout."""
+(mem, fastmap, maxk, pemerge) refuse to run without a GPU unless asked for
+the CPU, and chip_smoke.py and the FM-step and gather-strategy probes fail
+without a GPU or outside a checkout."""
 import os
 import re
 import shutil
@@ -28,6 +29,8 @@ MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
            "bwamem_tpu_torch.ops.ext_kernel", "bwamem_tpu_torch.ops.fm_probe",
            "bwamem_tpu_torch.pair", "bwamem_tpu_torch.finalize",
            "bwamem_tpu_torch.io.sam", "bwamem_tpu_torch.index",
+           "bwamem_tpu_torch.index.microcmd", "bwamem_tpu_torch.index.shm",
+           "bwamem_tpu_torch.ops.gather_probe", "bwamem_tpu_torch.pemerge",
            "bwamem_tpu_torch.native"]
 
 
@@ -84,6 +87,12 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["mem", "-o", str(out), data["prefix"], data["fq"]])
     assert not out.exists()
+    for argv in (["fastmap", data["prefix"], data["fq"]],
+                 ["maxk", data["prefix"], data["fq"]],
+                 ["pemerge", data["fq"], data["fq"]]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+        assert cli.main(argv, device="cpu") == 0
 
 
 def test_cli_refuses_paired_end(tmp_path, capsys):
@@ -115,11 +124,20 @@ def test_chip_smoke_fails_without_gpu():
     assert '"ok"' not in r.stdout
 
 
+def _run_tool(tool):
+    return subprocess.run([sys.executable, f"tools/{tool}"], cwd=REPO,
+                          env=_clean_env() | {"CUDA_VISIBLE_DEVICES": ""},
+                          capture_output=True, text=True, timeout=120)
+
+
 def test_fm_probe_tool_fails_without_gpu():
-    r = subprocess.run([sys.executable, "tools/torch_fm_step_probe.py"],
-                       cwd=REPO,
-                       env=_clean_env() | {"CUDA_VISIBLE_DEVICES": ""},
-                       capture_output=True, text=True, timeout=120)
+    r = _run_tool("torch_fm_step_probe.py")
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr and "us/step" not in r.stdout
+
+
+def test_gather_probe_tool_fails_without_gpu():
+    r = _run_tool("torch_pl_gather_probe.py")
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr and "us/step" not in r.stdout
 

@@ -2,9 +2,9 @@
 tools/torch_fm_step_probe.py: a 5 Mbp one-contig genome and 2 x 8192
 single-end reads of 101 bp from simdata.py (fixed seeds), indexed with
 bwamem_tpu_torch's build_index; long-read batches from the same genome (512
-reads of 1000 bp, 128 reads of 5000 bp); and 8192 pairs of 150 bp (insert
-400 +- 40) with the place each pair was sampled from.  Everything is cached
-under build/chip_smoke/."""
+reads of 1000 bp, 128 reads of 5000 bp); 8192 pairs of 150 bp (insert
+400 +- 40) with the place each pair was sampled from; and 4096 pairs of 100
+bp for pemerge.  Everything is cached under build/chip_smoke/."""
 from __future__ import annotations
 
 import os
@@ -26,6 +26,10 @@ PE_PAIRS = 8192
 PE_BATCH_PAIRS = 4096
 PE_READ_LEN = 150
 PE_INSERT = (400, 40)
+# pemerge: pairs, read length, and the two insert-size classes (mean, sd)
+PEM_PAIRS = 4096
+PEM_READ_LEN = 100
+PEM_INSERTS = ((150, 15), (420, 30))
 
 
 def _simdata():
@@ -127,3 +131,37 @@ def smoke_data(log=print) -> tuple[str, str]:
         build_index(fa, with_kmer_table=True).save(prefix)
         log(f"index build: {time.perf_counter() - t1:.1f} s")
     return prefix, fq
+
+
+def pemerge_pairs(log=print) -> tuple[str, str]:
+    """(FASTQ of mates 1, FASTQ of mates 2): PEM_PAIRS pairs of PEM_READ_LEN
+    bases from smoke_data's genome, in the shape of tests/test_pemerge.py
+    (1 % substitutions, no indels): three quarters at inserts of 150 +- 15,
+    so the mates overlap and merge, a quarter at 420 +- 30, which cannot;
+    qualities drawn at random from 2-40.  Made on first use."""
+    import numpy as np
+    simdata = _simdata()
+    os.makedirs(WORK, exist_ok=True)
+    fq1, fq2 = (os.path.join(WORK, f"pem{PEM_READ_LEN}_{e}.fq")
+                for e in (1, 2))
+    if not (os.path.exists(fq1) and os.path.exists(fq2)):
+        t0 = time.perf_counter()
+        genome = _genome()
+        short = PEM_PAIRS * 3 // 4
+        reads = []
+        for n, (mean, sd), seed in ((short, PEM_INSERTS[0], 1),
+                                    (PEM_PAIRS - short, PEM_INSERTS[1], 2)):
+            reads += simdata.sim_reads(
+                genome, 2 * n, read_len=PEM_READ_LEN, seed=SEED + 100 + seed,
+                sub_rate=0.01, indel_rate=0.0, paired=True, insert_mean=mean,
+                insert_std=sd)
+        rng = np.random.default_rng(SEED + 100)
+        with open(fq1, "w") as f1, open(fq2, "w") as f2:
+            for i, (name, seq, _) in enumerate(reads):
+                qual = "".join(chr(33 + q) for q in
+                               rng.integers(2, 41, len(seq)))
+                (f1 if i % 2 == 0 else f2).write(
+                    f"@{name}/{1 + i % 2}\n{seq}\n+\n{qual}\n")
+        log(f"data, {PEM_PAIRS} pairs of {PEM_READ_LEN} bp for pemerge: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return fq1, fq2

@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Gather strategies for an in-kernel FM scan, priced on a GPU.
+
+    python3 tools/torch_pl_gather_probe.py [n_lanes] [steps]
+
+The counterpart of tools/pl_gather_probe.py (the TPU probe) with its
+shapes: n_lanes lanes (8192, a multiple of 128), `steps` passes (16), a
+table of R = 78208 rows (the combined rows of a 5 Mbp index, padded to a
+multiple of 128), W = 8 words a row for the two-word read, and A = R / 128
+= 611 rows for the one-hot product.  The four hand-written CUDA kernels of
+ops/gather_probe run on the same seeded numpy tables:
+
+  gp_scalar    a per-lane 4-byte load, `steps` passes
+  gp_scalar2   a per-lane 8-byte row read (two words, added), `steps` passes
+  gp_onehot    one-hot [n_lanes, 624] x bf16 table [624, 128] on the tensor
+               cores, then the pick of one column per lane
+  gp_take_ax0  a chained take along axis 0 over the whole [R, 128] table,
+               `steps` dependent steps
+
+Each kernel's output must equal its plain PyTorch version exactly before
+anything is timed (a difference exits non-zero).  Times are the median of
+5 runs between CUDA events after a warm-up, in ms and us per step, beside
+the plain version and, where one exists, a PyTorch call computing the same
+function (torch.gather; torch.matmul of the same bf16 operands; the
+take chain issued from PyTorch in int32).  The card's name and power limit
+are printed first.  Needs a CUDA device; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+R = 78208            # table rows (5 Mbp cmb), padded to /128
+W = 8                # words a row of the two-word table
+REPS = 5
+
+
+def median_ms(fn, reps: int = REPS) -> float:
+    import torch
+    fn()                                   # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def make_inputs(n_lanes: int, seed: int, device) -> dict:
+    """The probe's tables and lanes, from numpy with `seed`, on `device`:
+    tab [R, 128] and tabw [R, W] in [0, 2^20), tab3 [R/128, 128] in
+    [0, 255), k [n_lanes/128, 128] in [0, R), and kfull [R, 128], k in its
+    first rows and 0 below (the take's table-shaped indices)."""
+    import numpy as np
+    import torch
+    if n_lanes <= 0 or n_lanes % 128 or n_lanes > R * 128:
+        raise ValueError(f"n_lanes {n_lanes}: a positive multiple of 128 "
+                         f"up to {R * 128}")
+    rng = np.random.default_rng(seed)
+    S = n_lanes // 128
+    tab = rng.integers(0, 1 << 20, (R, 128), dtype=np.int32)
+    tabw = rng.integers(0, 1 << 20, (R, W), dtype=np.int32)
+    tab3 = rng.integers(0, 255, (R // 128, 128), dtype=np.int32)
+    k = rng.integers(0, R, (S, 128), dtype=np.int32)
+    kfull = np.zeros((R, 128), np.int32)
+    kfull[:S] = k
+    return {name: torch.from_numpy(a).to(device) for name, a in
+            (("tab", tab), ("tabw", tabw), ("tab3", tab3), ("k", k),
+             ("kfull", kfull))}
+
+
+def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
+          log=print) -> dict:
+    """Runs the probe on the current CUDA device.  Returns dict(inputs=...
+    (make_inputs), results={kernel: dict(ms, plain_ms, library_ms,
+    max_abs_err)}); raises when a kernel differs from its plain version."""
+    import torch
+    sys.path.insert(0, REPO)
+    from bwamem_tpu_torch.ops import gather_probe as gp
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    log(f"card: {smi.stdout.strip().splitlines()[0]}")
+    dev = torch.device("cuda")
+    x = make_inputs(n_lanes, seed, dev)
+    tab, tabw, tab3, k, kfull = (x[n] for n in
+                                 ("tab", "tabw", "tab3", "k", "kfull"))
+    A = tab3.shape[0]
+    Ap = -(-A // 16) * 16
+    log(f"lanes={n_lanes}, steps={steps}, R={R}, W={W}, A={A} "
+        f"(padded to {Ap}); tab {tab.numel() * 4 / 1e6:.2f} MB")
+
+    k64 = k.to(torch.int64)
+    oh = torch.zeros((n_lanes, Ap), dtype=torch.bfloat16, device=dev)
+    oh[torch.arange(n_lanes, device=dev), (k.reshape(-1) >> 7).long()] = 1
+    t3 = torch.zeros((Ap, 128), dtype=torch.bfloat16, device=dev)
+    t3[:A] = tab3.to(torch.bfloat16)
+
+    def take_chain():
+        kk = kfull
+        for _ in range(steps):
+            kk = torch.remainder(kk + torch.gather(tab, 0, kk.long()), R)
+        return kk
+
+    cases = (
+        ("gp_scalar", lambda: gp.gp_scalar(tab, k, steps),
+         lambda: gp.scalar_plain(tab, k),
+         lambda: torch.gather(tab, 0, k64)),
+        ("gp_scalar2", lambda: gp.gp_scalar2(tabw, k, steps),
+         lambda: gp.scalar2_plain(tabw, k), None),
+        ("gp_onehot", lambda: gp.gp_onehot(tab3, k),
+         lambda: gp.onehot_plain(tab3, k), lambda: torch.matmul(oh, t3)),
+        ("gp_take_ax0", lambda: gp.gp_take_ax0(tab, kfull, steps),
+         lambda: gp.take_ax0_plain(tab, kfull, steps), take_chain))
+    for name, kern, plain, _ in cases:
+        got = kern().to(torch.int64)
+        want = plain().to(torch.int64)
+        torch.cuda.synchronize()
+        n_bad = int((got != want).sum())
+        if n_bad:
+            raise RuntimeError(f"{name} differs from its plain version on "
+                               f"{n_bad} of {want.numel()} outputs")
+    if not torch.equal(take_chain(), gp.take_ax0_plain(tab, kfull, steps)):
+        raise RuntimeError("the int32 PyTorch take chain differs from "
+                           "take_ax0_plain")
+    log("every kernel equals its plain version on every output")
+
+    results = {}
+    for name, kern, plain, lib in cases:
+        r = dict(max_abs_err=0, ms=median_ms(kern), plain_ms=median_ms(plain),
+                 library_ms=None if lib is None else median_ms(lib))
+        results[name] = r
+        per = steps if name != "gp_onehot" else 1
+        lib_txt = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
+        log(f"{name:12s} kernel {r['ms']:9.4f} ms ({r['ms'] / per * 1e3:9.3f}"
+            f" us/step), plain {r['plain_ms']:9.4f} ms, library {lib_txt}")
+    return dict(inputs=x, results=results)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_pl_gather_probe: no CUDA device", file=sys.stderr)
+        return 2
+    n_lanes = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
+    steps = int(sys.argv[2]) if len(sys.argv) > 2 else 16
+    probe(n_lanes, steps)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
