@@ -8,10 +8,11 @@ pairs; -I fixes the insert-size distribution.
 
 The index tools (`index`, `fa2pac`, `pac2bwt`, `pac2bwtgen`, `bwtupdate`,
 `bwt2sa`, `shm`) run on the host; `fastmap`, `maxk` and `pemerge` run their
-scans or SW on the card.  Flags, messages and exit codes are the JAX
-package's (bwamem_tpu/cli.py).  Every device command runs on the card
-unless the caller passes another device to main().  `aln`, `samse`,
-`sampe` and `bwasw` are not ported yet and exit 1 saying so.
+scans or SW on the card, and the legacy `aln`, `samse` and `sampe` their
+FM lookups, SA walks and SWs.  Flags, messages and exit codes are the
+JAX package's (bwamem_tpu/cli.py).  Every device command runs on the card
+unless the caller passes another device to main().  `bwasw` is not ported
+yet and exits 1 saying so.
 """
 from __future__ import annotations
 
@@ -524,6 +525,176 @@ def cmd_shm(argv: list[str]) -> int:
     return 0
 
 
+def cmd_aln(argv: list[str], device=None) -> int:
+    """Legacy bounded-diff aligner (bwa_aln, bwtaln.c:230-321)."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.legacy import aln as la
+    from bwamem_tpu_torch.pipeline.align import resolve_device
+    opt = la.GapOptions()
+    opte = -1
+    out_path = None
+    try:
+        opts, args = getopt_mod.getopt(argv, "n:o:e:i:d:l:k:LR:m:t:NM:O:E:"
+                                             "q:f:b012IYB:")
+    except getopt_mod.GetoptError as e:
+        raise SystemExit(f"[E::aln] {e}")
+    for c, v in opts:
+        c = c[1:]
+        if c == "n":
+            if "." in v:
+                opt.fnr, opt.max_diff = float(v), -1
+            else:
+                opt.max_diff, opt.fnr = int(v), -1.0
+        elif c == "o":
+            opt.max_gapo = int(v)
+        elif c == "e":
+            opte = int(v)
+        elif c == "M":
+            opt.s_mm = int(v)
+        elif c == "O":
+            opt.s_gapo = int(v)
+        elif c == "E":
+            opt.s_gape = int(v)
+        elif c == "d":
+            opt.max_del_occ = int(v)
+        elif c == "i":
+            opt.indel_end_skip = int(v)
+        elif c == "l":
+            opt.seed_len = int(v)
+        elif c == "k":
+            opt.max_seed_diff = int(v)
+        elif c == "m":
+            opt.max_entries = int(v)
+        elif c == "t":
+            opt.n_threads = int(v)
+        elif c == "L":
+            opt.mode |= la.BWA_MODE_LOGGAP
+        elif c == "R":
+            opt.max_top2 = int(v)
+        elif c == "q":
+            opt.trim_qual = int(v)
+        elif c == "N":
+            opt.mode |= la.BWA_MODE_NONSTOP
+            opt.max_top2 = 0x7fffffff
+        elif c == "f":
+            out_path = v
+        elif c in ("b", "0", "1", "2", "I", "Y", "B"):
+            sys.stderr.write(f"[W::aln] -{c} not supported\n")
+            return 1
+    if opte > 0:
+        opt.max_gape = opte
+        opt.mode &= ~la.BWA_MODE_GAPE
+    if len(args) < 2:
+        sys.stderr.write("Usage: bwamem_tpu aln [options] <prefix> "
+                         "<in.fq>\n")
+        return 1
+    if opt.fnr > 0.0:
+        k = 0
+        for i in range(17, 251):
+            l = la.cal_maxdiff(i, la.BWA_AVG_ERR, opt.fnr)
+            if l != k:
+                sys.stderr.write(f"[bwa_aln] {i}bp reads: max_diff = {l}\n")
+            k = l
+    dev = resolve_device(device)
+    idx = load_index(args[0])
+    out = open(out_path, "wb") if out_path else sys.stdout.buffer
+    try:
+        la.aln_core(idx, args[1], opt, out, dev)
+    finally:
+        if out_path:
+            out.close()
+    return 0
+
+
+def cmd_samse(argv: list[str], device=None) -> int:
+    """bwa_sai2sam_se (bwase.c:585-611)."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.legacy import samse as ls
+    from bwamem_tpu_torch.pipeline.align import resolve_device
+    n_occ = 3
+    rg_line = rg_id = out_path = None
+    try:
+        opts, args = getopt_mod.getopt(argv, "hn:f:r:")
+    except getopt_mod.GetoptError as e:
+        raise SystemExit(f"[E::samse] {e}")
+    for c, v in opts:
+        if c == "-n":
+            n_occ = int(v)
+        elif c == "-f":
+            out_path = v
+        elif c == "-r":
+            rg_line = v.replace("\\t", "\t")
+            for f_ in rg_line.split("\t"):
+                if f_.startswith("ID:"):
+                    rg_id = f_[3:]
+    if len(args) < 3:
+        sys.stderr.write("Usage: bwamem_tpu samse [-n max_occ] [-f out.sam]"
+                         " [-r RG_line] <prefix> <in.sai> <in.fq>\n")
+        return 1
+    dev = resolve_device(device)
+    idx = load_index(args[0])
+    seed = ls.ann_seed(args[0])
+    out = open(out_path, "w") if out_path else sys.stdout
+    try:
+        ls.samse_core(idx, args[1], args[2], n_occ, rg_line, rg_id, out,
+                      dev, seed=seed)
+    finally:
+        if out_path:
+            out.close()
+    return 0
+
+
+def cmd_sampe(argv: list[str], device=None) -> int:
+    """bwa_sai2sam_pe (bwape.c:733-784)."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.legacy import samse as ls
+    from bwamem_tpu_torch.legacy import sampe as lp
+    from bwamem_tpu_torch.pipeline.align import resolve_device
+    popt = lp.PeOptions()
+    rg_line = rg_id = out_path = None
+    try:
+        opts, args = getopt_mod.getopt(argv, "a:o:sPn:N:c:f:Ar:")
+    except getopt_mod.GetoptError as e:
+        raise SystemExit(f"[E::sampe] {e}")
+    for c, v in opts:
+        if c == "-a":
+            popt.max_isize = int(v)
+        elif c == "-o":
+            popt.max_occ = int(v)
+        elif c == "-s":
+            popt.is_sw = 0
+        elif c == "-n":
+            popt.n_multi = int(v)
+        elif c == "-N":
+            popt.N_multi = int(v)
+        elif c == "-c":
+            popt.ap_prior = float(v)
+        elif c == "-f":
+            out_path = v
+        elif c == "-A":
+            popt.force_isize = 1
+        elif c == "-r":
+            rg_line = v.replace("\\t", "\t")
+            for f_ in rg_line.split("\t"):
+                if f_.startswith("ID:"):
+                    rg_id = f_[3:]
+    if len(args) < 5:
+        sys.stderr.write("Usage: bwamem_tpu sampe [options] <prefix> "
+                         "<in1.sai> <in2.sai> <in1.fq> <in2.fq>\n")
+        return 1
+    dev = resolve_device(device)
+    idx = load_index(args[0])
+    seed = ls.ann_seed(args[0])
+    out = open(out_path, "w") if out_path else sys.stdout
+    try:
+        lp.sampe_core(idx, args[1], args[2], args[3], args[4], popt,
+                      rg_line, rg_id, out, sys.stderr, dev, seed=seed)
+    finally:
+        if out_path:
+            out.close()
+    return 0
+
+
 def cmd_index_micro(cmd: str, argv: list[str]) -> int:
     """Low-level index steps (reference main.c:105-109): fa2pac, pac2bwt,
     pac2bwtgen, bwtupdate, bwt2sa — file-identical to the reference."""
@@ -585,12 +756,13 @@ def cmd_index_micro(cmd: str, argv: list[str]) -> int:
     return 0
 
 
-NOT_PORTED = ("aln", "samse", "sampe", "bwasw")
+NOT_PORTED = ("bwasw",)
 
 
 def main(argv: list[str] | None = None, device=None) -> int:
-    """Dispatch a command; the device commands (mem, fastmap, maxk,
-    pemerge) run on `device` ("cuda" when None; raises without a GPU)."""
+    """Dispatch a command; the device commands (mem, aln, samse, sampe,
+    fastmap, maxk, pemerge) run on `device` ("cuda" when None; raises
+    without a GPU)."""
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         sys.stderr.write(
@@ -610,6 +782,12 @@ def main(argv: list[str] | None = None, device=None) -> int:
         return cmd_pemerge(rest, device=device)
     if cmd == "shm":
         return cmd_shm(rest)
+    if cmd == "aln":
+        return cmd_aln(rest, device=device)
+    if cmd == "samse":
+        return cmd_samse(rest, device=device)
+    if cmd == "sampe":
+        return cmd_sampe(rest, device=device)
     if cmd in ("fa2pac", "pac2bwt", "pac2bwtgen", "bwtupdate", "bwt2sa"):
         return cmd_index_micro(cmd, rest)
     if cmd in NOT_PORTED:

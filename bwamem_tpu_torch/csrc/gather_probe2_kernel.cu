@@ -1,0 +1,219 @@
+// Round 2 of the gather probe: four more ways to look up a table word per
+// lane, each the function of one TPU probe kernel of
+// tools/pl_gather_probe2.py, one __global__ each:
+//
+//   gp2_take_ax0   (kernel in probe_b, :75)  a chained gather along axis 0:
+//                  kk = (kk + tab[kk[i,j], j]) mod R, `steps` times, on
+//                  tab and kk [R,128].  Element (i,j) reads only column j,
+//                  so a block takes one column: it stages the column's R
+//                  words in shared memory (2 KB at R = 512; the whole
+//                  256 KB table would not fit in the 227 KB a block may
+//                  have) and runs the R chains of that column, one thread
+//                  each, every step a dependent shared-memory load.
+//   gp2_take_ax1   (kernel in probe_c, :98)  the same along axis 1:
+//                  kk = (kk + tab[i, kk[i,j]]) mod 128 on [S,128].  A block
+//                  takes one row (512 B in shared memory) and its 128
+//                  chains.  At S = 8 the launch is all there is.
+//   gp2_col0       (kernel in probe_d, :122) out[q] = tab[k[q], 0] on a
+//                  table of W-word rows: one thread a lane, one cached
+//                  load (one 32-byte sector of the row).  Ordinary loads
+//                  through the read-only path: there is no repeat loop for
+//                  nvcc to hoist, so nothing needs the volatile
+//                  system-scope loads of gather_probe_kernel.cu.
+//   gp2_onehot_f32 (kernel in probe_e, :150) out[q] = int(m1[q, k[q] & 127])
+//                  with m1 = f32(onehot(k >> 7, A)) @ f32(tab), tab [A,128].
+//                  The one-hot product in float32 FMA on the CUDA cores, not
+//                  on the tensor cores: TF32 keeps 11 significant bits and
+//                  would round every value from 2^11 on (the probe's reach
+//                  2^20), while each of these sums is exact — one term is
+//                  1 x f32(v), every other term adds 0 — so m1[q, c] is
+//                  f32(tab[k >> 7, c]) as in the TPU kernel, and 0 where
+//                  k >> 7 is outside [0, A).  A block takes E_QT queries and
+//                  128 threads, one a table column; a thread walks the
+//                  depth A, one coalesced table load and E_QT FMAs a row;
+//                  the sums go to shared memory for the pick of column
+//                  k & 127, and float -> int truncates as astype(int32).
+//
+// The add of the chains wraps in 32 bits and the remainder is never
+// negative (jnp's %), as next_k of fm_probe_kernel.cu.
+//
+// What bounds them on an H100 (3.35 TB/s; 67 TFLOP/s float32 outside the
+// tensor cores, at 700 W): the three gathers move under a megabyte (tab,
+// kk in and out: 786 KB for take_ax0 at [512,128], 197 KB for take_ax1 at
+// [128,128], tens of KB for col0 at 1024 lanes), well under a
+// microsecond, so launch latency and the dependent steps of the chains
+// are what one sees.  onehot_f32's function is the same kind of lookup
+// (k, out and at most Q table words, about 12 KB at Q = 1024); this
+// kernel computes it the TPU kernel's way, the whole product, 2 x Q x A x
+// 128 FMA operations (2.5 us at 67 TFLOP/s for Q = 1024, A = 640), so it
+// stands far above its bound by design.
+//
+// The same source compiles as host C++ (no __CUDACC__), exposing the lane
+// loops of gp2_take_ax0, gp2_take_ax1 and gp2_col0 as *_host entries, so
+// the CPU tests check their arithmetic without a card.
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define GP_HD __device__
+#define GP_LDG(p) __ldg(p)
+#else
+#define GP_HD
+#define GP_LDG(p) (*(p))
+#endif
+
+// (k + g) mod m with the add wrapping in 32 bits and the result in [0, m):
+// C's % keeps the sign of a negative left side.
+static GP_HD inline int next_k(int k, int g, int m) {
+  const int v = (int)((uint32_t)k + (uint32_t)g);
+  const int r = v % m;
+  return r < 0 ? r + m : r;
+}
+
+// one chain: kk = next_k(kk, words[kk * stride], m), `steps` times; words
+// is the column (axis 0) or row (axis 1) the chain reads
+static GP_HD inline int chain(const int* words, long long stride, int kk,
+                              int steps, int m) {
+  for (int s = 0; s < steps; ++s) kk = next_k(kk, words[kk * stride], m);
+  return kk;
+}
+
+// lane q of gp2_col0: word 0 of row k[q] of the W-word table
+static GP_HD inline int col0_lane(const int* __restrict__ tab,
+                                  const int* __restrict__ k, int q, int W) {
+  return GP_LDG(tab + (long long)k[q] * W);
+}
+
+#ifdef __CUDACC__
+
+__global__ void __launch_bounds__(512)
+gp2_take_ax0_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
+                    int* __restrict__ out, int R, int steps) {
+  extern __shared__ int col[];                   // column j, R words
+  const int j = blockIdx.x;
+  for (int r = threadIdx.x; r < R; r += blockDim.x)
+    col[r] = tab[(long long)r * 128 + j];
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const long long e = (long long)r * 128 + j;
+    out[e] = chain(col, 1, kk0[e], steps, R);
+  }
+}
+
+__global__ void __launch_bounds__(128)
+gp2_take_ax1_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
+                    int* __restrict__ out, int steps) {
+  __shared__ int row[128];
+  const long long e = (long long)blockIdx.x * 128 + threadIdx.x;
+  row[threadIdx.x] = tab[e];
+  __syncthreads();
+  out[e] = chain(row, 1, kk0[e], steps, 128);
+}
+
+__global__ void __launch_bounds__(128)
+gp2_col0_kernel(const int* __restrict__ tab, const int* __restrict__ k,
+                int* __restrict__ out, int N, int W) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < N) out[q] = col0_lane(tab, k, q, W);
+}
+
+namespace {
+constexpr int E_QT = 8;                 // queries a block
+}
+
+__global__ void __launch_bounds__(128)
+gp2_onehot_f32_kernel(const int* __restrict__ tab,
+                      const int* __restrict__ k, int* __restrict__ out,
+                      int A) {
+  __shared__ int k_s[E_QT];
+  __shared__ float m1[E_QT][128];
+  const int c = threadIdx.x, q0 = blockIdx.x * E_QT;
+  if (c < E_QT) k_s[c] = k[q0 + c];
+  __syncthreads();
+  int hi[E_QT];
+  float acc[E_QT];
+#pragma unroll
+  for (int qi = 0; qi < E_QT; ++qi) {
+    hi[qi] = k_s[qi] >> 7;                       // arithmetic shift
+    acc[qi] = 0.0f;
+  }
+  for (int a = 0; a < A; ++a) {
+    const float v = (float)__ldg(tab + (long long)a * 128 + c);
+#pragma unroll
+    for (int qi = 0; qi < E_QT; ++qi)
+      acc[qi] = fmaf(hi[qi] == a ? 1.0f : 0.0f, v, acc[qi]);
+  }
+#pragma unroll
+  for (int qi = 0; qi < E_QT; ++qi) m1[qi][c] = acc[qi];
+  __syncthreads();
+  if (c < E_QT) out[q0 + c] = (int)m1[c][k_s[c] & 127];
+}
+
+// C entries for ctypes: device pointers; each returns cudaGetLastError()
+// after the launch on the caller's stream.  The wrappers in
+// ops/gather_probe2.py check shapes (the 128-column tables, N a multiple
+// of E_QT for the one-hot product, R words of shared memory at most).
+extern "C" int gp2_take_ax0(const int* tab, const int* kk0, int* out, int R,
+                            int steps, void* stream) {
+  const size_t smem = (size_t)R * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gp2_take_ax0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int threads = R < 512 ? (R + 31) / 32 * 32 : 512;
+  if (R > 0)
+    gp2_take_ax0_kernel<<<128, threads, smem, (cudaStream_t)stream>>>(
+        tab, kk0, out, R, steps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gp2_take_ax1(const int* tab, const int* kk0, int* out, int S,
+                            int steps, void* stream) {
+  if (S > 0)
+    gp2_take_ax1_kernel<<<S, 128, 0, (cudaStream_t)stream>>>(tab, kk0, out,
+                                                             steps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gp2_col0(const int* tab, const int* k, int* out, int N, int W,
+                        void* stream) {
+  if (N > 0)
+    gp2_col0_kernel<<<(N + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        tab, k, out, N, W);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gp2_onehot_f32(const int* tab, const int* k, int* out, int N,
+                              int A, void* stream) {
+  if (N > 0)
+    gp2_onehot_f32_kernel<<<N / E_QT, 128, 0, (cudaStream_t)stream>>>(
+        tab, k, out, A);
+  return (int)cudaGetLastError();
+}
+
+#else
+
+// Host builds of the lane loops (all pointers are host memory).
+extern "C" int gp2_take_ax0_host(const int* tab, const int* kk0, int* out,
+                                 int R, int steps) {
+  for (long long e = 0; e < (long long)R * 128; ++e)
+    out[e] = chain(tab + (e & 127), 128, kk0[e], steps, R);
+  return 0;
+}
+
+extern "C" int gp2_take_ax1_host(const int* tab, const int* kk0, int* out,
+                                 int S, int steps) {
+  for (long long e = 0; e < (long long)S * 128; ++e)
+    out[e] = chain(tab + (e & ~127LL), 1, kk0[e], steps, 128);
+  return 0;
+}
+
+extern "C" int gp2_col0_host(const int* tab, const int* k, int* out, int N,
+                             int W) {
+  for (int q = 0; q < N; ++q) out[q] = col0_lane(tab, k, q, W);
+  return 0;
+}
+
+#endif

@@ -1,0 +1,219 @@
+"""Round 2 of the gather probe: the hand-written CUDA kernels
+(csrc/gather_probe2_kernel.cu) and their plain PyTorch versions.
+
+The legacy `aln` search sends one batched occ lookup per round, most rounds
+carrying few lanes.  This probe prices four more ways of making such a
+lookup, each the function of one TPU probe kernel of the reference
+package's tools/pl_gather_probe2.py:
+
+  gp2_take_ax0    (probe_b, :75)   kk = (kk + tab[kk, j]) mod R, `steps`
+                                   times; tab and kk int32 [R, 128]
+  gp2_take_ax1    (probe_c, :98)   kk = (kk + tab[i, kk]) mod 128, `steps`
+                                   times; tab and kk int32 [S, 128]
+  gp2_col0        (probe_d, :122)  out[q] = tab[k[q], 0]; tab int32 [R, W],
+                                   k int32 [N]
+  gp2_onehot_f32  (probe_e, :150)  out[q] = int(f32(onehot(k >> 7, A)) @
+                                   f32(tab))[q, k & 127]); tab int32
+                                   [A, 128], k and out int32 [N/128, 128];
+                                   0 where k >> 7 is outside [0, A)
+
+Preconditions the kernels do not check (a plain version raises on the
+first two): kk in [0, R) for gp2_take_ax0 and in [0, 128) for
+gp2_take_ax1, k in [0, R) for gp2_col0, and |tab| < 2^24 for
+gp2_onehot_f32, where float32 holds every value exactly.  The adds of the
+chains wrap in int32 and the remainder is never negative (jnp's %).
+
+On a CUDA tensor each wrapper launches its kernel and counts the launch
+(launches_*); on a CPU tensor it runs the plain version and counts nothing.
+There is no fallback between the two: a failed build or launch raises.
+The kernels are compiled with nvcc for sm_90a into the repository's build/
+directory at first use and loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import torch
+
+from bwamem_tpu_torch.ops.ext_kernel import NVCC_FLAGS, nvcc
+from bwamem_tpu_torch.ops.gather_probe import _check, _wrap32
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "gather_probe2_kernel.cu")
+COLS = 128                  # columns of the chained and one-hot tables
+SMEM_MAX = 232448           # bytes of shared memory a block may opt into
+
+launches_take0 = 0      # kernel launches by gp2_take_ax0 (CUDA tensors)
+launches_take1 = 0      # ... by gp2_take_ax1
+launches_col0 = 0       # ... by gp2_col0
+launches_onehot = 0     # ... by gp2_onehot_f32
+_lock = threading.Lock()
+_lib = None
+
+
+def load():
+    """Build (at first use) and load the kernel library; raises on
+    failure."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            from bwamem_tpu_torch._build import shared_lib
+            lib = ctypes.CDLL(shared_lib(SRC, "libgather_probe2_kernel.so",
+                                         [nvcc(), *NVCC_FLAGS]))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            # (in, in, out, two ints, stream): (R|S, steps) for the
+            # chains, (N, W|A) for the lookups
+            for fn in (lib.gp2_take_ax0, lib.gp2_take_ax1, lib.gp2_col0,
+                       lib.gp2_onehot_f32):
+                fn.restype = ci
+                fn.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+            _lib = lib
+    return _lib
+
+
+# ---- plain versions ----
+
+def _chain(tab: torch.Tensor, kk: torch.Tensor, steps: int,
+           dim: int) -> torch.Tensor:
+    """kk = (kk + tab.gather(dim, kk)) mod tab.shape[dim], `steps` times,
+    in int64 with the int32 wrap spelled out, so it does not lean on what
+    a backend does on overflow."""
+    m = tab.shape[dim]
+    k = kk.to(torch.int64)
+    for _ in range(steps):
+        k = torch.remainder(_wrap32(k + tab.gather(dim, k).to(torch.int64)),
+                            m)
+    return k.to(torch.int32)
+
+
+def take_ax0_plain(tab: torch.Tensor, kk: torch.Tensor,
+                   steps: int) -> torch.Tensor:
+    return _chain(tab, kk, steps, 0)
+
+
+def take_ax1_plain(tab: torch.Tensor, kk: torch.Tensor,
+                   steps: int) -> torch.Tensor:
+    return _chain(tab, kk, steps, 1)
+
+
+def scalar_col0_plain(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    return tab[k.to(torch.int64), 0]
+
+
+def onehot_f32_plain(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The one-hot product's pick, written as the gather it equals: row
+    k >> 7 of the float32 table (0 outside [0, A)), column k & 127,
+    truncated to int32."""
+    A = tab.shape[0]
+    hi = k >> 7
+    ok = (hi >= 0) & (hi < A)
+    v = tab.to(torch.float32)[hi.clamp(0, A - 1).to(torch.int64),
+                              (k & 127).to(torch.int64)]
+    return torch.where(ok, v, 0).to(torch.int32)
+
+
+# ---- kernels ----
+# Each _prep_* checks a call's tensors (dtype, shape, contiguity, device)
+# and returns the output tensor and the C entry's arguments; it raises
+# ValueError on anything the kernel does not take.
+
+def _prep_chain(name, tab, kk, steps):
+    _check(name, tab, "tab", cols=COLS)
+    _check(name, kk, "kk", cols=COLS, dev=tab.device)
+    if kk.shape != tab.shape or tab.shape[0] < 1 or steps < 0:
+        raise ValueError(f"{name}: kk {tuple(kk.shape)} for a table "
+                         f"{tuple(tab.shape)}, steps {steps}")
+    out = torch.empty_like(kk)
+    return out, (tab.data_ptr(), kk.data_ptr(), out.data_ptr(),
+                 tab.shape[0], int(steps))
+
+
+def _prep_take0(tab, kk, steps):
+    if tab.shape[0] * 4 > SMEM_MAX:
+        raise ValueError(f"gp2_take_ax0: a column of {tab.shape[0]} rows "
+                         f"does not fit in {SMEM_MAX} bytes of shared "
+                         "memory")
+    return _prep_chain("gp2_take_ax0", tab, kk, steps)
+
+
+def _prep_take1(tab, kk, steps):
+    return _prep_chain("gp2_take_ax1", tab, kk, steps)
+
+
+def _prep_col0(tab, k):
+    _check("gp2_col0", tab, "tab")
+    if k.dtype != torch.int32 or k.dim() != 1 or not k.is_contiguous() \
+            or k.device != tab.device or tab.shape[0] < 1:
+        raise ValueError(f"gp2_col0: k must be contiguous int32 [N] on "
+                         f"{tab.device} and tab nonempty, got {k.dtype} "
+                         f"{tuple(k.shape)} on {k.device}")
+    out = torch.empty_like(k)
+    return out, (tab.data_ptr(), k.data_ptr(), out.data_ptr(), k.numel(),
+                 tab.shape[1])
+
+
+def _prep_onehot(tab, k):
+    _check("gp2_onehot_f32", tab, "tab", cols=COLS)
+    _check("gp2_onehot_f32", k, "k", cols=COLS, dev=tab.device)
+    if tab.shape[0] < 1:
+        raise ValueError("gp2_onehot_f32: empty table")
+    out = torch.empty_like(k)
+    return out, (tab.data_ptr(), k.data_ptr(), out.data_ptr(), k.numel(),
+                 tab.shape[0])
+
+
+def _launch(name: str, out: torch.Tensor, args: tuple) -> torch.Tensor:
+    lib = load()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def gp2_take_ax0(tab: torch.Tensor, kk: torch.Tensor,
+                 steps: int) -> torch.Tensor:
+    """tab, kk int32 [R, 128], kk in [0, R) -> kk after `steps` chained
+    steps kk = (kk + tab[kk, j]) mod R."""
+    if tab.device.type != "cuda":
+        return take_ax0_plain(tab, kk, steps)
+    global launches_take0
+    out = _launch("gp2_take_ax0", *_prep_take0(tab, kk, steps))
+    launches_take0 += 1
+    return out
+
+
+def gp2_take_ax1(tab: torch.Tensor, kk: torch.Tensor,
+                 steps: int) -> torch.Tensor:
+    """tab, kk int32 [S, 128], kk in [0, 128) -> kk after `steps` chained
+    steps kk = (kk + tab[i, kk]) mod 128."""
+    if tab.device.type != "cuda":
+        return take_ax1_plain(tab, kk, steps)
+    global launches_take1
+    out = _launch("gp2_take_ax1", *_prep_take1(tab, kk, steps))
+    launches_take1 += 1
+    return out
+
+
+def gp2_col0(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """tab int32 [R, W], k int32 [N] in [0, R) -> tab[k, 0]."""
+    if tab.device.type != "cuda":
+        return scalar_col0_plain(tab, k)
+    global launches_col0
+    out = _launch("gp2_col0", *_prep_col0(tab, k))
+    launches_col0 += 1
+    return out
+
+
+def gp2_onehot_f32(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """tab int32 [A, 128], k int32 [N/128, 128] -> the float32 one-hot
+    product's pick (see onehot_f32_plain)."""
+    if tab.device.type != "cuda":
+        return onehot_f32_plain(tab, k)
+    global launches_onehot
+    out = _launch("gp2_onehot_f32", *_prep_onehot(tab, k))
+    launches_onehot += 1
+    return out

@@ -28,6 +28,13 @@ Three phases; any failure exits non-zero without printing a result.
    gp_take_ax0, each launched by the probe (counts from 0), then held
    against its plain version (max_abs_err 0) and reported with the
    probe's CUDA-event times, its plain and library times and its bound.
+2c. Round 2 of the gather probe (tools/torch_pl_gather_probe2.py) at the
+   TPU script's defaults (32 steps; B on [512,128], C on [128,128] and
+   [8,128], D on 1024 lanes of a [78208,8] table, E with Q = 1024 and
+   A = 640): gp2_take_ax0, gp2_take_ax1, gp2_col0 and gp2_onehot_f32, the
+   same way, each also timed on the device alone; gp2_onehot_f32 is also
+   held on a small input past the probe's range (table values up to
+   +-2^23, k at both ends of the table and outside it).
 3. Main paths at full size on a 5 Mbp genome (tools/se_smoke_data.py:
    simdata.py with fixed seeds, indexed with the port's build_index and
    cached under build/):
@@ -73,9 +80,19 @@ Three phases; any failure exits non-zero without printing a result.
    pairs of 100 bp (some pair must merge); the first 256 reads, or pairs,
    run on the card and on the CPU give identical output (stdout, and
    pemerge's stderr too).
+   Then the legacy aligner through cli.main on the card: one host-issued
+   `aln` round of 1024 lanes (copy in, occ4, copy out) timed beside kernel
+   D at 1024 lanes; `aln` + `samse` over the first 4096 reads of 101 bp,
+   and `aln` on both mates + `sampe` over 2048 pairs of 101 bp (insert
+   300 +- 30; every 16th second mate carries 10 substitutions, so only the
+   mate rescue places it): reads/s, rounds and lanes of the search, the
+   host time a round, the stage timers, peak memory, at least 90 % of the
+   reads (both mates of 90 % of the pairs) where simdata sampled them, and
+   some rescued mates; the first 256 reads, and 256 pairs, run whole on
+   the card and on the CPU give identical .sai and SAM bytes.
 
 The line before the last is {"kernels": [...]}, one entry for each of the
-eight kernels; the last line is
+twelve kernels; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA device and no network.
 """
 from __future__ import annotations
@@ -120,7 +137,12 @@ OPS_PER_CELL = 16      # int32 operations of ksw's recurrence per DP cell
 FM_SERIAL_STEPS = 4096
 # the gather-strategy probe at tools/pl_gather_probe.py's defaults
 GP_LANES, GP_STEPS = 8192, 16
-PEAK_BF16_OPS = 989e12   # tensor cores, dense (H100 SXM data sheet)
+# round 2 of the gather probe, at tools/pl_gather_probe2.py's defaults
+GP2_STEPS = 32
+# the legacy aligner: reads of aln + samse (the first of the 101 bp set),
+# the reads and pairs run whole on the card and on the CPU, and the lanes
+# of the host-issued round timed beside kernel D
+LEG_READS, LEG_CPU_READS, LEG_CPU_PAIRS, LEG_ROUND_LANES = 4096, 256, 256, 1024
 # reads of the fastmap/maxk path (the first of the 101 bp set; two CLI
 # batches of 4096), and the reads and pairs rerun on the CPU
 TOOL_READS, TOOL_CPU_READS, PEM_CPU_PAIRS = 8192, 256, 256
@@ -162,7 +184,8 @@ def phase_env():
 
     from bwamem_tpu_torch import native
     from bwamem_tpu_torch.index import native as sais
-    from bwamem_tpu_torch.ops import ext_kernel, fm_probe, gather_probe
+    from bwamem_tpu_torch.ops import (ext_kernel, fm_probe, gather_probe,
+                                      gather_probe2)
     errors = []
 
     def build(name, fn):
@@ -182,6 +205,8 @@ def phase_env():
         ("fm_probe_kernel.cu, both entries (nvcc sm_90a)", fm_probe.load),
         ("gather_probe_kernel.cu, four kernels (nvcc sm_90a)",
          gather_probe.load),
+        ("gather_probe2_kernel.cu, four kernels (nvcc sm_90a)",
+         gather_probe2.load),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -471,9 +496,10 @@ def gp_bound(name, x, steps):
     (or the take's kk) read once, the output written once, and of each
     table only the words these indices touch (computed from the data: a
     word read again, in a later pass or by another lane, is not counted).
-    Operations: gp_onehot's product, 2 x lanes x padded depth x 128 on the
-    bf16 tensor cores; the others' int32 work (address, add, remainder) at
-    the int32 rate."""
+    gp_onehot's function is the gather out[q] = bf16(tab3[k >> 7,
+    k & 127]) (0 outside the table), so it is priced as that gather, not
+    as the one-hot product.  Operations: the int32 work (address, add,
+    remainder) at the int32 rate."""
     import torch
     k = x["k"].reshape(-1).to(torch.int64)
     n = k.numel()
@@ -485,9 +511,9 @@ def gp_bound(name, x, steps):
         nbytes = 4 * 2 * n + 8 * torch.unique(k).numel()
         t_ops = n * steps * 3 / PEAK_INT32_OPS * 1e3
     elif name == "gp_onehot":
-        A = x["tab3"].shape[0]
-        nbytes = 4 * (2 * n + x["tab3"].numel())
-        t_ops = 2 * n * (-(-A // 16) * 16) * 128 / PEAK_BF16_OPS * 1e3
+        nbytes = 4 * (2 * n + torch.unique(
+            k[(k >= 0) & (k < x["tab3"].numel())]).numel())
+        t_ops = n * 2 / PEAK_INT32_OPS * 1e3
     else:
         tab, kk = x["tab"], x["kfull"].to(torch.int64)
         R = tab.shape[0]
@@ -561,6 +587,151 @@ def phase_gather_probe():
             plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=r["library_ms"]))
     return entries
+
+
+
+def gp2_bound(name, tab, k, steps):
+    """Least time the card could take for one call of a round-2 probe
+    kernel on these inputs: (bound_ms, bound_by, bytes).  Bytes: k (or
+    kk) read once, the output written once, and of the table only the
+    words these indices touch (computed from the data, each counted once).
+    gp2_onehot_f32's function is the gather out[q] = tab[k >> 7, k & 127]
+    (0 outside the table), so it is priced as that gather: no operations
+    beyond the address, and only the words whose k lies in [0, A x 128).
+    Operations: the chains' int32 work (address, add, remainder: 3 a step)
+    and the lookups' address at the int32 rate."""
+    import torch
+    n = k.numel()
+    if name in ("gp2_take_ax0", "gp2_take_ax1"):
+        dim = 0 if name == "gp2_take_ax0" else 1
+        kk = k.to(torch.int64)
+        other = torch.arange(kk.shape[1 - dim], device=kk.device)
+        other = other[None, :] if dim == 0 else other[:, None]
+        other = other.expand_as(kk)
+        touched = torch.zeros(tab.shape, dtype=torch.bool, device=tab.device)
+        for _ in range(steps):
+            if dim == 0:
+                touched[kk, other] = True
+            else:
+                touched[other, kk] = True
+            kk = torch.remainder(kk + tab.gather(dim, kk).to(torch.int64),
+                                 tab.shape[dim])
+        nbytes = 4 * (2 * n + int(touched.sum()))
+        t_ops = n * steps * 3 / PEAK_INT32_OPS * 1e3
+    elif name == "gp2_col0":
+        nbytes = 4 * (2 * n + torch.unique(k).numel())
+        t_ops = n * 2 / PEAK_INT32_OPS * 1e3
+    else:
+        kin = k[(k >= 0) & (k < tab.numel())]
+        nbytes = 4 * (2 * n + torch.unique(kin).numel())
+        t_ops = n * 2 / PEAK_INT32_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else
+            "bytes", int(nbytes))
+
+
+def onehot_edge_inputs(seed, dev):
+    """A small input for gp2_onehot_f32 past the probe's range: A = 24,
+    tab in (-2^23, 2^23) with 2049, 4097 and their negatives in it (values
+    a TF32 product would round), and k [2, 128] with 0, A x 128 - 1 and
+    values below 0, at A x 128 and near +-2^31 (rows outside the table,
+    which give 0)."""
+    import numpy as np
+    import torch
+    A = 24
+    rng = np.random.default_rng(seed)
+    tab = rng.integers(-(1 << 23) + 1, 1 << 23, (A, 128), dtype=np.int32)
+    tab.flat[:4] = (2049, 4097, -2049, -4097)
+    k = rng.integers(-300, A * 128 + 300, (2, 128), dtype=np.int32)
+    k.flat[:8] = (0, 1, 2, 3, A * 128 - 1, -1, A * 128, -(1 << 31))
+    k.flat[8] = (1 << 31) - 1
+    return torch.from_numpy(tab).to(dev), torch.from_numpy(k).to(dev)
+
+
+def phase_gather_probe2():
+    """Round 2 of the gather probe as its users run it
+    (tools/torch_pl_gather_probe2.probe, launch counts from 0; it checks
+    every kernel and library call against the plain version and times
+    them), then each kernel held against its plain version once more on
+    the probe's inputs.  Returns the four kernels-line entries (C's
+    [8,128] shape in the *_s8 keys) and kernel D's entry."""
+    import torch
+    import se_smoke_data as sd
+    import torch_pl_gather_probe2 as probe
+    from bwamem_tpu_torch.ops import gather_probe2 as gp2
+    counters = {"gp2_take_ax0": "launches_take0",
+                "gp2_take_ax1": "launches_take1",
+                "gp2_col0": "launches_col0",
+                "gp2_onehot_f32": "launches_onehot"}
+    for c in counters.values():
+        setattr(gp2, c, 0)
+    t0 = time.perf_counter()
+    res = probe.probe(GP2_STEPS, sd.SEED, log)
+    torch.cuda.synchronize()
+    launches = {n: getattr(gp2, c) for n, c in counters.items()}
+    log(f"gather probe 2: launches {launches}; probe A's chain issued from "
+        f"PyTorch {res['a_ms']:.4f} ms ({time.perf_counter() - t0:.1f} s)")
+    if min(launches.values()) <= 0:
+        raise RuntimeError("the gather probe 2 never launched a kernel")
+    x = res["inputs"]
+    held = {"B take_ax0 [512,128]": (gp2.gp2_take_ax0, gp2.take_ax0_plain,
+                                     x["b_tab"], x["b_kk"], 75),
+            "C take_ax1 [128,128]": (gp2.gp2_take_ax1, gp2.take_ax1_plain,
+                                     x["c128_tab"], x["c128_kk"], 98),
+            "C take_ax1 [8,128]": (gp2.gp2_take_ax1, gp2.take_ax1_plain,
+                                   x["c8_tab"], x["c8_kk"], 98),
+            "D col0 x1024 [78208,8]": (gp2.gp2_col0, gp2.scalar_col0_plain,
+                                       x["d_tab"], x["d_k"], 122),
+            "E onehot_f32 Q1024 A640": (gp2.gp2_onehot_f32,
+                                        gp2.onehot_f32_plain, x["e_tab"],
+                                        x["e_k"], 150)}
+    entries = {}
+    for label, (kern, plain, tab, k, line) in held.items():
+        r = res["results"][label]
+        name = r["name"]
+        steps = (GP2_STEPS,) if name in ("gp2_take_ax0", "gp2_take_ax1") \
+            else ()
+        got = kern(tab, k, *steps).to(torch.int64)
+        want = plain(tab, k, *steps).to(torch.int64)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max().item())
+        bound_ms, bound_by, nbytes = gp2_bound(name, tab, k, GP2_STEPS)
+        log(f"{label} vs plain: {tuple(want.shape)} outputs, "
+            f"{int((got != want).sum())} differ, max_abs_err {err}; kernel "
+            f"{r['ms']:.4f} ms (device alone {r['device_ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bytes {nbytes}, bound {bound_ms:.6f} ms ({bound_by}), device "
+            f"time / bound {r['device_ms'] / bound_ms:.1f}")
+        if err:
+            raise RuntimeError(f"{label} disagrees with its plain version")
+        if label == "C take_ax1 [8,128]":
+            e = entries["gp2_take_ax1"]
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e.update(ms_s8=r["ms"], device_ms_s8=r["device_ms"],
+                     plain_ms_s8=r["plain_ms"],
+                     library_ms_s8=r["library_ms"], bound_ms_s8=bound_ms,
+                     bound_by_s8=bound_by)
+            continue
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="bwamem_tpu_torch/csrc/gather_probe2_kernel.cu",
+            replaces=f"tools/pl_gather_probe2.py:{line}",
+            launches=launches[name], max_abs_err=err, ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=r["library_ms"], device_ms=r["device_ms"])
+    tab, k = onehot_edge_inputs(sd.SEED, torch.device("cuda"))
+    got = gp2.gp2_onehot_f32(tab, k).to(torch.int64)
+    want = gp2.onehot_f32_plain(tab, k).to(torch.int64)
+    err = int((got - want).abs().max().item())
+    log(f"E onehot_f32 edge input ({tuple(tab.shape)} table in (-2^23, "
+        f"2^23), k {tuple(k.shape)} at the ends and outside) vs plain: "
+        f"{int((got != want).sum())} differ, max_abs_err {err}")
+    if err:
+        raise RuntimeError("gp2_onehot_f32 disagrees with its plain version "
+                           "on the edge input")
+    e = entries["gp2_onehot_f32"]
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+    return list(entries.values()), entries["gp2_col0"]
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1129,6 +1300,160 @@ def phase_tools(prefix):
         f"s): stdout and stderr identical ({int(cpu[1].split()[0])} merged)")
 
 
+def _sam_records(path):
+    """The non-header lines of a SAM file, one string (with its newline)
+    each."""
+    with open(path) as f:
+        return [line for line in f if not line.startswith("@")]
+
+
+def _legacy_counts(label, snap, n_items, kernel_d):
+    """Prints the search's rounds and lanes and the host time a round
+    beside kernel D's time at 1024 lanes; returns the rounds."""
+    rounds = snap.get("aln.rounds.count", 0)
+    lanes = snap.get("aln.lanes.count", 0)
+    match = snap.get("aln.match", (0, 0.0))[1]
+    occ = snap.get("aln.occ", (0, 0.0))[1]
+    scan = snap.get("aln.width_scan", (0, 0.0))[1]
+    log(f"{label}: {rounds} rounds, {lanes} lanes ({lanes / max(rounds, 1):.1f}"
+        f" a round, {lanes / n_items:.0f} a read); width scan {scan:.3f} s, "
+        f"search {match:.3f} s, of it the rounds' copies and occ4 {occ:.3f} "
+        f"s; host time a round {match / max(rounds, 1) * 1e3:.4f} ms (copies "
+        f"and occ4 {occ / max(rounds, 1) * 1e3:.4f} ms) against kernel D "
+        f"(gp2_col0) at 1024 lanes {kernel_d['ms']:.4f} ms, "
+        f"{kernel_d['device_ms']:.4f} ms on the device alone")
+    if rounds <= 0:
+        raise RuntimeError(f"{label}: the search issued no round")
+    return rounds
+
+
+def phase_legacy(prefix, kernel_d):
+    """The legacy aligner through cli.main on the card, on the 5 Mbp smoke
+    genome: one host-issued aln round of 1024 lanes beside kernel D; aln +
+    samse over 4096 reads of 101 bp; aln on both mates + sampe over 2048
+    pairs of 101 bp with mate-rescue bait.  At least 90 % of the reads
+    (both mates of 90 % of the pairs) where simdata sampled them; the
+    first 256 reads and 256 pairs give the CPU's .sai and SAM bytes."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.io.fastq import read_fastx
+    from bwamem_tpu_torch.legacy import aln as la
+    from bwamem_tpu_torch.ops import fm as fmops
+    import se_smoke_data as sd
+    work = os.path.join(sd.WORK, "legacy")
+    os.makedirs(work, exist_ok=True)
+    t_phase = time.perf_counter()
+
+    # one round of the search as aln issues it, at kernel D's lane count
+    fm = fmops.fm_from_index(load_index(prefix), "cuda")
+    rng = np.random.default_rng(sd.SEED)
+    km1 = rng.integers(-1, fm.seq_len, LEG_ROUND_LANES)
+    l_ = rng.integers(0, fm.seq_len + 1, LEG_ROUND_LANES)
+    batcher = la.OccBatcher(fm)
+    batcher.query(km1, l_)
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        batcher.query(km1, l_)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    round_ms = sorted(ts)[2]
+    log(f"aln round of {LEG_ROUND_LANES} lanes issued from the host (copy "
+        f"in, occ4, copy out), median of 5: {round_ms:.4f} ms; kernel D "
+        f"(gp2_col0) at {LEG_ROUND_LANES} lanes {kernel_d['ms']:.4f} ms, "
+        f"{kernel_d['device_ms']:.4f} ms on the device alone: the round "
+        f"costs {round_ms / kernel_d['ms']:.1f} times the kernel's call")
+    del fm, batcher
+
+    # single-end: aln + samse
+    fq = head_fastq(sd.smoke_data(log)[1], LEG_READS)
+    sai, sam = os.path.join(work, "se.sai"), os.path.join(work, "se.sam")
+    t0 = time.perf_counter()
+    _, _, snap = run_timed("aln (SE)", ["aln", "-f", sai, prefix, fq],
+                           LEG_READS, "reads")
+    _legacy_counts("aln (SE)", snap, LEG_READS, kernel_d)
+    _, _, snap = run_timed("samse", ["samse", "-f", sam, prefix, sai, fq],
+                           LEG_READS, "reads")
+    wall = time.perf_counter() - t0
+    log(f"aln + samse: {LEG_READS} reads in {wall:.3f} s = "
+        f"{LEG_READS / wall:.1f} reads/s")
+    reads = list(read_fastx(fq))
+    recs = _sam_records(sam)
+    if [r.split("\t", 1)[0] for r in recs] != [r.name for r in reads]:
+        raise RuntimeError("samse: one SAM line a read, in order, expected")
+    # aln leaves a read unmapped by design when it is past max_diff or
+    # lies over one of the genome's N runs: unmapped reads count against
+    # the origin share, not as misplaced ones beyond 3 %
+    check_sams("aln + samse", recs, reads, min_origin=0.9, max_wrong=0.03)
+
+    # paired-end: aln on both mates + sampe
+    fq1, fq2, origins = sd.legacy_pairs(log)
+    sais = [os.path.join(work, f"pe{e}.sai") for e in (1, 2)]
+    pe_sam = os.path.join(work, "pe.sam")
+    t0 = time.perf_counter()
+    for e, (f, x) in enumerate(((fq1, sais[0]), (fq2, sais[1])), 1):
+        _, _, snap = run_timed(f"aln (mate {e})", ["aln", "-f", x, prefix, f],
+                               sd.LEG_PAIRS, "reads")
+        _legacy_counts(f"aln (mate {e})", snap, sd.LEG_PAIRS, kernel_d)
+    _, err, snap = run_timed("sampe", ["sampe", "-f", pe_sam, prefix, *sais,
+                                       fq1, fq2], sd.LEG_PAIRS, "pairs")
+    wall = time.perf_counter() - t0
+    log(f"aln x 2 + sampe: {sd.LEG_PAIRS} pairs in {wall:.3f} s = "
+        f"{sd.LEG_PAIRS / wall:.1f} pairs/s; "
+        + "; ".join(x for x in err.splitlines() if "paired_sw" in x
+                    or "inferred external" in x))
+    recs = _sam_records(pe_sam)
+    if len(recs) != 2 * sd.LEG_PAIRS:
+        raise RuntimeError(f"sampe: {len(recs)} lines for {sd.LEG_PAIRS} "
+                           "pairs")
+    L, tol = sd.LEG_READ_LEN, 20 + sd.LEG_READ_LEN // 50
+    placed = 0
+    for p, (contig, a, b) in enumerate(origins):
+        got = [primary_start(recs[2 * p + e], L) for e in range(2)]
+        want = (a, b - L)
+        if all(g is not None and g[0] == contig for g in got) and any(
+                abs(got[0][1] - want[e]) <= tol
+                and abs(got[1][1] - want[1 - e]) <= tol for e in range(2)):
+            placed += 1
+    rescued = sum("\tXT:A:M" in r for r in recs)
+    bait = len(range(0, sd.LEG_PAIRS, sd.LEG_BAIT_EVERY))
+    log(f"sampe: both mates at their origin in {placed}/{sd.LEG_PAIRS} "
+        f"pairs; {rescued} mates placed by the mate rescue ({bait} pairs "
+        f"carry bait)")
+    if placed < 0.9 * sd.LEG_PAIRS or rescued <= 0:
+        raise RuntimeError(f"sampe: {placed} of {sd.LEG_PAIRS} pairs placed, "
+                           f"{rescued} rescued")
+
+    # the first 256 reads and 256 pairs, whole, on the card and on the CPU
+    fq_c = head_fastq(fq, LEG_CPU_READS)
+    p1, p2 = head_fastq(fq1, LEG_CPU_PAIRS), head_fastq(fq2, LEG_CPU_PAIRS)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        x = {k: os.path.join(work, f"{dev}.{k}")
+             for k in ("se.sai", "se.sam", "1.sai", "2.sai", "pe.sam")}
+        run_cli(["aln", "-f", x["se.sai"], prefix, fq_c], dev)
+        run_cli(["samse", "-f", x["se.sam"], prefix, x["se.sai"], fq_c], dev)
+        run_cli(["aln", "-f", x["1.sai"], prefix, p1], dev)
+        run_cli(["aln", "-f", x["2.sai"], prefix, p2], dev)
+        run_cli(["sampe", "-f", x["pe.sam"], prefix, x["1.sai"], x["2.sai"],
+                 p1, p2], dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        outs[dev] = {}
+        for k, path in x.items():
+            with open(path, "rb") as f:
+                outs[dev][k] = f.read()
+        log(f"legacy, {LEG_CPU_READS} reads and {LEG_CPU_PAIRS} pairs whole "
+            f"on {dev}: {time.perf_counter() - t1:.1f} s")
+    bad = [k for k in outs["cuda"] if outs["cuda"][k] != outs["cpu"][k]]
+    if bad:
+        raise RuntimeError(f"legacy: GPU and CPU bytes differ in {bad}")
+    log(f"legacy: .sai and SAM bytes identical on the card and on the CPU "
+        f"({', '.join(f'{k} {len(v)}' for k, v in outs['cpu'].items())} "
+        f"bytes); phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1150,6 +1475,7 @@ def main() -> int:
     err_pl2, err_pl = phase_kernel()
     kerns3 = phase_fm_probe()
     kerns_gp = phase_gather_probe()
+    kerns_gp2, kernel_d = phase_gather_probe2()
     from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.pipeline.align import Aligner
     import se_smoke_data as sd
@@ -1196,8 +1522,10 @@ def main() -> int:
                                  "5000bp": side_pl.launches}
     kern1["max_abs_err"] = max(kern1["max_abs_err"], err_pl)
     phase_tools(sd.smoke_data(log)[0])
+    phase_legacy(sd.smoke_data(log)[0], kernel_d)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kern2, kern1, *kerns3, *kerns_gp]}))
+    print(json.dumps({"kernels": [kern2, kern1, *kerns3, *kerns_gp,
+                                  *kerns_gp2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

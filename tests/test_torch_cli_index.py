@@ -6,10 +6,10 @@ usage messages and exit codes, and `shm`: the blob, staging, listing,
 loading and dropping in a temporary directory, a blob staged by either
 package loaded by the other, and load_index taking the staged copy.  The
 genome is a tools/simdata.py one with a run of Ns, so the .amb holes and
-the seeded N replacement are covered."""
-import contextlib
+the seeded N replacement are covered.  The legacy commands `aln`, `samse`
+and `sampe` run on that index too, from the CLI, and give the reference's
+bytes; `bwasw` alone still exits 1 as not ported."""
 import filecmp
-import io
 
 import numpy as np
 import pytest
@@ -19,17 +19,10 @@ import bwamem_tpu_torch.cli as tcli
 from bwamem_tpu.index import shm as jshm
 from bwamem_tpu_torch.index import shm as tshm
 
-import torch_port_util  # noqa: F401  (puts tools/ on the path)
+from torch_port_util import run_cli as run  # (puts tools/ on the path)
 import simdata  # noqa: E402
 
 REF_EXTS = ("pac", "ann", "amb", "bwt", "sa")
-
-
-def run(cli, argv, **kw):
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli.main(argv, **kw)
-    return rc, out.getvalue(), err.getvalue()
 
 
 @pytest.fixture(scope="module")
@@ -99,16 +92,68 @@ def test_micro_command_chain_rebuilds_the_index(built):
     [], ["index"], ["fa2pac"], ["fa2pac", "-f"], ["pac2bwt", "x.pac"],
     ["pac2bwtgen", "-d", "x.pac"], ["bwtupdate"], ["bwtupdate", "a", "b"],
     ["bwt2sa", "-i", "16", "x.bwt"], ["shm"], ["fastmap", "x"],
-    ["maxk", "-s", "x"], ["pemerge"], ["nosuch"]])
+    ["maxk", "-s", "x"], ["pemerge"], ["nosuch"], ["aln"], ["aln", "x"],
+    ["aln", "-b", "x", "y"], ["aln", "-I", "x", "y"], ["samse", "x", "y"],
+    ["sampe", "x", "y", "z"]])
 def test_usage_messages_and_exit_codes_match(argv):
     assert run(tcli, argv, device="cpu") == run(jcli, argv)
 
 
-@pytest.mark.parametrize("cmd", ["aln", "samse", "sampe", "bwasw"])
+@pytest.mark.parametrize("cmd", ["bwasw"])
 def test_commands_not_ported_exit_nonzero_naming_themselves(cmd):
     rc, out, err = run(tcli, [cmd, "x", "y"], device="cpu")
     assert rc == 1 and out == ""
     assert f"'{cmd}' is not ported" in err
+
+
+@pytest.fixture(scope="module")
+def legacy(built, genome):
+    """40 pairs of 101 bp from the indexed genome (insert 300 +- 30) and
+    the reference's .sai of each mate file."""
+    d, fa = genome
+    contigs, name = {}, None
+    with open(fa) as f:
+        for line in f:
+            if line.startswith(">"):
+                name = line[1:].strip()
+                contigs[name] = []
+            else:
+                contigs[name].append(line.strip())
+    contigs = {n: "".join(v) for n, v in contigs.items()}
+    pairs = simdata.sim_reads(contigs, 80, read_len=101, seed=11,
+                              sub_rate=0.01, indel_rate=0.002, paired=True,
+                              insert_mean=300, insert_std=30)
+    files = {}
+    for e in (1, 2):
+        files[e] = str(d / f"l{e}.fq")
+        simdata.write_fastq([(f"{n}/{e}", s, q)
+                             for n, s, q in pairs[e - 1::2]], files[e])
+        files[f"sai{e}"] = str(d / f"l{e}.sai")
+        assert run(jcli, ["aln", "-f", files[f"sai{e}"], str(built / "j"),
+                          files[e]])[0] == 0
+    return files
+
+
+@pytest.mark.parametrize("cmd", ["aln", "samse", "sampe"])
+def test_legacy_commands_give_the_reference_bytes(built, legacy, cmd,
+                                                  tmp_path):
+    """Each package on its own index (the files are identical)."""
+    outs = []
+    for pkg, cli, kw in (("j", jcli, {}), ("t", tcli, {"device": "cpu"})):
+        prefix = str(built / pkg)
+        out = str(tmp_path / f"{pkg}.out")
+        argv = {"aln": ["aln", "-f", out, prefix, legacy[1]],
+                "samse": ["samse", "-f", out, prefix, legacy["sai1"],
+                          legacy[1]],
+                "sampe": ["sampe", "-f", out, prefix, legacy["sai1"],
+                          legacy["sai2"], legacy[1], legacy[2]]}[cmd]
+        rc, so, err = run(cli, argv, **kw)
+        assert rc == 0 and so == "", err
+        with open(out, "rb") as f:
+            outs.append((f.read(), err))
+    assert outs[0] == outs[1]
+    if cmd == "sampe":
+        assert outs[1][0].count(b"\tXT:A:U") > 50
 
 
 # ---- shm ----

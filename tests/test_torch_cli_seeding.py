@@ -6,9 +6,6 @@ unfinished, so the rerun is exercised; maxk with and without -s (and with
 the .bwt file as its first argument); pemerge's stdout and stderr with the
 defaults and with -m -T 20.  The index is bwamem_tpu's build_index of a
 tools/simdata.py genome."""
-import contextlib
-import io
-
 import numpy as np
 import pytest
 
@@ -19,13 +16,7 @@ from bwamem_tpu_torch.utils import timers
 
 import torch_port_util as U
 import simdata  # noqa: E402  (tools/, put on the path by torch_port_util)
-
-
-def run(cli, argv, **kw):
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli.main(argv, **kw)
-    return rc, out.getvalue(), err.getvalue()
+from torch_port_util import run_cli as run
 
 
 def both(argv):

@@ -2,9 +2,9 @@
 bwamem_tpu (checked in a subprocess, since this test process has both),
 no source file of the package, chip_smoke.py or the port's tools
 (tools/torch_*.py, tools/se_smoke_data.py) imports them, its entry points
-(mem, fastmap, maxk, pemerge) refuse to run without a GPU unless asked for
-the CPU, and chip_smoke.py and the FM-step and gather-strategy probes fail
-without a GPU or outside a checkout."""
+(mem, aln, samse, sampe, fastmap, maxk, pemerge) refuse to run without a
+GPU unless asked for the CPU, and chip_smoke.py, the FM-step probe and both
+gather-strategy probes fail without a GPU or outside a checkout."""
 import os
 import re
 import shutil
@@ -31,7 +31,10 @@ MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
            "bwamem_tpu_torch.io.sam", "bwamem_tpu_torch.index",
            "bwamem_tpu_torch.index.microcmd", "bwamem_tpu_torch.index.shm",
            "bwamem_tpu_torch.ops.gather_probe", "bwamem_tpu_torch.pemerge",
-           "bwamem_tpu_torch.native"]
+           "bwamem_tpu_torch.native", "bwamem_tpu_torch.ops.global_sw",
+           "bwamem_tpu_torch.ops.gather_probe2", "bwamem_tpu_torch.legacy",
+           "bwamem_tpu_torch.legacy.rng", "bwamem_tpu_torch.legacy.aln",
+           "bwamem_tpu_torch.legacy.samse", "bwamem_tpu_torch.legacy.sampe"]
 
 
 def _clean_env():
@@ -93,6 +96,19 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(argv)
         assert cli.main(argv, device="cpu") == 0
+    sai, sam = tmp_path / "r.sai", tmp_path / "r.sam"
+    legacy = (["aln", "-f", str(sai), data["prefix"], data["fq"]],
+              ["samse", "-f", str(sam), data["prefix"], str(sai),
+               data["fq"]],
+              ["sampe", "-f", str(sam), data["prefix"], str(sai), str(sai),
+               data["fq"], data["fq"]])
+    for argv in legacy:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    assert not sai.exists() and not sam.exists()
+    for argv in legacy:
+        assert cli.main(argv, device="cpu") == 0
+        assert sam.exists() or argv[0] == "aln"
 
 
 def test_cli_refuses_paired_end(tmp_path, capsys):
@@ -138,6 +154,12 @@ def test_fm_probe_tool_fails_without_gpu():
 
 def test_gather_probe_tool_fails_without_gpu():
     r = _run_tool("torch_pl_gather_probe.py")
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr and "us/step" not in r.stdout
+
+
+def test_gather_probe2_tool_fails_without_gpu():
+    r = _run_tool("torch_pl_gather_probe2.py")
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr and "us/step" not in r.stdout
 

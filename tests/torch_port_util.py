@@ -193,3 +193,106 @@ def pe_both(d, *, flag=0, n_pairs=None, pes0=None, n_processed=0):
 
 def sam_flags(sams):
     return [int(s.split("\t")[1]) for s in sams]
+
+
+# ---- the legacy aligner (aln / samse / sampe) ----
+
+def torch_gap_opt(jopt=None):
+    """The port's GapOptions carried across from the reference's, through
+    the packed gap_opt_t the .sai header holds."""
+    from bwamem_tpu.legacy.aln import GapOptions as JGap
+    from bwamem_tpu_torch.legacy.aln import GapOptions
+    return GapOptions.unpack((jopt or JGap()).pack())
+
+
+def torch_pe_opt(jpopt=None):
+    """The port's PeOptions built from the reference's fields."""
+    from bwamem_tpu.legacy.sampe import PeOptions as JPe
+    from bwamem_tpu_torch.legacy.sampe import PeOptions
+    popt = PeOptions()
+    for name, value in vars(jpopt or JPe()).items():
+        setattr(popt, name, value)
+    return popt
+
+
+def _fq(path, reads):
+    with open(path, "w") as f:
+        for name, seq, qual in reads:
+            f.write(f"@{name}\n{seq}\n+\n{qual}\n")
+
+
+def legacy_dataset(dirpath, *, genome_len=100_000, n_se=48, n_pairs=60,
+                   n_bait=12, seed=7):
+    """A genome, bwamem_tpu's index of it (the port loads the same files)
+    and the legacy aligner's reads under dirpath:
+      se.fq  n_se reads of 101 bp (1 % substitutions, 0.2 % indels); a
+             quarter with a low-quality 3' tail (for -q), some with a few
+             Ns and one with too many, and reads cut to 36-90 bp or taken
+             at 150 bp (mixed lengths);
+      r1.fq, r2.fq  n_pairs pairs of 101 bp at insert 300 +- 30 (names
+             /1 and /2), then n_bait pairs whose second mate carries 10
+             substitutions: aln cannot place it and sampe's mate rescue
+             must (tests/test_legacy.py's bait).
+    Returns dict(prefix, se, r1, r2)."""
+    import simdata
+    from bwamem_tpu.index import build_index
+    d = Path(dirpath)
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    contigs = simdata.make_genome(genome_len, seed=seed, n_contigs=2)
+    fa, prefix = str(d / "g.fa"), str(d / "g")
+    simdata.write_fasta(contigs, fa)
+    build_index(fa).save(prefix)
+
+    se = simdata.sim_reads(contigs, n_se, read_len=101, seed=seed + 1,
+                           sub_rate=0.01, indel_rate=0.002)
+    se += simdata.sim_reads(contigs, 4, read_len=150, seed=seed + 2)
+    out = []
+    for i, (name, seq, qual) in enumerate(se):
+        s = bytearray(seq.encode())
+        if i % 4 == 1:                       # low-quality 3' tail
+            cut = int(rng.integers(8, 30))
+            qual = qual[:-cut] + "#" * cut
+        if i % 6 == 2:                       # a few Ns
+            for p in rng.choice(len(s), int(rng.integers(1, 3)),
+                                replace=False):
+                s[p] = ord("N")
+        if i == 5:                           # more Ns than max_diff
+            s[10:20] = b"N" * 10
+        if i % 7 == 3:                       # mixed lengths
+            ln = int(rng.integers(36, 91))
+            s, qual = s[:ln], qual[:ln]
+        out.append((name, s.decode(), qual))
+    se_fq = str(d / "se.fq")
+    _fq(se_fq, out)
+
+    pairs = simdata.sim_reads(contigs, 2 * n_pairs, read_len=101,
+                              seed=seed + 3, sub_rate=0.01,
+                              indel_rate=0.002, paired=True,
+                              insert_mean=300, insert_std=30)
+    bait = simdata.sim_reads(contigs, 2 * n_bait, read_len=101,
+                             seed=seed + 4, sub_rate=0.0, indel_rate=0.0,
+                             paired=True, insert_mean=300, insert_std=30)
+    for i in range(1, len(bait), 2):
+        n, s, q = bait[i]
+        arr = bytearray(s.encode())
+        for p in rng.choice(len(arr), 10, replace=False):
+            arr[p] = ord("ACGT"[rng.integers(0, 4)])
+        bait[i] = (n, arr.decode(), q)
+    bait = [(f"bait{n[2:]}", s, q) for n, s, q in bait]
+    r1, r2 = str(d / "r1.fq"), str(d / "r2.fq")
+    both = pairs + bait
+    _fq(r1, [(f"{n}/1", s, q) for n, s, q in both[0::2]])
+    _fq(r2, [(f"{n}/2", s, q) for n, s, q in both[1::2]])
+    return dict(prefix=prefix, se=se_fq, r1=r1, r2=r2)
+
+
+def run_cli(cli, argv, **kw):
+    """cli.main(argv, **kw) with stdout and stderr captured:
+    (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv, **kw)
+    return rc, out.getvalue(), err.getvalue()

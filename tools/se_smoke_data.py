@@ -3,8 +3,10 @@ tools/torch_fm_step_probe.py: a 5 Mbp one-contig genome and 2 x 8192
 single-end reads of 101 bp from simdata.py (fixed seeds), indexed with
 bwamem_tpu_torch's build_index; long-read batches from the same genome (512
 reads of 1000 bp, 128 reads of 5000 bp); 8192 pairs of 150 bp (insert
-400 +- 40) with the place each pair was sampled from; and 4096 pairs of 100
-bp for pemerge.  Everything is cached under build/chip_smoke/."""
+400 +- 40) with the place each pair was sampled from; 4096 pairs of 100
+bp for pemerge; and 2048 pairs of 101 bp (insert 300 +- 30) for the legacy
+aligner, a share of them with a second mate that only the mate rescue of
+`sampe` can place.  Everything is cached under build/chip_smoke/."""
 from __future__ import annotations
 
 import os
@@ -30,6 +32,13 @@ PE_INSERT = (400, 40)
 PEM_PAIRS = 4096
 PEM_READ_LEN = 100
 PEM_INSERTS = ((150, 15), (420, 30))
+# the legacy aligner: pairs, read length, insert mean and sd, and every
+# LEG_BAIT_EVERY-th pair's second mate carries LEG_BAIT_SUBS substitutions
+# (more than aln's max_diff of 5 at 101 bp: tests/test_legacy.py's bait)
+LEG_PAIRS = 2048
+LEG_READ_LEN = 101
+LEG_INSERT = (300, 30)
+LEG_BAIT_EVERY, LEG_BAIT_SUBS = 16, 10
 
 
 def _simdata():
@@ -76,15 +85,19 @@ class _Tracked(str):
         return str.__getitem__(self, key)
 
 
-def pe_reads(log=print) -> tuple[str, str, list]:
-    """(FASTQ of mates 1, FASTQ of mates 2, origins): PE_PAIRS pairs of
-    PE_READ_LEN bases sampled from smoke_data's genome on first use.
-    origins[p] = (contig, fragment start, fragment end), 0-based: one mate
-    of pair p starts at the fragment's start on the forward strand, the
-    other ends at its end on the reverse strand."""
+def _sample_pairs(tag: str, n_pairs: int, read_len: int, insert: tuple,
+                  seed: int, log, bait=None) -> tuple[str, str, list]:
+    """(FASTQ of mates 1, FASTQ of mates 2, origins) of n_pairs pairs
+    sampled from smoke_data's genome on first use, cached under
+    WORK/<tag>_*.  origins[p] = (contig, fragment start, fragment end),
+    0-based: one mate of pair p starts at the fragment's start on the
+    forward strand, the other ends at its end on the reverse strand.
+    bait = (every, subs): the second mate of every `every`-th pair gets
+    `subs` random substitutions."""
+    import numpy as np
     simdata = _simdata()
     os.makedirs(WORK, exist_ok=True)
-    fq1, fq2, org = (os.path.join(WORK, f"pe{PE_READ_LEN}_{x}")
+    fq1, fq2, org = (os.path.join(WORK, f"{tag}_{x}")
                      for x in ("1.fq", "2.fq", "origin.tsv"))
     if not all(os.path.exists(f) for f in (fq1, fq2, org)):
         t0 = time.perf_counter()
@@ -92,23 +105,48 @@ def pe_reads(log=print) -> tuple[str, str, list]:
         contigs = {n: _Tracked(seq, n, taken)
                    for n, seq in _genome().items()}
         pairs = simdata.sim_reads(
-            contigs, 2 * PE_PAIRS, read_len=PE_READ_LEN,
-            seed=SEED + PE_READ_LEN, paired=True, insert_mean=PE_INSERT[0],
-            insert_std=PE_INSERT[1])
-        if len(taken) != PE_PAIRS:
-            raise RuntimeError(f"{len(taken)} fragments for {PE_PAIRS} "
+            contigs, 2 * n_pairs, read_len=read_len, seed=seed, paired=True,
+            insert_mean=insert[0], insert_std=insert[1])
+        if len(taken) != n_pairs:
+            raise RuntimeError(f"{len(taken)} fragments for {n_pairs} "
                                "pairs: simdata's paired sampler changed")
+        mates2 = pairs[1::2]
+        if bait:
+            every, subs = bait
+            rng = np.random.default_rng(seed)
+            for p in range(0, n_pairs, every):
+                name, seq, qual = mates2[p]
+                arr = bytearray(seq.encode())
+                for x in rng.choice(len(arr), subs, replace=False):
+                    arr[x] = ord("ACGT"[rng.integers(0, 4)])
+                mates2[p] = (name, arr.decode(), qual)
         simdata.write_fastq(pairs[0::2], fq1)
-        simdata.write_fastq(pairs[1::2], fq2)
+        simdata.write_fastq(mates2, fq2)
         with open(org, "w") as f:
             for name, a, b in taken:
                 f.write(f"{name}\t{a}\t{b}\n")
-        log(f"data, {PE_PAIRS} pairs of {PE_READ_LEN} bp: "
+        log(f"data, {n_pairs} pairs of {read_len} bp ({tag}): "
             f"{time.perf_counter() - t0:.1f} s")
     with open(org) as f:
         origins = [(n, int(a), int(b)) for n, a, b in
                    (line.split("\t") for line in f)]
     return fq1, fq2, origins
+
+
+def pe_reads(log=print) -> tuple[str, str, list]:
+    """(FASTQ of mates 1, FASTQ of mates 2, origins): PE_PAIRS pairs of
+    PE_READ_LEN bases (see _sample_pairs)."""
+    return _sample_pairs(f"pe{PE_READ_LEN}", PE_PAIRS, PE_READ_LEN,
+                         PE_INSERT, SEED + PE_READ_LEN, log)
+
+
+def legacy_pairs(log=print) -> tuple[str, str, list]:
+    """(FASTQ of mates 1, FASTQ of mates 2, origins): LEG_PAIRS pairs of
+    LEG_READ_LEN bases for aln/sampe, every LEG_BAIT_EVERY-th second mate
+    with LEG_BAIT_SUBS substitutions (see _sample_pairs)."""
+    return _sample_pairs(f"leg{LEG_READ_LEN}", LEG_PAIRS, LEG_READ_LEN,
+                         LEG_INSERT, SEED + 300, log,
+                         bait=(LEG_BAIT_EVERY, LEG_BAIT_SUBS))
 
 
 def smoke_data(log=print) -> tuple[str, str]:

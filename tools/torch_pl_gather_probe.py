@@ -21,8 +21,9 @@ Each kernel's output must equal its plain PyTorch version exactly before
 anything is timed (a difference exits non-zero).  Times are the median of
 5 runs between CUDA events after a warm-up, in ms and us per step, beside
 the plain version and, where one exists, a PyTorch call computing the same
-function (torch.gather; torch.matmul of the same bf16 operands; the
-take chain issued from PyTorch in int32).  The card's name and power limit
+function (torch.gather; for gp_onehot the gather its pick equals,
+torch.take of the bf16-rounded table at k, 0 outside the table; the take
+chain issued from PyTorch in int32).  The card's name and power limit
 are printed first.  Needs a CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -100,10 +101,12 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
         f"(padded to {Ap}); tab {tab.numel() * 4 / 1e6:.2f} MB")
 
     k64 = k.to(torch.int64)
-    oh = torch.zeros((n_lanes, Ap), dtype=torch.bfloat16, device=dev)
-    oh[torch.arange(n_lanes, device=dev), (k.reshape(-1) >> 7).long()] = 1
-    t3 = torch.zeros((Ap, 128), dtype=torch.bfloat16, device=dev)
-    t3[:A] = tab3.to(torch.bfloat16)
+    t3 = tab3.to(torch.bfloat16)          # the product's operand rounding
+
+    def onehot_gather():
+        inside = (k64 >= 0) & (k64 < t3.numel())
+        got = torch.take(t3, k64.clamp(0, t3.numel() - 1))
+        return torch.where(inside, got, 0).to(torch.int32)
 
     def take_chain():
         kk = kfull
@@ -118,7 +121,7 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
         ("gp_scalar2", lambda: gp.gp_scalar2(tabw, k, steps),
          lambda: gp.scalar2_plain(tabw, k), None),
         ("gp_onehot", lambda: gp.gp_onehot(tab3, k),
-         lambda: gp.onehot_plain(tab3, k), lambda: torch.matmul(oh, t3)),
+         lambda: gp.onehot_plain(tab3, k), onehot_gather),
         ("gp_take_ax0", lambda: gp.gp_take_ax0(tab, kfull, steps),
          lambda: gp.take_ax0_plain(tab, kfull, steps), take_chain))
     for name, kern, plain, _ in cases:
@@ -132,6 +135,9 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
     if not torch.equal(take_chain(), gp.take_ax0_plain(tab, kfull, steps)):
         raise RuntimeError("the int32 PyTorch take chain differs from "
                            "take_ax0_plain")
+    if not torch.equal(onehot_gather(), gp.onehot_plain(tab3, k)):
+        raise RuntimeError("the bfloat16 table gather differs from "
+                           "onehot_plain")
     log("every kernel equals its plain version on every output")
 
     results = {}

@@ -1,0 +1,212 @@
+#!/usr/bin/env python3
+"""Round 2 of the gather probe, priced on a GPU.
+
+    python3 tools/torch_pl_gather_probe2.py [steps]
+
+The counterpart of tools/pl_gather_probe2.py (the TPU probe) at its
+defaults: `steps` = 32 chained steps, and the four hand-written CUDA
+kernels of ops/gather_probe2 on seeded numpy tables:
+
+  B  gp2_take_ax0    a chained gather along axis 0 on [512, 128]
+  C  gp2_take_ax1    a chained gather along axis 1 on [128, 128] and on
+                     [8, 128]
+  D  gp2_col0        word 0 of 1024 rows of a [78208, 8] table (the
+                     combined rows of a 5 Mbp index: one `aln` round's
+                     lookups at 1024 lanes)
+  E  gp2_onehot_f32  a float32 one-hot [1024, 640] x [640, 128] product and
+                     the pick of one column per query
+
+It also times probe A, which has no Pallas kernel: the 32-step
+take_along_axis chain on [611, 128], as torch.gather calls issued from
+PyTorch.  Each kernel's output must equal its plain PyTorch version
+exactly before anything is timed (a difference exits non-zero), and so
+must each library call's.  Times are the median of 5 runs between CUDA
+events after a warm-up, in ms and us per step, beside the plain version
+and a PyTorch call computing the same function: the chain of
+torch.gather, add and remainder for B and C, tab[k, 0] for D, and for E
+the gather the one-hot product's pick equals: torch.take of the table at
+k (row k >> 7, column k & 127), 0 where k lies outside the table.  Each kernel's call is also timed on the device alone
+(`device_ms`: the events and the launch are queued behind a 1 ms spin of
+the card, so the host's cost of issuing the call is off the clock).  The
+card's name and power limit are printed first.  Needs a CUDA device;
+exits non-zero without one.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 32
+B_ROWS = 512                # probe B's table rows
+C_ROWS = (128, 8)           # probe C's table rows
+D_ROWS, D_W, D_LANES = 78208, 8, 1024
+E_Q, E_A = 1024, 640
+A_ROWS = 611                # probe A's table rows
+REPS = 5
+SPIN_CYCLES = 2_000_000     # about 1 ms of the card's clock
+
+
+def median_ms(fn, reps: int = REPS) -> float:
+    import torch
+    fn()                                   # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, reps: int = REPS) -> float:
+    """Median time of fn() on the device alone: a spin kernel keeps the
+    card busy while the host records the first event, issues fn's
+    launches and records the second, so the events bracket the device's
+    work and not the host's.  fn must issue in less time than the spin
+    (about 1 ms)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def make_inputs(seed: int, device) -> dict:
+    """The probe's tables and indices, from numpy with `seed`, on
+    `device`; values of every table in [0, 2^20), as the TPU probe's."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def ints(hi, shape):
+        return rng.integers(0, hi, shape, dtype=np.int32)
+    x = {"b_tab": ints(1 << 20, (B_ROWS, 128)),
+         "b_kk": ints(B_ROWS, (B_ROWS, 128)),
+         "d_tab": ints(1 << 20, (D_ROWS, D_W)),
+         "d_k": ints(D_ROWS, D_LANES),
+         "e_tab": ints(1 << 20, (E_A, 128)),
+         "e_k": ints(E_A * 128, (E_Q // 128, 128)),
+         "a_tab": ints(1 << 20, (A_ROWS, 128)),
+         "a_kk": ints(A_ROWS, (A_ROWS, 128))}
+    for S in C_ROWS:
+        x[f"c{S}_tab"] = ints(1 << 20, (S, 128))
+        x[f"c{S}_kk"] = ints(128, (S, 128))
+    return {n: torch.from_numpy(a).to(device) for n, a in x.items()}
+
+
+def torch_chain(tab, kk, steps: int, dim: int):
+    """The chain kk = (kk + tab.gather(dim, kk)) mod tab.shape[dim] issued
+    from PyTorch in int32 (the add cannot wrap: values < 2^21)."""
+    import torch
+    m = tab.shape[dim]
+    for _ in range(steps):
+        kk = torch.remainder(kk + torch.gather(tab, dim, kk.long()), m)
+    return kk
+
+
+def cases(x: dict, steps: int) -> list:
+    """(label, kernel name, kernel call, plain call, library call, steps a
+    launch) for each kernel and shape of the probe."""
+    import torch
+    from bwamem_tpu_torch.ops import gather_probe2 as gp2
+    out = [("B take_ax0 [512,128]", "gp2_take_ax0",
+            lambda: gp2.gp2_take_ax0(x["b_tab"], x["b_kk"], steps),
+            lambda: gp2.take_ax0_plain(x["b_tab"], x["b_kk"], steps),
+            lambda: torch_chain(x["b_tab"], x["b_kk"], steps, 0), steps)]
+    for S in C_ROWS:
+        tab, kk = x[f"c{S}_tab"], x[f"c{S}_kk"]
+        out.append((f"C take_ax1 [{S},128]", "gp2_take_ax1",
+                    lambda tab=tab, kk=kk: gp2.gp2_take_ax1(tab, kk, steps),
+                    lambda tab=tab, kk=kk: gp2.take_ax1_plain(tab, kk, steps),
+                    lambda tab=tab, kk=kk: torch_chain(tab, kk, steps, 1),
+                    steps))
+    k64 = x["d_k"].long()
+    out.append(("D col0 x1024 [78208,8]", "gp2_col0",
+                lambda: gp2.gp2_col0(x["d_tab"], x["d_k"]),
+                lambda: gp2.scalar_col0_plain(x["d_tab"], x["d_k"]),
+                lambda: x["d_tab"][k64, 0], 1))
+    ek, n_e = x["e_k"].long(), x["e_tab"].numel()
+
+    def e_library():
+        inside = (ek >= 0) & (ek < n_e)
+        return torch.where(inside,
+                           torch.take(x["e_tab"], ek.clamp(0, n_e - 1)), 0)
+    out.append(("E onehot_f32 Q1024 A640", "gp2_onehot_f32",
+                lambda: gp2.gp2_onehot_f32(x["e_tab"], x["e_k"]),
+                lambda: gp2.onehot_f32_plain(x["e_tab"], x["e_k"]),
+                e_library, 1))
+    return out
+
+
+def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
+    """Runs the probe on the current CUDA device.  Returns dict(inputs=...
+    (make_inputs), results={label: dict(name, ms, device_ms, plain_ms,
+    library_ms, max_abs_err, steps)}, a_ms=probe A's chain); raises when a
+    kernel or a library call differs from its plain version.  Each kernel
+    launches 12 times a shape: 1 check, 1 warm-up and 5 timed calls, then
+    5 timed on the device alone."""
+    import torch
+    sys.path.insert(0, REPO)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    log(f"card: {smi.stdout.strip().splitlines()[0]}")
+    x = make_inputs(seed, torch.device("cuda"))
+    log(f"steps={steps}; B [{B_ROWS},128], C {[(S, 128) for S in C_ROWS]}"
+        f", D {D_LANES} lanes of [{D_ROWS},{D_W}], E Q={E_Q} A={E_A}")
+    todo = cases(x, steps)
+    for label, _, kern, plain, lib, _ in todo:
+        want = plain().to(torch.int64)
+        for what, fn in (("kernel", kern), ("library call", lib)):
+            got = fn().to(torch.int64)
+            torch.cuda.synchronize()
+            n_bad = int((got != want).sum())
+            if n_bad:
+                raise RuntimeError(f"{label}: the {what} differs from "
+                                   f"the plain version on {n_bad} of "
+                                   f"{want.numel()} outputs")
+    log("every kernel and library call equals its plain version on "
+        "every output")
+    results = {}
+    for label, name, kern, plain, lib, per in todo:
+        r = dict(name=name, max_abs_err=0, steps=per, ms=median_ms(kern),
+                 device_ms=device_ms(kern), plain_ms=median_ms(plain),
+                 library_ms=median_ms(lib))
+        results[label] = r
+        log(f"{label:24s} kernel {r['ms']:8.4f} ms "
+            f"({r['ms'] / per * 1e3:8.3f} us/step), on the device alone "
+            f"{r['device_ms']:8.4f} ms, plain {r['plain_ms']:8.4f} ms, "
+            f"library {r['library_ms']:8.4f} ms")
+    a_ms = median_ms(lambda: torch_chain(x["a_tab"], x["a_kk"], steps, 0))
+    log(f"{'A torch.gather [611,128]':24s} chain   {a_ms:8.4f} ms "
+        f"({a_ms / steps * 1e3:8.3f} us/step), issued from PyTorch (no "
+        "Pallas kernel)")
+    return dict(inputs=x, results=results, a_ms=a_ms)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_pl_gather_probe2: no CUDA device", file=sys.stderr)
+        return 2
+    probe(int(sys.argv[1]) if len(sys.argv) > 1 else STEPS)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
