@@ -9,10 +9,10 @@ pairs; -I fixes the insert-size distribution.
 The index tools (`index`, `fa2pac`, `pac2bwt`, `pac2bwtgen`, `bwtupdate`,
 `bwt2sa`, `shm`) run on the host; `fastmap`, `maxk` and `pemerge` run their
 scans or SW on the card, and the legacy `aln`, `samse` and `sampe` their
-FM lookups, SA walks and SWs.  Flags, messages and exit codes are the
-JAX package's (bwamem_tpu/cli.py).  Every device command runs on the card
-unless the caller passes another device to main().  `bwasw` is not ported
-yet and exits 1 saying so.
+FM lookups, SA walks and SWs, and the long-read `bwasw` its extensions,
+global alignments, SA walks and mate SWs.  Flags, messages and exit codes
+are the JAX package's (bwamem_tpu/cli.py).  Every device command runs on
+the card unless the caller passes another device to main().
 """
 from __future__ import annotations
 
@@ -695,6 +695,78 @@ def cmd_sampe(argv: list[str], device=None) -> int:
     return 0
 
 
+def cmd_bwasw(argv: list[str], device=None) -> int:
+    """BWA-SW long-read aligner (bwa_bwtsw2, bwtsw2_main.c:11-89)."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.bwasw import Bsw2Options, bsw2_aln
+    from bwamem_tpu_torch.pipeline.align import resolve_device
+    opt = Bsw2Options()
+    out_path = None
+    try:
+        opts, args = getopt_mod.getopt(argv,
+                                       "q:r:a:b:t:T:w:d:z:m:s:c:N:Hf:MI:SG:C")
+    except getopt_mod.GetoptError as e:
+        raise SystemExit(f"[E::bwasw] {e}")
+    for c, v in opts:
+        c = c[1:]
+        if c == "q":
+            opt.q = int(v)
+        elif c == "r":
+            opt.r = int(v)
+        elif c == "a":
+            opt.a = int(v)
+        elif c == "b":
+            opt.b = int(v)
+        elif c == "w":
+            opt.bw = int(v)
+        elif c == "T":
+            opt.t = int(v)
+        elif c == "t":
+            opt.n_threads = int(v)
+        elif c == "z":
+            opt.z = int(v)
+        elif c == "s":
+            opt.is_ = int(v)
+        elif c == "m":
+            opt.mask_level = float(v)
+        elif c == "c":
+            opt.coef = float(v)
+        elif c == "N":
+            opt.t_seeds = int(v)
+        elif c == "M":
+            opt.multi_2nd = 1
+        elif c == "H":
+            opt.hard_clip = 1
+        elif c == "f":
+            out_path = v
+        elif c == "I":
+            opt.max_ins = int(v)
+        elif c == "S":
+            opt.skip_sw = 1
+        elif c == "C":
+            opt.cpy_cmt = 1
+        elif c == "G":
+            opt.max_chain_gap = int(v)
+    opt.qr = opt.q + opt.r
+    if len(args) < 2:
+        sys.stderr.write("Usage: bwamem_tpu bwasw [options] <target.prefix>"
+                         " <query.fa> [query2.fa]\n")
+        return 1
+    # adjust for -a (bwtsw2_main.c:80-81)
+    opt.t *= opt.a
+    opt.coef *= opt.a
+    dev = resolve_device(device)
+    idx = load_index(args[0])
+    out = open(out_path, "w") if out_path else sys.stdout
+    try:
+        bsw2_aln(opt, idx, args[1], args[2] if len(args) > 2 else None,
+                 out=out, device=dev)
+    finally:
+        if out_path:
+            out.close()
+    return 0
+
+
 def cmd_index_micro(cmd: str, argv: list[str]) -> int:
     """Low-level index steps (reference main.c:105-109): fa2pac, pac2bwt,
     pac2bwtgen, bwtupdate, bwt2sa — file-identical to the reference."""
@@ -756,13 +828,10 @@ def cmd_index_micro(cmd: str, argv: list[str]) -> int:
     return 0
 
 
-NOT_PORTED = ("bwasw",)
-
-
 def main(argv: list[str] | None = None, device=None) -> int:
     """Dispatch a command; the device commands (mem, aln, samse, sampe,
-    fastmap, maxk, pemerge) run on `device` ("cuda" when None; raises
-    without a GPU)."""
+    bwasw, fastmap, maxk, pemerge) run on `device` ("cuda" when None;
+    raises without a GPU)."""
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         sys.stderr.write(
@@ -788,12 +857,10 @@ def main(argv: list[str] | None = None, device=None) -> int:
         return cmd_samse(rest, device=device)
     if cmd == "sampe":
         return cmd_sampe(rest, device=device)
+    if cmd == "bwasw":
+        return cmd_bwasw(rest, device=device)
     if cmd in ("fa2pac", "pac2bwt", "pac2bwtgen", "bwtupdate", "bwt2sa"):
         return cmd_index_micro(cmd, rest)
-    if cmd in NOT_PORTED:
-        sys.stderr.write(f"[E::main] '{cmd}' is not ported to "
-                         "bwamem_tpu_torch yet (bwamem_tpu has it)\n")
-        return 1
     sys.stderr.write(f"[E::main] unknown command '{cmd}'\n")
     return 1
 

@@ -35,6 +35,15 @@ Three phases; any failure exits non-zero without printing a result.
    same way, each also timed on the device alone; gp2_onehot_f32 is also
    held on a small input past the probe's range (table values up to
    +-2^23, k at both ends of the table and outside it).
+2d. Round 3 of the gather probe (tools/torch_pl_gather_probe3.py) at the
+   TPU script's shapes (512 steps; the clipped chain on B8 [8,128] and B32
+   [32,128] along axis 0 and C512 [128,512] along axis 1, the transpose
+   chain on [128,128], 8 lanes of a [78208,8] table, 64 additions of
+   rows :8 of a [1024,640] x [640,128] float32 product): gp3_dg, gp3_ct,
+   gp3_col0 and gp3_mm, the same way, and the chains also on spread
+   tables (values in [-hi, hi]: the probe's saturate after one step),
+   gp3_mm exact on integer-valued inputs and within its rounding bound on
+   the probe's normal ones.
 3. Main paths at full size on a 5 Mbp genome (tools/se_smoke_data.py:
    simdata.py with fixed seeds, indexed with the port's build_index and
    cached under build/):
@@ -90,9 +99,16 @@ Three phases; any failure exits non-zero without printing a result.
    reads (both mates of 90 % of the pairs) where simdata sampled them, and
    some rescued mates; the first 256 reads, and 256 pairs, run whole on
    the card and on the CPU give identical .sai and SAM bytes.
+   Last, `bwasw` through cli.main on the card: 256 reads of 500 bp (2 %
+   substitutions, 0.2 % indels) and 64 pairs of 300 bp (insert 700 +-
+   60): reads/s, pairs/s, the bwasw.* stage timers, the extension
+   dispatches (every one a launch of ext_pl_kernel, none of the plain
+   extension), peak memory; at least 90 % of the reads where simdata
+   sampled them, some pair flagged proper; the first 16 reads and 8 pairs
+   run whole on the card and on the CPU give identical SAM bytes.
 
 The line before the last is {"kernels": [...]}, one entry for each of the
-twelve kernels; the last line is
+sixteen kernels; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA device and no network.
 """
 from __future__ import annotations
@@ -139,6 +155,10 @@ FM_SERIAL_STEPS = 4096
 GP_LANES, GP_STEPS = 8192, 16
 # round 2 of the gather probe, at tools/pl_gather_probe2.py's defaults
 GP2_STEPS = 32
+# round 3, at tools/pl_gather_probe3.py's: 512 chained steps
+GP3_STEPS = 512
+# H100 SXM float32 rate outside the tensor cores (data sheet)
+PEAK_F32_OPS = 67e12
 # the legacy aligner: reads of aln + samse (the first of the 101 bp set),
 # the reads and pairs run whole on the card and on the CPU, and the lanes
 # of the host-issued round timed beside kernel D
@@ -146,6 +166,8 @@ LEG_READS, LEG_CPU_READS, LEG_CPU_PAIRS, LEG_ROUND_LANES = 4096, 256, 256, 1024
 # reads of the fastmap/maxk path (the first of the 101 bp set; two CLI
 # batches of 4096), and the reads and pairs rerun on the CPU
 TOOL_READS, TOOL_CPU_READS, PEM_CPU_PAIRS = 8192, 256, 256
+# bwasw: the reads and pairs run whole on the card and on the CPU
+BWASW_CPU_READS, BWASW_CPU_PAIRS = 16, 8
 
 
 def log(msg: str) -> None:
@@ -185,7 +207,7 @@ def phase_env():
     from bwamem_tpu_torch import native
     from bwamem_tpu_torch.index import native as sais
     from bwamem_tpu_torch.ops import (ext_kernel, fm_probe, gather_probe,
-                                      gather_probe2)
+                                      gather_probe2, gather_probe3)
     errors = []
 
     def build(name, fn):
@@ -207,6 +229,8 @@ def phase_env():
          gather_probe.load),
         ("gather_probe2_kernel.cu, four kernels (nvcc sm_90a)",
          gather_probe2.load),
+        ("gather_probe3_kernel.cu, four kernels (nvcc sm_90a)",
+         gather_probe3.load),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -732,6 +756,153 @@ def phase_gather_probe2():
     e = entries["gp2_onehot_f32"]
     e["max_abs_err"] = max(e["max_abs_err"], err)
     return list(entries.values()), entries["gp2_col0"]
+
+
+def gp3_bound(name, x):
+    """Least time the card could take for one call of a round-3 probe
+    kernel on the inputs x (a dict of tab, kk | k | a, b): (bound_ms,
+    bound_by, bytes), as gp2_bound counts it.  The chains: kk read once
+    and written once, and the table words the chain touches over its
+    steps (computed from the data, each counted once); 3 int32
+    operations a step (gather, add, clip) and 4 for gp3_ct (two loads).
+    gp3_col0: k, out and the touched words.  gp3_mm: the function's
+    bytes, a[:8], b and out, and its float32 operations, 2 x 8 x K x N
+    for the product's 8 rows and 64 x 8 x N adds."""
+    import torch
+    if name == "gp3_mm":
+        K, N = x["b"].shape
+        nbytes = 4 * (8 * K + K * N + 8 * N)
+        t_ops = (2 * 8 * K * N + 64 * 8 * N) / PEAK_F32_OPS * 1e3
+    elif name == "gp3_col0":
+        k = x["k"]
+        nbytes = 4 * (2 * k.numel() + torch.unique(k).numel())
+        t_ops = k.numel() * 2 / PEAK_INT32_OPS * 1e3
+    else:
+        tab, kk = x["tab"], x["kk"].to(torch.int64)
+        touched = torch.zeros(tab.shape, dtype=torch.bool, device=tab.device)
+        if name == "gp3_dg":
+            axis = x["axis"]
+            hi = tab.shape[axis]
+            other = torch.arange(kk.shape[1 - axis], device=kk.device)
+            other = (other[None, :] if axis == 0 else other[:, None]
+                     ).expand_as(kk)
+            for _ in range(GP3_STEPS):
+                if axis == 0:
+                    touched[kk, other] = True
+                else:
+                    touched[other, kk] = True
+                kk = (kk + tab.gather(axis, kk)).clamp(0, hi - 1)
+            per_step = 3
+        else:
+            N = tab.shape[0]
+            for _ in range(GP3_STEPS):
+                col = kk.t().gather(1, kk)          # kk[m, i], m = kk[i, j]
+                touched[kk, col] = True
+                kk = (kk + tab[kk, col]).clamp(0, N - 1)
+            per_step = 4
+        nbytes = 4 * (2 * kk.numel() + int(touched.sum()))
+        t_ops = kk.numel() * GP3_STEPS * per_step / PEAK_INT32_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else
+            "bytes", int(nbytes))
+
+
+def phase_gather_probe3():
+    """Round 3 of the gather probe as its users run it
+    (tools/torch_pl_gather_probe3.probe, launch counts from 0; it holds
+    every kernel and library call against the plain version, on the
+    probe's inputs, on spread tables and, for gp3_mm, on integer-valued
+    inputs, and times them), then each kernel held against its plain
+    version once more on the probe's inputs.  Returns the four
+    kernels-line entries (7A's B32 and C512 shapes in *_b32 and *_c512
+    keys)."""
+    import torch
+    import se_smoke_data as sd
+    import torch_pl_gather_probe3 as probe
+    from bwamem_tpu_torch.ops import gather_probe3 as gp3
+    counters = {"gp3_dg": "launches_dg", "gp3_ct": "launches_ct",
+                "gp3_col0": "launches_col0", "gp3_mm": "launches_mm"}
+    for c in counters.values():
+        setattr(gp3, c, 0)
+    t0 = time.perf_counter()
+    res = probe.probe(GP3_STEPS, sd.SEED, log)
+    torch.cuda.synchronize()
+    launches = {n: getattr(gp3, c) for n, c in counters.items()}
+    log(f"gather probe 3: launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if min(launches.values()) <= 0:
+        raise RuntimeError("the gather probe 3 never launched a kernel")
+    x = res["inputs"]
+    held = {}
+    for tag, S, L, axis in probe.DG_SHAPES:
+        held[f"7A dg {tag} ax{axis} [{S},{L}]"] = (
+            "gp3_dg", dict(tab=x[f"{tag}_tab"], kk=x[f"{tag}_kk"],
+                           axis=axis),
+            lambda d: gp3.gp3_dg(d["tab"], d["kk"], GP3_STEPS, d["axis"]),
+            lambda d: gp3.dg_plain(d["tab"], d["kk"], GP3_STEPS, d["axis"]),
+            56)
+    held[f"7B ct [{probe.CT_N},{probe.CT_N}]"] = (
+        "gp3_ct", dict(tab=x["ct_tab"], kk=x["ct_kk"]),
+        lambda d: gp3.gp3_ct(d["tab"], d["kk"], GP3_STEPS),
+        lambda d: gp3.ct_plain(d["tab"], d["kk"], GP3_STEPS), 79)
+    held[f"7C col0 x{probe.D_LANES} [{probe.D_ROWS},{probe.D_W}]"] = (
+        "gp3_col0", dict(tab=x["d_tab"], k=x["d_k"]),
+        lambda d: gp3.gp3_col0(d["tab"], d["k"]),
+        lambda d: gp3.col0_plain(d["tab"], d["k"]), 103)
+    held[f"7D mm {probe.E_M}x{probe.E_K}x{probe.E_N} x64"] = (
+        "gp3_mm", dict(a=x["e_a"], b=x["e_b"]),
+        lambda d: gp3.gp3_mm(d["a"], d["b"]),
+        lambda d: gp3.mm_plain(d["a"], d["b"]), 125)
+    extra = {lab: err for lab, (err, _) in res["checks"].items()
+             if lab not in res["results"]}
+    log(f"gather probe 3, the extra inputs (spread tables; integer-valued "
+        f"a, b for 7D), kernel vs plain max_abs_err: {extra}")
+    if any(extra.values()):
+        raise RuntimeError("a round-3 kernel disagrees with its plain "
+                           "version on an extra input")
+    entries = {}
+    for label, (name, d, kern, plain, line) in held.items():
+        r = res["results"][label]
+        got = kern(d).double()
+        want = plain(d).double()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        bound_ms, bound_by, nbytes = gp3_bound(name, d)
+        log(f"{label} vs plain: {tuple(want.shape)} outputs, max_abs_err "
+            f"{err} (tolerance {r['tolerance']:.6g}); kernel {r['ms']:.4f} "
+            f"ms (device alone {r['device_ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bytes {nbytes}, bound {bound_ms:.6f} ms ({bound_by}), device "
+            f"time / bound {r['device_ms'] / bound_ms:.1f}")
+        if err > r["tolerance"]:
+            raise RuntimeError(f"{label} disagrees with its plain version")
+        if name in entries:                       # 7A's B32 and C512
+            sfx = "_" + label.split()[2].lower()
+            e = entries[name]
+            e.update({f"ms{sfx}": r["ms"], f"device_ms{sfx}": r["device_ms"],
+                      f"plain_ms{sfx}": r["plain_ms"],
+                      f"library_ms{sfx}": r["library_ms"],
+                      f"bound_ms{sfx}": bound_ms, f"bound_by{sfx}": bound_by})
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            continue
+        e = dict(name=name, route="cuda",
+                 source="bwamem_tpu_torch/csrc/gather_probe3_kernel.cu",
+                 replaces=f"tools/pl_gather_probe3.py:{line}",
+                 launches=launches[name], max_abs_err=err, ms=r["ms"],
+                 plain_ms=r["plain_ms"], bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=r["library_ms"],
+                 device_ms=r["device_ms"])
+        if name == "gp3_mm":
+            # max_abs_err is the exact check on integer-valued inputs; the
+            # probe's normal inputs are held within their rounding bound
+            int_label = label + "_int"
+            e.update(max_abs_err=res["checks"][int_label][0],
+                     normal_inputs_err=err,
+                     normal_inputs_tolerance=r["tolerance"],
+                     library="torch.matmul(a[:8], b) with TF32 off, then "
+                             "the 64 additions")
+        entries[name] = e
+    return list(entries.values())
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1454,6 +1625,135 @@ def phase_legacy(prefix, kernel_d):
         f"bytes); phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def _by_read(recs):
+    """SAM records grouped by read, in order: {name: "line\nline\n"}."""
+    out = {}
+    for r in recs:
+        name = r.split("\t", 1)[0]
+        out[name] = out.get(name, "") + r
+    return out
+
+
+def run_bwasw(label, argv, n_items, unit):
+    """bwasw through cli.main on the card, timers on and the extension
+    kernels' launch counts from 0: (stderr, timer snapshot).  Every
+    extension dispatch must launch ext_pl_kernel (none runs the plain
+    extension, none launches ext_pl2_kernel).  Prints the rate, the
+    bwasw timers, the launches and the peak device memory."""
+    import torch
+    from bwamem_tpu_torch.ops import ext_kernel
+    from bwamem_tpu_torch.utils import timers
+    ext_kernel.launches = ext_kernel.launches_pl = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timers.reset()
+    timers.enable(True)
+    t0 = time.perf_counter()
+    try:
+        _, err = run_cli(argv, "cuda")
+        torch.cuda.synchronize()
+    finally:
+        timers.enable(False)
+    wall = time.perf_counter() - t0
+    snap = timers.snapshot()
+    calls = {k: snap.get(f"bwasw.{k}.calls.count", 0)
+             for k in ("ext_left", "ext_rght", "ext_plain")}
+    sections = ", ".join(f"{k} {v[1]:.3f} s ({v[0]})"
+                         for k, v in sorted(snap.items())
+                         if isinstance(v, tuple) and k.startswith("bwasw."))
+    log(f"{label}: {n_items} {unit} in {wall:.3f} s = "
+        f"{n_items / wall:.2f} {unit}/s on {torch.cuda.get_device_name(0)}; "
+        f"{sections}; extension dispatches {calls}, ext_pl_kernel launches "
+        f"{ext_kernel.launches_pl}, ext_pl2_kernel {ext_kernel.launches}; "
+        f"peak CUDA memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+        f"MiB")
+    if ext_kernel.launches_pl <= 0 or calls["ext_plain"] or \
+            ext_kernel.launches or ext_kernel.launches_pl != \
+            calls["ext_left"] + calls["ext_rght"]:
+        raise RuntimeError(f"{label}: every extension dispatch must launch "
+                           f"ext_pl_kernel")
+    return err, snap
+
+
+def phase_bwasw(prefix):
+    """bwasw through cli.main on the card, on the 5 Mbp smoke genome: 256
+    reads of 500 bp and 64 pairs of 300 bp (insert 700 +- 60).  Every
+    extension launches ext_pl_kernel; at least 90 % of the single-end reads
+    lie where simdata sampled them; some pair is proper; the first 16 reads
+    and 8 pairs, run whole on the card and on the CPU, give the same SAM
+    bytes."""
+    import torch
+    from bwamem_tpu_torch.io.fastq import read_fastx
+    import se_smoke_data as sd
+    work = os.path.join(sd.WORK, "bwasw")
+    os.makedirs(work, exist_ok=True)
+    t_phase = time.perf_counter()
+    fq, fq1, fq2, origins = sd.bwasw_reads(log)
+    n_se, n_pe = sd.BWASW_SE[0], sd.BWASW_PE[0]
+
+    sam = os.path.join(work, "se.sam")
+    run_bwasw("bwasw (SE 500 bp)", ["bwasw", "-f", sam, prefix, fq], n_se,
+              "reads")
+    reads = list(read_fastx(fq))
+    by_read = _by_read(_sam_records(sam))
+    if list(by_read) != [r.name for r in reads]:
+        raise RuntimeError("bwasw: SAM lines for every read, in order, "
+                           "expected")
+    check_sams("bwasw (SE 500 bp)", list(by_read.values()), reads,
+               min_origin=0.9, max_wrong=0.03)
+
+    pe_sam = os.path.join(work, "pe.sam")
+    run_bwasw("bwasw (PE 300 bp)", ["bwasw", "-f", pe_sam, prefix, fq1, fq2],
+              n_pe, "pairs")
+    recs = _sam_records(pe_sam)
+    flags = [int(r.split("\t")[1]) for r in recs]
+    proper = sum(1 for f in flags if f & 2 and not f & 4)
+    L = sd.BWASW_PE[1]
+    tol = 20 + L // 50
+    placed = 0
+    for p, (contig, a, b) in enumerate(origins):
+        mine = [r for r in recs if r.split("\t", 1)[0] == f"rd{p}"]
+        got = []
+        for bit in (0x40, 0x80):
+            line = next((r for r in mine if int(r.split("\t")[1]) & bit),
+                        None)
+            got.append(primary_start(line, L) if line else None)
+        if all(g is not None and g[0] == contig for g in got) and any(
+                abs(got[0][1] - (a, b - L)[e]) <= tol
+                and abs(got[1][1] - (a, b - L)[1 - e]) <= tol
+                for e in range(2)):
+            placed += 1
+    log(f"bwasw (PE 300 bp): {len(recs)} SAM lines for {n_pe} pairs, "
+        f"{proper} flagged proper; both mates at their origin in "
+        f"{placed}/{n_pe} pairs")
+    if not proper:
+        raise RuntimeError("bwasw: no pair is flagged proper")
+
+    se_c = head_fastq(fq, BWASW_CPU_READS)
+    p1, p2 = head_fastq(fq1, BWASW_CPU_PAIRS), head_fastq(fq2,
+                                                          BWASW_CPU_PAIRS)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        x = {k: os.path.join(work, f"{dev}.{k}.sam") for k in ("se", "pe")}
+        run_cli(["bwasw", "-f", x["se"], prefix, se_c], dev)
+        run_cli(["bwasw", "-f", x["pe"], prefix, p1, p2], dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        outs[dev] = {}
+        for k, path in x.items():
+            with open(path, "rb") as f:
+                outs[dev][k] = f.read()
+        log(f"bwasw, {BWASW_CPU_READS} reads and {BWASW_CPU_PAIRS} pairs "
+            f"whole on {dev}: {time.perf_counter() - t1:.1f} s")
+    bad = [k for k in outs["cuda"] if outs["cuda"][k] != outs["cpu"][k]]
+    if bad:
+        raise RuntimeError(f"bwasw: GPU and CPU bytes differ in {bad}")
+    log(f"bwasw: SAM bytes identical on the card and on the CPU "
+        f"({', '.join(f'{k} {len(v)}' for k, v in outs['cpu'].items())} "
+        f"bytes); phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1476,6 +1776,7 @@ def main() -> int:
     kerns3 = phase_fm_probe()
     kerns_gp = phase_gather_probe()
     kerns_gp2, kernel_d = phase_gather_probe2()
+    kerns_gp3 = phase_gather_probe3()
     from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.pipeline.align import Aligner
     import se_smoke_data as sd
@@ -1523,9 +1824,10 @@ def main() -> int:
     kern1["max_abs_err"] = max(kern1["max_abs_err"], err_pl)
     phase_tools(sd.smoke_data(log)[0])
     phase_legacy(sd.smoke_data(log)[0], kernel_d)
+    phase_bwasw(sd.smoke_data(log)[0])
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kern2, kern1, *kerns3, *kerns_gp,
-                                  *kerns_gp2]}))
+                                  *kerns_gp2, *kerns_gp3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

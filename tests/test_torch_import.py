@@ -2,9 +2,10 @@
 bwamem_tpu (checked in a subprocess, since this test process has both),
 no source file of the package, chip_smoke.py or the port's tools
 (tools/torch_*.py, tools/se_smoke_data.py) imports them, its entry points
-(mem, aln, samse, sampe, fastmap, maxk, pemerge) refuse to run without a
-GPU unless asked for the CPU, and chip_smoke.py, the FM-step probe and both
-gather-strategy probes fail without a GPU or outside a checkout."""
+(mem, aln, samse, sampe, bwasw, fastmap, maxk, pemerge) refuse to run
+without a GPU unless asked for the CPU, and chip_smoke.py, the FM-step
+probe and the three gather-strategy probes fail without a GPU or outside a
+checkout."""
 import os
 import re
 import shutil
@@ -34,7 +35,12 @@ MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
            "bwamem_tpu_torch.native", "bwamem_tpu_torch.ops.global_sw",
            "bwamem_tpu_torch.ops.gather_probe2", "bwamem_tpu_torch.legacy",
            "bwamem_tpu_torch.legacy.rng", "bwamem_tpu_torch.legacy.aln",
-           "bwamem_tpu_torch.legacy.samse", "bwamem_tpu_torch.legacy.sampe"]
+           "bwamem_tpu_torch.legacy.samse", "bwamem_tpu_torch.legacy.sampe",
+           "bwamem_tpu_torch.bwasw", "bwamem_tpu_torch.bwasw.aux",
+           "bwamem_tpu_torch.bwasw.bwtl", "bwamem_tpu_torch.bwasw.chain",
+           "bwamem_tpu_torch.bwasw.core", "bwamem_tpu_torch.bwasw.hostfm",
+           "bwamem_tpu_torch.bwasw.ksort", "bwamem_tpu_torch.bwasw.pair",
+           "bwamem_tpu_torch.ops.gather_probe3"]
 
 
 def _clean_env():
@@ -109,6 +115,12 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tmp_path):
     for argv in legacy:
         assert cli.main(argv, device="cpu") == 0
         assert sam.exists() or argv[0] == "aln"
+    sw = tmp_path / "sw.sam"
+    argv = ["bwasw", "-f", str(sw), data["prefix"], data["fq"]]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+    assert not sw.exists()
+    assert cli.main(argv, device="cpu") == 0 and sw.exists()
 
 
 def test_cli_refuses_paired_end(tmp_path, capsys):
@@ -160,6 +172,12 @@ def test_gather_probe_tool_fails_without_gpu():
 
 def test_gather_probe2_tool_fails_without_gpu():
     r = _run_tool("torch_pl_gather_probe2.py")
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr and "us/step" not in r.stdout
+
+
+def test_gather_probe3_tool_fails_without_gpu():
+    r = _run_tool("torch_pl_gather_probe3.py")
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr and "us/step" not in r.stdout
 

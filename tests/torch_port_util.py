@@ -219,6 +219,7 @@ def _fq(path, reads):
     with open(path, "w") as f:
         for name, seq, qual in reads:
             f.write(f"@{name}\n{seq}\n+\n{qual}\n")
+    return str(path)
 
 
 def legacy_dataset(dirpath, *, genome_len=100_000, n_se=48, n_pairs=60,
@@ -289,10 +290,43 @@ def legacy_dataset(dirpath, *, genome_len=100_000, n_se=48, n_pairs=60,
 
 def run_cli(cli, argv, **kw):
     """cli.main(argv, **kw) with stdout and stderr captured:
-    (exit code, stdout, stderr)."""
+    (exit code, stdout, stderr); a SystemExit (a bad flag) gives its code
+    or message as the exit code."""
     import contextlib
     import io
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli.main(argv, **kw)
+        try:
+            rc = cli.main(argv, **kw)
+        except SystemExit as e:
+            rc = e.code
     return rc, out.getvalue(), err.getvalue()
+
+
+def bwasw_dataset(dirpath, *, n_se=0, n_pairs=0):
+    """The data of tests/test_bwasw.py:19-36 without the oracle: a 200 kbp
+    simdata genome (seed 7, two contigs) indexed with bwamem_tpu's
+    build_index; n_se reads of 500 bp (seed 31, 2 % substitutions, 0.2 %
+    indels) and n_pairs pairs of 300 bp (seed 32, 2 %, 0.1 %, insert 700
+    +- 60).  Returns dict(prefix, fq, fq1, fq2) (the read files that were
+    asked for)."""
+    import simdata
+    from bwamem_tpu.index import build_index
+    d = Path(dirpath)
+    d.mkdir(parents=True, exist_ok=True)
+    contigs = simdata.make_genome(200_000, seed=7, n_contigs=2)
+    simdata.write_fasta(contigs, str(d / "g.fa"))
+    out = dict(prefix=str(d / "g"))
+    if n_se:
+        out["fq"] = _fq(d / "lr.fq", simdata.sim_reads(
+            contigs, n_se, read_len=500, seed=31, sub_rate=0.02,
+            indel_rate=0.002))
+    if n_pairs:
+        pairs = simdata.sim_reads(contigs, 2 * n_pairs, read_len=300,
+                                  seed=32, sub_rate=0.02, indel_rate=0.001,
+                                  paired=True, insert_mean=700,
+                                  insert_std=60)
+        out["fq1"] = _fq(d / "lr1.fq", pairs[0::2])
+        out["fq2"] = _fq(d / "lr2.fq", pairs[1::2])
+    build_index(str(d / "g.fa")).save(out["prefix"])
+    return out

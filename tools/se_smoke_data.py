@@ -4,9 +4,10 @@ single-end reads of 101 bp from simdata.py (fixed seeds), indexed with
 bwamem_tpu_torch's build_index; long-read batches from the same genome (512
 reads of 1000 bp, 128 reads of 5000 bp); 8192 pairs of 150 bp (insert
 400 +- 40) with the place each pair was sampled from; 4096 pairs of 100
-bp for pemerge; and 2048 pairs of 101 bp (insert 300 +- 30) for the legacy
+bp for pemerge; 2048 pairs of 101 bp (insert 300 +- 30) for the legacy
 aligner, a share of them with a second mate that only the mate rescue of
-`sampe` can place.  Everything is cached under build/chip_smoke/."""
+`sampe` can place; and for `bwasw` 256 reads of 500 bp and 64 pairs of
+300 bp (insert 700 +- 60).  Everything is cached under build/chip_smoke/."""
 from __future__ import annotations
 
 import os
@@ -39,6 +40,11 @@ LEG_PAIRS = 2048
 LEG_READ_LEN = 101
 LEG_INSERT = (300, 30)
 LEG_BAIT_EVERY, LEG_BAIT_SUBS = 16, 10
+# bwasw: reads, read length, substitution and indel rates; pairs, read
+# length, insert mean and sd, substitution and indel rates (the shapes of
+# tests/test_bwasw.py:22-30, scaled up)
+BWASW_SE = (256, 500, 0.02, 0.002)
+BWASW_PE = (64, 300, (700, 60), 0.02, 0.001)
 
 
 def _simdata():
@@ -86,14 +92,16 @@ class _Tracked(str):
 
 
 def _sample_pairs(tag: str, n_pairs: int, read_len: int, insert: tuple,
-                  seed: int, log, bait=None) -> tuple[str, str, list]:
+                  seed: int, log, bait=None, sub_rate=0.01,
+                  indel_rate=0.0005) -> tuple[str, str, list]:
     """(FASTQ of mates 1, FASTQ of mates 2, origins) of n_pairs pairs
     sampled from smoke_data's genome on first use, cached under
     WORK/<tag>_*.  origins[p] = (contig, fragment start, fragment end),
     0-based: one mate of pair p starts at the fragment's start on the
     forward strand, the other ends at its end on the reverse strand.
     bait = (every, subs): the second mate of every `every`-th pair gets
-    `subs` random substitutions."""
+    `subs` random substitutions.  sub_rate and indel_rate are simdata's
+    mutation rates (its defaults unless given)."""
     import numpy as np
     simdata = _simdata()
     os.makedirs(WORK, exist_ok=True)
@@ -106,7 +114,8 @@ def _sample_pairs(tag: str, n_pairs: int, read_len: int, insert: tuple,
                    for n, seq in _genome().items()}
         pairs = simdata.sim_reads(
             contigs, 2 * n_pairs, read_len=read_len, seed=seed, paired=True,
-            insert_mean=insert[0], insert_std=insert[1])
+            insert_mean=insert[0], insert_std=insert[1], sub_rate=sub_rate,
+            indel_rate=indel_rate)
         if len(taken) != n_pairs:
             raise RuntimeError(f"{len(taken)} fragments for {n_pairs} "
                                "pairs: simdata's paired sampler changed")
@@ -147,6 +156,29 @@ def legacy_pairs(log=print) -> tuple[str, str, list]:
     return _sample_pairs(f"leg{LEG_READ_LEN}", LEG_PAIRS, LEG_READ_LEN,
                          LEG_INSERT, SEED + 300, log,
                          bait=(LEG_BAIT_EVERY, LEG_BAIT_SUBS))
+
+
+def bwasw_reads(log=print) -> tuple[str, str, str, list]:
+    """(FASTQ of the single-end reads, FASTQ of mates 1, FASTQ of mates 2,
+    pair origins) for `bwasw`: BWASW_SE's reads, named
+    rd<i>_<contig>_<start> as simdata names them, and BWASW_PE's pairs
+    (see _sample_pairs), sampled from smoke_data's genome on first use."""
+    simdata = _simdata()
+    n, read_len, sub, indel = BWASW_SE
+    os.makedirs(WORK, exist_ok=True)
+    fq = os.path.join(WORK, f"sw{read_len}.fq")
+    if not os.path.exists(fq):
+        t0 = time.perf_counter()
+        simdata.write_fastq(simdata.sim_reads(
+            _genome(), n, read_len=read_len, seed=SEED + 500,
+            sub_rate=sub, indel_rate=indel), fq)
+        log(f"data, {n} reads of {read_len} bp for bwasw: "
+            f"{time.perf_counter() - t0:.1f} s")
+    n_pairs, pe_len, insert, sub, indel = BWASW_PE
+    fq1, fq2, origins = _sample_pairs(f"sw{pe_len}", n_pairs, pe_len, insert,
+                                      SEED + 501, log, sub_rate=sub,
+                                      indel_rate=indel)
+    return fq, fq1, fq2, origins
 
 
 def smoke_data(log=print) -> tuple[str, str]:
