@@ -44,6 +44,20 @@ Three phases; any failure exits non-zero without printing a result.
    tables (values in [-hi, hi]: the probe's saturate after one step),
    gp3_mm exact on integer-valued inputs and within its rounding bound on
    the probe's normal ones.
+2e. The dispatch probe (tools/torch_dispatch_probe.py) and the row-body
+   ablation probe (tools/torch_pl_probe.py) at the TPU scripts' shapes and
+   inputs (seed 0): dp_eh on qT [136,2048] at ROWS 8, 128, 512 and 2048,
+   the enqueue-then-fetch queue, the port's issue path against a PyTorch
+   op, and D2H and H2D copies of 1x256 to 1024x8192 int32 from pageable
+   and pinned memory; plp_row's five variants at B = 2048, LQ = ROWS = 128.
+   Both launched by the probes (counts from 0), then held against their
+   plain versions (max_abs_err 0, plp_row's aux too) on the probes'
+   inputs, and plp_row once more on a shape of its own (B = 1000, LQ =
+   101, ROWS = 96: neither a multiple of the TPU's tiles).  The probe's
+   inputs decay to state 0, so plp_row is also held at both shapes on a
+   "match" input (target rows copied from the query along a diagonal)
+   whose states grow, with out's max over 20 and aux varying across
+   lanes required, and at L1p = 21 (past the last whole tile of 8 rows).
 3. Main paths at full size on a 5 Mbp genome (tools/se_smoke_data.py:
    simdata.py with fixed seeds, indexed with the port's build_index and
    cached under build/):
@@ -108,7 +122,7 @@ Three phases; any failure exits non-zero without printing a result.
    run whole on the card and on the CPU give identical SAM bytes.
 
 The line before the last is {"kernels": [...]}, one entry for each of the
-sixteen kernels; the last line is
+eighteen kernels; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA device and no network.
 """
 from __future__ import annotations
@@ -206,8 +220,9 @@ def phase_env():
 
     from bwamem_tpu_torch import native
     from bwamem_tpu_torch.index import native as sais
-    from bwamem_tpu_torch.ops import (ext_kernel, fm_probe, gather_probe,
-                                      gather_probe2, gather_probe3)
+    from bwamem_tpu_torch.ops import (dispatch_probe, ext_kernel, fm_probe,
+                                      gather_probe, gather_probe2,
+                                      gather_probe3, pl_probe)
     errors = []
 
     def build(name, fn):
@@ -231,6 +246,8 @@ def phase_env():
          gather_probe2.load),
         ("gather_probe3_kernel.cu, four kernels (nvcc sm_90a)",
          gather_probe3.load),
+        ("dispatch_probe_kernel.cu (nvcc sm_90a)", dispatch_probe.load),
+        ("pl_probe_kernel.cu, five variants (nvcc sm_90a)", pl_probe.load),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -903,6 +920,111 @@ def phase_gather_probe3():
                              "the 64 additions")
         entries[name] = e
     return list(entries.values())
+
+
+def phase_dispatch_pl_probe():
+    """The dispatch probe and the row-body ablation probe as their users
+    run them (tools/torch_dispatch_probe.probe, tools/torch_pl_probe.probe
+    at the TPU scripts' defaults and inputs, seed 0; launch counts from
+    0), then each kernel held against its plain version once more on the
+    probes' inputs, and plp_row on a second shape (B = 1000, LQ = 101,
+    ROWS = 96) and at both shapes on the match input.  Returns the two kernels-line entries: dp_eh at ROWS 128
+    with *_rows8, *_rows512 and *_rows2048 keys, plp_row at `full` with a
+    key set for each other variant."""
+    import torch
+    import torch_dispatch_probe as dprobe
+    import torch_pl_probe as pprobe
+    from bwamem_tpu_torch.ops import dispatch_probe as dp
+    from bwamem_tpu_torch.ops import pl_probe as plp
+    dp.launches = 0
+    plp.launches.update(dict.fromkeys(plp.VARIANTS, 0))
+    t0 = time.perf_counter()
+    dres = dprobe.probe(0, log)
+    pres = pprobe.probe(seed=0, log=log)
+    torch.cuda.synchronize()
+    dp_launches, plp_launches = dp.launches, dict(plp.launches)
+    log(f"dispatch and row-body probes: launches dp_eh {dp_launches}, "
+        f"plp_row {plp_launches} ({time.perf_counter() - t0:.1f} s)")
+    if dp_launches <= 0 or min(plp_launches.values()) <= 0:
+        raise RuntimeError("a probe never launched dp_eh or a plp_row "
+                           "variant")
+
+    dp_err = dprobe.check(dres["inputs"])
+    log(f"dp_eh vs plain on the probe's {len(dres['inputs']['rows']) + 1} "
+        f"inputs: max_abs_err {dp_err}")
+    qT, tT = pres["inputs"]
+    errs = {v: pprobe.max_err(qT, tT, v, pres["LQ"]) for v in plp.VARIANTS}
+    q2, t2 = pprobe.make_inputs(1, 1000, 101, 96, torch.device("cuda"))
+    errs2 = {v: pprobe.max_err(q2, t2, v, 101) for v in plp.VARIANTS}
+    log(f"plp_row vs plain, out and aux, max_abs_err: probe's inputs "
+        f"{errs}; B=1000 LQ=101 (L1p {q2.shape[0]}) ROWS=96 {errs2}")
+    if dp_err or any(errs.values()) or any(errs2.values()):
+        raise RuntimeError("dp_eh or plp_row disagrees with its plain "
+                           "version")
+    # On the probe's inputs the states of noreduce, full and roll fall to 0
+    # and stay there, so out ends all 0 and aux the same in every lane
+    # whatever the scan, the shift and the reductions do: every variant is
+    # held once more on the match input (tools/torch_pl_probe.draw), where
+    # states grow, at both shapes.
+    errs_m = {}
+    for seed, (B, LQ, R) in ((0, (pprobe.DEFAULT_B, pprobe.DEFAULT_LQ,
+                                  pprobe.DEFAULT_ROWS)), (1, (1000, 101, 96))):
+        qm, tm = pprobe.make_inputs(seed, B, LQ, R, torch.device("cuda"),
+                                    "match")
+        errs_m.update({f"{v}_B{B}": pprobe.max_err(qm, tm, v, LQ)
+                       for v in plp.VARIANTS})
+        out, aux = plp.plp_plain(qm, tm, "full", LQ)
+        top = int(out.max())
+        distinct = [int(a.unique().numel()) for a in aux]
+        log(f"match input B={B} LQ={LQ} ROWS={R}: out max {top}, nonzero "
+            f"{int((out != 0).sum())} of {out.numel()}; distinct mj_enc, "
+            f"h1_enc, lst over lanes {distinct}")
+        if top <= 20 or min(distinct[0], distinct[2]) < 2 \
+                or (B == 1000 and distinct[1] < 2):
+            raise RuntimeError(f"the match input at B={B} did not make the "
+                               f"states grow (out max {top}, distinct aux "
+                               f"{distinct})")
+    # and query rows past the thread-a-lane loop's last whole tile of 8
+    # rows (the probes' L1p are multiples of 8)
+    qr, tr = (torch.from_numpy(a).cuda()
+              for a in pprobe.draw(2, 21, 1000, 12, "match"))
+    errs_m.update({f"{v}_L1p21": pprobe.max_err(qr, tr, v, 17)
+                   for v in plp.VARIANTS})
+    log(f"plp_row vs plain on the match input, out and aux, max_abs_err: "
+        f"{errs_m}")
+    if any(errs_m.values()):
+        raise RuntimeError("plp_row disagrees with its plain version on "
+                           "the match input")
+
+    e_dp = dict(name="dp_eh", route="cuda",
+                source="bwamem_tpu_torch/csrc/dispatch_probe_kernel.cu",
+                replaces="tools/dispatch_probe.py:32", launches=dp_launches,
+                max_abs_err=dp_err, library_ms=None)
+    for r, res in dres["rows"].items():
+        sfx = "" if r == dprobe.PIPE_ROWS else f"_rows{r}"
+        e_dp.update({f"{k}{sfx}": res[k] for k in (
+            "ms", "device_ms", "fetch_ms", "plain_ms", "bound_ms",
+            "bound_by")})
+    e_dp["issue_us"] = dres["issue"]
+    e_dp["copy_ms"] = {f"{k}_{a}x{b}": v for k in ("d2h", "h2d")
+                       for (a, b), v in dres[k].items()}
+
+    res = pres["results"]
+    e_pl = dict(name="plp_row", route="cuda",
+                source="bwamem_tpu_torch/csrc/pl_probe_kernel.cu",
+                replaces="tools/pl_probe.py:36",
+                launches=sum(plp_launches.values()),
+                launches_by_variant=plp_launches,
+                max_abs_err=max([*errs.values(), *errs2.values(),
+                                 *errs_m.values(),
+                                 *(r["max_abs_err"] for r in res.values())]),
+                library_ms=None)
+    for v in plp.VARIANTS:
+        sfx = "" if v == "full" else f"_{v}"
+        e_pl.update({f"{k}{sfx}": res[v][k] for k in (
+            "ms", "device_ms", "fetch_ms", "plain_ms", "bound_ms",
+            "bound_by")})
+    return [e_dp, e_pl]
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1777,6 +1899,7 @@ def main() -> int:
     kerns_gp = phase_gather_probe()
     kerns_gp2, kernel_d = phase_gather_probe2()
     kerns_gp3 = phase_gather_probe3()
+    kerns_dp_pl = phase_dispatch_pl_probe()
     from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.pipeline.align import Aligner
     import se_smoke_data as sd
@@ -1827,7 +1950,7 @@ def main() -> int:
     phase_bwasw(sd.smoke_data(log)[0])
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kern2, kern1, *kerns3, *kerns_gp,
-                                  *kerns_gp2, *kerns_gp3]}))
+                                  *kerns_gp2, *kerns_gp3, *kerns_dp_pl]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,8 @@ no source file of the package, chip_smoke.py or the port's tools
 (tools/torch_*.py, tools/se_smoke_data.py) imports them, its entry points
 (mem, aln, samse, sampe, bwasw, fastmap, maxk, pemerge) refuse to run
 without a GPU unless asked for the CPU, and chip_smoke.py, the FM-step
-probe and the three gather-strategy probes fail without a GPU or outside a
-checkout."""
+probe, the three gather-strategy probes, the dispatch probe and the
+row-body ablation probe fail without a GPU or outside a checkout."""
 import os
 import re
 import shutil
@@ -40,7 +40,9 @@ MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
            "bwamem_tpu_torch.bwasw.bwtl", "bwamem_tpu_torch.bwasw.chain",
            "bwamem_tpu_torch.bwasw.core", "bwamem_tpu_torch.bwasw.hostfm",
            "bwamem_tpu_torch.bwasw.ksort", "bwamem_tpu_torch.bwasw.pair",
-           "bwamem_tpu_torch.ops.gather_probe3"]
+           "bwamem_tpu_torch.ops.gather_probe3",
+           "bwamem_tpu_torch.ops.dispatch_probe",
+           "bwamem_tpu_torch.ops.pl_probe"]
 
 
 def _clean_env():
@@ -180,6 +182,27 @@ def test_gather_probe3_tool_fails_without_gpu():
     r = _run_tool("torch_pl_gather_probe3.py")
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr and "us/step" not in r.stdout
+
+
+@pytest.mark.parametrize("tool", ["torch_dispatch_probe.py",
+                                  "torch_pl_probe.py"])
+def test_dispatch_and_row_probe_tools_fail_without_gpu(tool):
+    r = _run_tool(tool)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr and "ms" not in r.stdout
+
+
+@pytest.mark.parametrize("tool", ["torch_dispatch_probe.py",
+                                  "torch_pl_probe.py"])
+def test_dispatch_and_row_probe_tools_fail_outside_checkout(tmp_path, tool):
+    shutil.copy(REPO / "tools" / tool, tmp_path / tool)
+    r = subprocess.run([sys.executable, tool], cwd=tmp_path,
+                       env={k: v for k, v in _clean_env().items()
+                            if k != "PYTHONPATH"} | {"CUDA_VISIBLE_DEVICES":
+                                                     ""},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "ms" not in r.stdout
 
 
 def test_chip_smoke_fails_outside_checkout(tmp_path):
