@@ -11,21 +11,18 @@
 //                wrapping in 32 bits; tab [R,W].  A short row read: one
 //                8-byte load per lane.
 //   gp_onehot    (kernel_mm, :120)      out = int(bf16(tab3[k>>7, k&127])),
-//                0 where k>>7 is outside [0, A); tab3 [A,128].  The strategy
-//                the TPU probe prices is the matrix unit: a one-hot [N, A]
-//                times the bf16 table [A,128], float32 sums, then column
-//                k&127 picked per query.  Here the one-hot tile (bf16) is
-//                built in shared memory and multiplied on the tensor cores
-//                (nvcuda::wmma 16x16x16, bf16 in, float32 sums) against the
-//                table tile, converted int32 -> float -> bf16 with
-//                __float2bfloat16_rn (XLA's rounding for |v| < 2^24) as it is
-//                staged; the column is picked in the epilogue.  The depth A
-//                is padded with zero rows to a multiple of 16.  A direct
-//                gather would be gp_scalar again and would price nothing.
-//                Not Triton: the product must stay a one-hot tile in shared
-//                memory fed to the tensor cores with the pick fused after
-//                it, and this build has a plain C interface (nvcc + ctypes)
-//                that the three lane loops share and the CPU tests compile.
+//                0 where k>>7 is outside [0, A); tab3 [A,128].  The TPU
+//                kernel prices its matrix unit: a one-hot [N, A] times the
+//                bf16 table, then column k&127 picked per query.  That
+//                product computes a gather, and so does this kernel: one
+//                thread a lane, k[q] read coalesced, one 4-byte load of
+//                tab3 at flat index k when 0 <= k < A*128, the word
+//                converted int32 -> float (exact for |v| < 2^24, the
+//                documented precondition), rounded to bf16 to nearest
+//                even as XLA's astype(bfloat16) does, and truncated back to
+//                int32 as astype(int32) does.  The rounding is integer bit
+//                arithmetic on the float's bits (not __float2bfloat16_rn),
+//                so the lane builds for the host too.
 //   gp_take_ax0  (kernel_dg, :151)      a chained take_along_axis along axis
 //                0 over the whole table: kk = (kk + tab[kk, j]) mod R,
 //                `steps` times, on [R,128] (the probe seeds the first N/128
@@ -34,28 +31,28 @@
 //                words of a row; the add wraps in 32 bits and the remainder
 //                is never negative (jnp's %).
 //
-// What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16 at 700 W):
-// gp_scalar and gp_scalar2 move ~100 KB (k, the touched words, out), a
-// fraction of a microsecond, so a launch's own latency is all one sees;
-// gp_onehot is 2 x N x 624 x 128 tensor-core operations, ~1.3 us at N =
-// 8192, and re-reads the 312 KB table in every block from L2; gp_take_ax0
-// moves 120 MB (table, kk in, kk out), ~0.036 ms.
+// What bounds them on an H100 (3.35 TB/s at 700 W): bytes.  gp_scalar and
+// gp_scalar2 move ~100 KB (k, the touched words, out), a fraction of a
+// microsecond, and gp_onehot ~97 KB at N = 8192 (k, out and the touched
+// words: 0.000029 ms), so a launch's own latency is all one sees;
+// gp_take_ax0 moves 120 MB (table, kk in, kk out), ~0.036 ms.
 //
 // gp_scalar and gp_scalar2 must issue every pass's loads, as the TPU
 // kernel's loop does: they load through volatile PTX (ld.volatile) with a
 // memory clobber, which nvcc may neither hoist out of the loop nor merge.
 //
 // The same source compiles as host C++ (no __CUDACC__), exposing the lane
-// loops of gp_scalar, gp_scalar2 and gp_take_ax0 as *_host entries, so the
-// CPU tests check their arithmetic without a card.
+// loops of all four as *_host entries, so the CPU tests check their
+// arithmetic without a card.
 #include <stdint.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 #define GP_HD __device__
 #define GP_LDG(p) __ldg(p)
+#define GP_F2U(f) __float_as_uint(f)
+#define GP_U2F(u) __uint_as_float(u)
 
 static __device__ __forceinline__ int ld_volatile(const int* p) {
   int v;
@@ -72,6 +69,18 @@ static __device__ __forceinline__ void ld_volatile2(const int* p, int& a,
 #else
 #define GP_HD
 #define GP_LDG(p) (*(p))
+
+static inline uint32_t GP_F2U(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+
+static inline float GP_U2F(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
 
 static inline int ld_volatile(const int* p) {
   return *(const volatile int*)p;
@@ -120,6 +129,29 @@ static GP_HD inline int take_lane(const int* __restrict__ tab, int kk, int j,
   return kk;
 }
 
+// f rounded to bfloat16, to nearest even, returned as a float: add 0x7fff,
+// one more when the kept part is odd (a tie then rounds up to even), and
+// drop the low 16 bits.  Inf passes unchanged (the add cannot carry out of
+// a zero mantissa); a NaN could carry into Inf, so it keeps its sign and
+// top mantissa bits with the quiet bit set.  The int inputs of gp_onehot
+// (|v| < 2^24) never reach the NaN branch.
+static GP_HD inline float bf16_round(float f) {
+  uint32_t u = GP_F2U(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u)
+    return GP_U2F((u | 0x00400000u) & 0xffff0000u);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return GP_U2F(u & 0xffff0000u);
+}
+
+// lane q of gp_onehot: the bf16 value of tab3's word at flat index kq (row
+// kq >> 7, column kq & 127) truncated to int, 0 where kq is outside
+// [0, n_words)
+static GP_HD inline int onehot_lane(const int* __restrict__ tab3, int kq,
+                                    long long n_words) {
+  if (kq < 0 || kq >= n_words) return 0;
+  return (int)bf16_round((float)GP_LDG(tab3 + kq));
+}
+
 #ifdef __CUDACC__
 
 __global__ void __launch_bounds__(128)
@@ -142,60 +174,11 @@ gp_take_ax0_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
   if (e < n) out[e] = take_lane(tab, kk0[e], (int)(e & 127), steps, R);
 }
 
-// gp_onehot: a block of 4 warps takes OH_BM = 64 queries (16 per warp, one
-// wmma row tile each) and walks the table depth in tiles of 16 rows; a
-// warp keeps its 16 x 128 float32 sums in 8 accumulator fragments.
-namespace {
-constexpr int OH_BM = 64, OH_BK = 16, OH_COLS = 128, OH_LDB = OH_COLS + 8;
-}
-
 __global__ void __launch_bounds__(128)
 gp_onehot_kernel(const int* __restrict__ tab3, const int* __restrict__ k,
-                 int* __restrict__ out, int A) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[OH_BM * OH_BK];
-  __shared__ __align__(32) __nv_bfloat16 Bs[OH_BK * OH_LDB];
-  __shared__ __align__(32) float Cs[OH_BM * OH_COLS];
-  __shared__ int hi_s[OH_BM];
-  const int t = threadIdx.x, w = t >> 5;
-  const int row0 = blockIdx.x * OH_BM;
-  if (t < OH_BM) hi_s[t] = k[row0 + t] >> 7;      // arithmetic shift
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[OH_COLS / 16];
-  for (int n = 0; n < OH_COLS / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-  const __nv_bfloat16 one = __float2bfloat16_rn(1.0f);
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  __syncthreads();
-  for (int a0 = 0; a0 < A; a0 += OH_BK) {
-    // the table tile: 16 rows x 128 columns, int32 -> float -> bf16; rows
-    // past A are the zero padding
-    for (int e = t; e < OH_BK * OH_COLS; e += blockDim.x) {
-      const int r = e >> 7, c = e & 127, a = a0 + r;
-      const int v = a < A ? tab3[(long long)a * OH_COLS + c] : 0;
-      Bs[r * OH_LDB + c] = __float2bfloat16_rn((float)v);
-    }
-    // the one-hot tile: 64 queries x 16 table rows
-    for (int e = t; e < OH_BM * OH_BK; e += blockDim.x)
-      As[e] = hi_s[e >> 4] == a0 + (e & 15) ? one : zero;
-    __syncthreads();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, As + w * 16 * OH_BK, OH_BK);
-    for (int n = 0; n < OH_COLS / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, Bs + n * 16, OH_LDB);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-    __syncthreads();
-  }
-  for (int n = 0; n < OH_COLS / 16; ++n)
-    wmma::store_matrix_sync(Cs + w * 16 * OH_COLS + n * 16, acc[n], OH_COLS,
-                            wmma::mem_row_major);
-  __syncthreads();
-  // epilogue: the pick of column k & 127; float -> int truncates, as
-  // XLA's astype(int32)
-  if (t < OH_BM)
-    out[row0 + t] = (int)Cs[t * OH_COLS + (k[row0 + t] & 127)];
+                 int* __restrict__ out, int N, long long n_words) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < N) out[q] = onehot_lane(tab3, k[q], n_words);
 }
 
 // C entries for ctypes: device pointers; each returns cudaGetLastError()
@@ -220,8 +203,8 @@ extern "C" int gp_scalar2(const int* tab, const int* k, int* out, int N,
 extern "C" int gp_onehot(const int* tab3, const int* k, int* out, int N,
                          int A, void* stream) {
   if (N > 0)
-    gp_onehot_kernel<<<N / OH_BM, 128, 0, (cudaStream_t)stream>>>(
-        tab3, k, out, A);
+    gp_onehot_kernel<<<(N + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        tab3, k, out, N, (long long)A * 128);
   return (int)cudaGetLastError();
 }
 
@@ -246,6 +229,13 @@ extern "C" int gp_scalar_host(const int* tab, const int* k, int* out, int N,
 extern "C" int gp_scalar2_host(const int* tab, const int* k, int* out, int N,
                                int W, int steps) {
   for (int q = 0; q < N; ++q) scalar2_lane(tab, k, out, q, W, steps);
+  return 0;
+}
+
+extern "C" int gp_onehot_host(const int* tab3, const int* k, int* out, int N,
+                              int A) {
+  for (int q = 0; q < N; ++q)
+    out[q] = onehot_lane(tab3, k[q], (long long)A * 128);
   return 0;
 }
 

@@ -14,45 +14,27 @@ The adds cannot overflow (eh stays in [0, 16 + ROWS]).  On a CUDA tensor
 the wrapper launches the kernel and counts the launch (`launches`); on a
 CPU tensor it runs the plain version and counts nothing.  There is no
 fallback between the two: a failed build or launch raises.  The kernel is
-compiled with nvcc for sm_90a into the repository's build/ directory at
-first use and loaded with ctypes.  A call is split in two so that the
-probe can price the port's own issue path: _prep (the checks and the
-output's allocation) and _launch (the stream lookup and the ctypes call,
-counted).
+built and launched through ops/launch (nvcc for sm_90a at first use, the
+caller's current stream).  A call is split in two so that the probe can
+price the port's own issue path: _prep (the checks and the output's
+allocation) and _launch (ops/launch's stream lookup, device check and
+ctypes call, counted).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from bwamem_tpu_torch.ops.ext_kernel import NVCC_FLAGS, nvcc
+from bwamem_tpu_torch.ops.launch import Library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "dispatch_probe_kernel.cu")
 OPS_PER_CELL = 4    # compare, select, add, max
+# (qT, tT, out, L1p, rows, B)
+LIB = Library("dispatch_probe_kernel.cu",
+              {"dp_eh": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3})
+SRC = LIB.src
 
 launches = 0        # kernel launches by dp_eh (CUDA tensors)
-_lock = threading.Lock()
-_lib = None
-
-
-def load():
-    """Build (at first use) and load the kernel library; raises on
-    failure."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            from bwamem_tpu_torch._build import shared_lib
-            lib = ctypes.CDLL(shared_lib(SRC, "libdispatch_probe_kernel.so",
-                                         [nvcc(), *NVCC_FLAGS]))
-            lib.dp_eh.restype = ctypes.c_int
-            lib.dp_eh.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-                + [ctypes.c_void_p]
-            _lib = lib
-    return _lib
 
 
 def work(L1p: int, rows: int, B: int) -> tuple[int, int]:
@@ -76,9 +58,10 @@ def check_tables(name: str, qT: torch.Tensor, tT: torch.Tensor) -> None:
     """ValueError unless qT and tT are contiguous int32 2-d tensors on one
     device with the same lanes (columns), one row and one lane at least;
     also used by ops/pl_probe."""
+    index = qT.get_device()
     for what, t in (("qT", qT), ("tT", tT)):
         if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous() \
-                or t.device != qT.device:
+                or t.get_device() != index:
             raise ValueError(f"{name}: {what} must be contiguous int32 2-d "
                              f"on {qT.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
@@ -86,12 +69,6 @@ def check_tables(name: str, qT: torch.Tensor, tT: torch.Tensor) -> None:
         raise ValueError(f"{name}: qT {tuple(qT.shape)} and tT "
                          f"{tuple(tT.shape)} need the same lanes, at least "
                          f"one row each and one lane")
-
-
-def stream_of(device: torch.device) -> int:
-    """The raw handle of the current CUDA stream of `device`."""
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream(device).cuda_stream
 
 
 def _prep(qT, tT):
@@ -105,9 +82,7 @@ def _prep(qT, tT):
 
 def _launch(out: torch.Tensor, args: tuple) -> torch.Tensor:
     global launches
-    rc = load().dp_eh(*args, stream_of(out.device))
-    if rc != 0:
-        raise RuntimeError(f"dp_eh launch failed: CUDA error {rc}")
+    LIB.launch("dp_eh", out.get_device(), args)
     launches += 1
     return out
 
@@ -115,6 +90,6 @@ def _launch(out: torch.Tensor, args: tuple) -> torch.Tensor:
 def dp_eh(qT: torch.Tensor, tT: torch.Tensor) -> torch.Tensor:
     """qT int32 [L1p, B], tT int32 [ROWS, B] -> int32 [L1p, B] (see
     dp_eh_plain)."""
-    if qT.device.type != "cuda":
+    if not qT.is_cuda:
         return dp_eh_plain(qT, tT)
     return _launch(*_prep(qT, tT))

@@ -24,64 +24,32 @@ per-lane value once (megabytes: microseconds at 3.35 TB/s).  In
 practice the thread-serial band and the imbalance between the lanes of a
 warp (different target lengths and z-drop exits) set the time.
 
-The kernel is compiled with nvcc for sm_90a into the repository's build/
-directory at first use and loaded with ctypes.
+The kernels are built and launched through ops/launch (nvcc for sm_90a
+at first use, the caller's current stream).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import threading
 
 import numpy as np
 import torch
 
 from bwamem_tpu_torch.ops import extend as extops
 from bwamem_tpu_torch.ops.extend import ExtendResult, _adjust_w
+from bwamem_tpu_torch.ops.launch import Library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "ext_kernel.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = Library("ext_kernel.cu", {
+    "ext_pl2_launch": [_vp] * 7 + [_ci] + [_vp] * 2 + [_ci] * 3 + [_vp]
+                      + [_ci] * 5,
+    "ext_pl_launch": [_vp] * 8 + [_ci] * 3 + [_vp] + [_ci] * 5})
+SRC = LIB.src
 # longest query of the fused two-pass route (extend_batch_pl2), and of one
 # plain-extension dispatch at the narrow (h << 12) | col packing
 LQ_MAX = 4095
 
 launches = 0        # kernel launches by extend_batch_pl2 (CUDA tensors)
 launches_pl = 0     # kernel launches by extend_batch_pl (CUDA tensors)
-_lock = threading.Lock()
-_lib = None
-
-
-def nvcc() -> str:
-    """Path of nvcc: on PATH, else under $CUDA_HOME or /usr/local/cuda."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def load():
-    """Build (at first use) and load the kernel library; raises on
-    failure."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            from bwamem_tpu_torch._build import shared_lib
-            lib = ctypes.CDLL(shared_lib(SRC, "libext_kernel.so",
-                                         [nvcc(), *NVCC_FLAGS]))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ext_pl2_launch.restype = ci
-            lib.ext_pl2_launch.argtypes = (
-                [vp] * 7 + [ci] + [vp] * 2 + [ci] * 3 + [vp] + [ci] * 5
-                + [vp])
-            lib.ext_pl_launch.restype = ci
-            lib.ext_pl_launch.argtypes = (
-                [vp] * 8 + [ci] * 3 + [vp] + [ci] * 5 + [vp])
-            _lib = lib
-    return _lib
 
 
 def _mat25(mat_bytes: bytes) -> np.ndarray:
@@ -110,8 +78,9 @@ def _checked_lanes(name, queryT, qlen, targetT, tlen, h0, lq_max, t_max):
                          f"{lq_max} t_max={t_max} B={B}")
     i32 = torch.int32
     out = [x.to(i32).contiguous() for x in (queryT, targetT, qlen, tlen, h0)]
+    index = queryT.get_device()
     for x in out:
-        if x.device != queryT.device:
+        if x.get_device() != index:
             raise ValueError(f"{name}: tensors on different devices")
     for x in out[2:]:
         if x.shape != (B,):
@@ -130,7 +99,7 @@ def extend_batch_pl2(queryT, qlen, targetT, tlen, h0, end_bonus, *,
     queryT: [lq_max, B] int32 nt4 (already reversed for left extensions,
     every qlen <= lq_max); targetT: [t_max, B] int32; per-lane vectors [B].
     Returns (ExtendResult, retried [B] int32)."""
-    if queryT.device.type != "cuda":
+    if not queryT.is_cuda:
         return extend_batch_pl2_plain(
             queryT, qlen, targetT, tlen, h0, end_bonus, lq_max=lq_max,
             t_max=t_max, mat_bytes=mat_bytes, o_del=o_del, e_del=e_del,
@@ -151,17 +120,12 @@ def extend_batch_pl2(queryT, qlen, targetT, tlen, h0, end_bonus, *,
     eh = torch.empty((2, lq_max + 1, B), dtype=i32, device=dev)
     out = torch.empty((7, B), dtype=i32, device=dev)
     mat = np.ascontiguousarray(_mat25(mat_bytes))
-    lib = load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.ext_pl2_launch(
+    LIB.launch("ext_pl2_launch", qT.get_device(), (
         qT.data_ptr(), tT.data_ptr(), ql.data_ptr(), tl.data_ptr(),
         hh.data_ptr(), w1.data_ptr(), w2.data_ptr(), int(thr),
         eh.data_ptr(), out.data_ptr(), int(B), int(lq_max), int(t_max),
         mat.ctypes.data, int(o_del), int(e_del), int(o_ins),
-        int(e_ins), int(zdrop), stream)
-    if rc != 0:
-        raise RuntimeError(f"ext_pl2_kernel launch failed: CUDA error {rc}")
+        int(e_ins), int(zdrop)), "ext_pl2_kernel")
     launches += 1
     return (ExtendResult(score=out[0], qle=out[1], tle=out[2], gtle=out[3],
                          gscore=out[4], max_off=out[5]), out[6])
@@ -218,7 +182,7 @@ def extend_batch_pl(queryT, qlen, targetT, tlen, h0, w, end_bonus, *,
     ExtendResult."""
     kw = dict(lq_max=lq_max, t_max=t_max, mat_bytes=mat_bytes, o_del=o_del,
               e_del=e_del, o_ins=o_ins, e_ins=e_ins, zdrop=zdrop)
-    if queryT.device.type != "cuda":
+    if not queryT.is_cuda:
         return extend_batch_pl_plain(queryT, qlen, targetT, tlen, h0, w,
                                      end_bonus, **kw)
     global launches_pl
@@ -230,21 +194,16 @@ def extend_batch_pl(queryT, qlen, targetT, tlen, h0, w, end_bonus, *,
     mat = np.ascontiguousarray(_mat25(mat_bytes))
     wadj = _adjust_w(w.to(i32), ql, int(mat.max()), end_bonus.to(i32), o_ins,
                      e_ins, o_del, e_del).to(i32).contiguous()
-    if wadj.shape != (B,) or wadj.device != dev:
+    if wadj.shape != (B,) or wadj.get_device() != qT.get_device():
         raise ValueError("extend_batch_pl: band vector does not match the "
                          "lanes")
     eh = torch.empty((2, lq_max + 1, B), dtype=i32, device=dev)
     out = torch.empty((6, B), dtype=i32, device=dev)
-    lib = load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.ext_pl_launch(
+    LIB.launch("ext_pl_launch", qT.get_device(), (
         qT.data_ptr(), tT.data_ptr(), ql.data_ptr(), tl.data_ptr(),
         hh.data_ptr(), wadj.data_ptr(), eh.data_ptr(), out.data_ptr(),
         int(B), int(lq_max), int(t_max), mat.ctypes.data, int(o_del),
-        int(e_del), int(o_ins), int(e_ins), int(zdrop), stream)
-    if rc != 0:
-        raise RuntimeError(f"ext_pl_kernel launch failed: CUDA error {rc}")
+        int(e_del), int(o_ins), int(e_ins), int(zdrop)), "ext_pl_kernel")
     launches_pl += 1
     return ExtendResult(score=out[0], qle=out[1], tle=out[2], gtle=out[3],
                         gscore=out[4], max_off=out[5])

@@ -28,44 +28,26 @@ a step are nothing; a lane cannot finish before `steps` dependent loads
 have come back from L2, and 8192 lanes are only 2 warps an SM to overlap
 them.
 
-The kernels are compiled with nvcc for sm_90a into the repository's build/
-directory at first use and loaded with ctypes.
+The kernels are built and launched through ops/launch (nvcc for sm_90a at
+first use, the caller's current stream).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from bwamem_tpu_torch.ops.ext_kernel import NVCC_FLAGS, nvcc
+from bwamem_tpu_torch.ops.launch import Library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "fm_probe_kernel.cu")
 LANES = 128                  # lanes come in multiples of this
+# (cmb, k0, out, N, W, steps, seq_len)
+LIB = Library("fm_probe_kernel.cu", {
+    name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    for name in ("fm_chain_words", "fm_chain_rows")})
+SRC = LIB.src
 
 launches_words = 0  # kernel launches by chain_words (CUDA tensors)
 launches_rows = 0   # kernel launches by chain_rows (CUDA tensors)
-_lock = threading.Lock()
-_lib = None
-
-
-def load():
-    """Build (at first use) and load the kernel library; raises on
-    failure."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            from bwamem_tpu_torch._build import shared_lib
-            lib = ctypes.CDLL(shared_lib(SRC, "libfm_probe_kernel.so",
-                                         [nvcc(), *NVCC_FLAGS]))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            for fn in (lib.fm_chain_words, lib.fm_chain_rows):
-                fn.restype = ci
-                fn.argtypes = [vp] * 3 + [ci] * 4 + [vp]
-            _lib = lib
-    return _lib
 
 
 def words32(cmb: torch.Tensor) -> torch.Tensor:
@@ -110,7 +92,7 @@ def _launch(name: str, cmb, k0, steps: int, seq_len: int):
         raise ValueError(f"{name}: rows of {W} words at {cmb.data_ptr():#x} "
                          "are not 16-byte aligned")
     if k0.dtype != torch.int32 or k0.dim() != 1 or not k0.is_contiguous() \
-            or k0.device != cmb.device:
+            or k0.get_device() != cmb.get_device():
         raise ValueError(f"{name}: k0 must be contiguous int32 [N] on "
                          f"{cmb.device}")
     N = k0.shape[0]
@@ -120,13 +102,9 @@ def _launch(name: str, cmb, k0, steps: int, seq_len: int):
         raise ValueError(f"{name}: seq_len {seq_len} for {nb} rows, "
                          f"steps {steps}")
     out = torch.empty_like(k0)
-    lib = load()
-    with torch.cuda.device(cmb.device):
-        stream = torch.cuda.current_stream(cmb.device).cuda_stream
-    rc = getattr(lib, name)(cmb.data_ptr(), k0.data_ptr(), out.data_ptr(),
-                            int(N), int(W), int(steps), int(seq_len), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LIB.launch(name, cmb.get_device(), (
+        cmb.data_ptr(), k0.data_ptr(), out.data_ptr(), int(N), int(W),
+        int(steps), int(seq_len)))
     return out
 
 
@@ -135,7 +113,7 @@ def chain_words(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
     """chain_gather with the whole chain inside one kernel, the row read
     word by word (fm_chain_words).  cmb: int32 [nb, W] from words32; k0:
     int32 [N] in [0, seq_len), N a multiple of 128."""
-    if cmb.device.type != "cuda":
+    if not cmb.is_cuda:
         return chain_gather(cmb, k0, steps, seq_len)
     global launches_words
     out = _launch("fm_chain_words", cmb, k0, steps, seq_len)
@@ -147,7 +125,7 @@ def chain_rows(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
                seq_len: int) -> torch.Tensor:
     """As chain_words, the row read with 16-byte vector loads
     (fm_chain_rows)."""
-    if cmb.device.type != "cuda":
+    if not cmb.is_cuda:
         return chain_gather(cmb, k0, steps, seq_len)
     global launches_rows
     out = _launch("fm_chain_rows", cmb, k0, steps, seq_len)

@@ -9,8 +9,10 @@ the reference package's tools/pl_gather_probe.py:
   gp_scalar2   (kernel_scalarw, :93) out = tab[k, 0] + tab[k, 1], wrapping
                                      int32
   gp_onehot    (kernel_mm, :120)     out = int(bf16(tab3[k >> 7, k & 127])),
-                                     0 where k >> 7 is outside [0, A), by a
-                                     one-hot product on the tensor cores
+                                     0 where k >> 7 is outside [0, A): the
+                                     TPU kernel's one-hot product computes
+                                     this gather, and so does the kernel,
+                                     one load a lane
   gp_take_ax0  (kernel_dg, :151)     kk = (kk + tab[kk, j]) mod R, `steps`
                                      times, over a table-shaped kk [R, 128]
 
@@ -25,47 +27,30 @@ bf16 rounds as XLA does, and the bf16 value converts back to int32.
 On a CUDA tensor each wrapper launches its kernel and counts the launch
 (launches_*); on a CPU tensor it runs the plain version and counts nothing.
 There is no fallback between the two: a failed build or launch raises.
-The kernels are compiled with nvcc for sm_90a into the repository's build/
-directory at first use and loaded with ctypes.
+The kernels are built and launched through ops/launch (nvcc for sm_90a at
+first use, the caller's current stream).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from bwamem_tpu_torch.ops.ext_kernel import NVCC_FLAGS, nvcc
+from bwamem_tpu_torch.ops.launch import Library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "gather_probe_kernel.cu")
 COLS = 128                  # columns of k, tab and tab3; lanes per k row
+# (in, in, out, ints): (N, steps) for gp_scalar, (N, W, steps) for
+# gp_scalar2, (N, A) for gp_onehot, (R, steps) for gp_take_ax0
+LIB = Library("gather_probe_kernel.cu", {
+    name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int
+    for name, n_int in (("gp_scalar", 2), ("gp_scalar2", 3),
+                        ("gp_onehot", 2), ("gp_take_ax0", 2))})
+SRC = LIB.src
 
 launches_scalar = 0     # kernel launches by gp_scalar (CUDA tensors)
 launches_scalar2 = 0    # ... by gp_scalar2
 launches_onehot = 0     # ... by gp_onehot
 launches_take = 0       # ... by gp_take_ax0
-_lock = threading.Lock()
-_lib = None
-
-
-def load():
-    """Build (at first use) and load the kernel library; raises on
-    failure."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            from bwamem_tpu_torch._build import shared_lib
-            lib = ctypes.CDLL(shared_lib(SRC, "libgather_probe_kernel.so",
-                                         [nvcc(), *NVCC_FLAGS]))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            for fn, n_int in ((lib.gp_scalar, 2), (lib.gp_scalar2, 3),
-                              (lib.gp_onehot, 2), (lib.gp_take_ax0, 2)):
-                fn.restype = ci
-                fn.argtypes = [vp] * 3 + [ci] * n_int + [vp]
-            _lib = lib
-    return _lib
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -94,6 +79,39 @@ def onehot_plain(tab3: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, v, 0).to(torch.int32)
 
 
+ONEHOT_CASES = ("probe", "bf16_rounding", "k_outside", "k_extremes")
+
+
+def onehot_inputs(case: str, A: int = 8, n: int = 256, seed: int = 3):
+    """numpy (tab3 int32 [A, 128], k int32 [n/128, 128], n >= 256) for
+    gp_onehot, drawn from `seed`: "probe", tab3 in [0, 255) as the TPU
+    probe draws it, where bf16 is exact; "bf16_rounding", tab3 in
+    (-2^23, 2^23), where most values round, with the ties 257, 259, 383,
+    385, 513, -257 and the largest odd values 2^23 - 1, 2^23 - 3 in row 0
+    and zeros beside them; "k_outside", as bf16_rounding with half of k's
+    second row in [A * 128, 2^30) and half in [-2^30, 0); "k_extremes", as
+    k_outside with k = 0, A * 128 - 1, A * 128, -1, -2^31 and 2^31 - 1 in
+    row 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hi = 255 if case == "probe" else 1 << 23
+    tab3 = rng.integers(0 if case == "probe" else -hi, hi, (A, 128),
+                        dtype=np.int32)
+    if case != "probe":                    # ties to even, and exact zeros
+        tab3[0, :8] = ((1 << 23) - 1, (1 << 23) - 3, 257, 259, 513, -257,
+                       383, 385)
+        tab3[0, 8:16] = 0
+    k = rng.integers(0, A * 128, (n // 128, 128), dtype=np.int32)
+    k[0, :16] = np.arange(16)
+    if case in ("k_outside", "k_extremes"):
+        k[1, :64] = rng.integers(A * 128, 1 << 30, 64)
+        k[1, 64:] = rng.integers(-(1 << 30), 0, 64)
+    if case == "k_extremes":
+        k[0, 16:22] = (0, A * 128 - 1, A * 128, -1, -(1 << 31),
+                       (1 << 31) - 1)
+    return tab3, k
+
+
 def take_ax0_plain(tab: torch.Tensor, kk: torch.Tensor,
                    steps: int) -> torch.Tensor:
     """The chain in int64 with the int32 wrap spelled out, so it does not
@@ -111,18 +129,21 @@ def take_ax0_plain(tab: torch.Tensor, kk: torch.Tensor,
 # raises ValueError on anything the kernel does not take.
 
 def _check(name: str, t: torch.Tensor, what: str, *, cols=None, dev=None):
+    """dev: the device index (Tensor.get_device(), -1 on the CPU) that t
+    must be on, or None."""
     if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous() \
             or (cols is not None and t.shape[1] != cols) \
-            or (dev is not None and t.device != dev):
+            or (dev is not None and t.get_device() != dev):
         raise ValueError(f"{name}: {what} must be contiguous int32 "
                          f"[rows, {cols or 'W'}]"
-                         + (f" on {dev}" if dev is not None else "")
+                         + (f" on device index {dev}" if dev is not None
+                            else "")
                          + f", got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _prep_lanes(name, tab, k, steps, tab_cols=COLS):
     _check(name, tab, "tab", cols=tab_cols)
-    _check(name, k, "k", cols=COLS, dev=tab.device)
+    _check(name, k, "k", cols=COLS, dev=tab.get_device())
     if steps < 1:
         raise ValueError(f"{name}: steps {steps} < 1")
     if tab.shape[0] < 1:
@@ -152,7 +173,7 @@ def _prep_onehot(tab3, k):
 
 def _prep_take(tab, kk, steps):
     _check("gp_take_ax0", tab, "tab", cols=COLS)
-    _check("gp_take_ax0", kk, "kk", cols=COLS, dev=tab.device)
+    _check("gp_take_ax0", kk, "kk", cols=COLS, dev=tab.get_device())
     R = tab.shape[0]
     if kk.shape[0] != R or not 0 < R < (1 << 31) // COLS or steps < 0:
         raise ValueError(f"gp_take_ax0: kk {tuple(kk.shape)} for a table of "
@@ -163,18 +184,13 @@ def _prep_take(tab, kk, steps):
 
 
 def _launch(name: str, out: torch.Tensor, args: tuple) -> torch.Tensor:
-    lib = load()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LIB.launch(name, out.get_device(), args)
     return out
 
 
 def gp_scalar(tab: torch.Tensor, k: torch.Tensor, steps: int) -> torch.Tensor:
     """tab int32 [R, 128], k int32 [N/128, 128] -> tab[k, column]."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return scalar_plain(tab, k)
     global launches_scalar
     out = _launch("gp_scalar", *_prep_scalar(tab, k, steps))
@@ -186,7 +202,7 @@ def gp_scalar2(tab: torch.Tensor, k: torch.Tensor,
                steps: int) -> torch.Tensor:
     """tab int32 [R, W] (W even), k int32 [N/128, 128] -> tab[k, 0] +
     tab[k, 1]; the two words are one 8-byte load."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return scalar2_plain(tab, k)
     global launches_scalar2
     out = _launch("gp_scalar2", *_prep_scalar2(tab, k, steps))
@@ -195,9 +211,10 @@ def gp_scalar2(tab: torch.Tensor, k: torch.Tensor,
 
 
 def gp_onehot(tab3: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """tab3 int32 [A, 128], k int32 [N/128, 128] -> the one-hot product's
-    pick (see onehot_plain)."""
-    if tab3.device.type != "cuda":
+    """tab3 int32 [A, 128], k int32 [N/128, 128] -> int(bf16(tab3.flat[k]))
+    where 0 <= k < A * 128, else 0 (see onehot_plain): the one-hot
+    product's pick, computed as the gather it is."""
+    if not tab3.is_cuda:
         return onehot_plain(tab3, k)
     global launches_onehot
     out = _launch("gp_onehot", *_prep_onehot(tab3, k))
@@ -209,7 +226,7 @@ def gp_take_ax0(tab: torch.Tensor, kk: torch.Tensor,
                 steps: int) -> torch.Tensor:
     """tab int32 [R, 128], kk int32 [R, 128] in [0, R) -> kk after `steps`
     chained steps kk = (kk + tab[kk, j]) mod R."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return take_ax0_plain(tab, kk, steps)
     global launches_take
     out = _launch("gp_take_ax0", *_prep_take(tab, kk, steps))

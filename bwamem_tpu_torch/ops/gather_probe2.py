@@ -26,51 +26,34 @@ chains wrap in int32 and the remainder is never negative (jnp's %).
 On a CUDA tensor each wrapper launches its kernel and counts the launch
 (launches_*); on a CPU tensor it runs the plain version and counts nothing.
 There is no fallback between the two: a failed build or launch raises.
-The kernels are compiled with nvcc for sm_90a into the repository's build/
-directory at first use and loaded with ctypes.
+The kernels are built and launched through ops/launch (nvcc for sm_90a at
+first use, the caller's current stream).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from bwamem_tpu_torch.ops.ext_kernel import NVCC_FLAGS, nvcc
 from bwamem_tpu_torch.ops.gather_probe import _check, _wrap32
+from bwamem_tpu_torch.ops.launch import Library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "gather_probe2_kernel.cu")
 COLS = 128                  # columns of the chained and one-hot tables
 SMEM_MAX = 232448           # bytes of shared memory a block may opt into
+
+# (in, in, out, two ints): (R|S, steps) for the chains, (N, W|A) for the
+# lookups
+LIB = Library("gather_probe2_kernel.cu", {
+    name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    for name in ("gp2_take_ax0", "gp2_take_ax1", "gp2_col0",
+                 "gp2_onehot_f32")})
+SRC = LIB.src
 
 launches_take0 = 0      # kernel launches by gp2_take_ax0 (CUDA tensors)
 launches_take1 = 0      # ... by gp2_take_ax1
 launches_col0 = 0       # ... by gp2_col0
 launches_onehot = 0     # ... by gp2_onehot_f32
-_lock = threading.Lock()
-_lib = None
 
-
-def load():
-    """Build (at first use) and load the kernel library; raises on
-    failure."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            from bwamem_tpu_torch._build import shared_lib
-            lib = ctypes.CDLL(shared_lib(SRC, "libgather_probe2_kernel.so",
-                                         [nvcc(), *NVCC_FLAGS]))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            # (in, in, out, two ints, stream): (R|S, steps) for the
-            # chains, (N, W|A) for the lookups
-            for fn in (lib.gp2_take_ax0, lib.gp2_take_ax1, lib.gp2_col0,
-                       lib.gp2_onehot_f32):
-                fn.restype = ci
-                fn.argtypes = [vp] * 3 + [ci] * 2 + [vp]
-            _lib = lib
-    return _lib
 
 
 # ---- plain versions ----
@@ -121,7 +104,7 @@ def onehot_f32_plain(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def _prep_chain(name, tab, kk, steps):
     _check(name, tab, "tab", cols=COLS)
-    _check(name, kk, "kk", cols=COLS, dev=tab.device)
+    _check(name, kk, "kk", cols=COLS, dev=tab.get_device())
     if kk.shape != tab.shape or tab.shape[0] < 1 or steps < 0:
         raise ValueError(f"{name}: kk {tuple(kk.shape)} for a table "
                          f"{tuple(tab.shape)}, steps {steps}")
@@ -145,7 +128,7 @@ def _prep_take1(tab, kk, steps):
 def _prep_col0(tab, k):
     _check("gp2_col0", tab, "tab")
     if k.dtype != torch.int32 or k.dim() != 1 or not k.is_contiguous() \
-            or k.device != tab.device or tab.shape[0] < 1:
+            or k.get_device() != tab.get_device() or tab.shape[0] < 1:
         raise ValueError(f"gp2_col0: k must be contiguous int32 [N] on "
                          f"{tab.device} and tab nonempty, got {k.dtype} "
                          f"{tuple(k.shape)} on {k.device}")
@@ -156,7 +139,7 @@ def _prep_col0(tab, k):
 
 def _prep_onehot(tab, k):
     _check("gp2_onehot_f32", tab, "tab", cols=COLS)
-    _check("gp2_onehot_f32", k, "k", cols=COLS, dev=tab.device)
+    _check("gp2_onehot_f32", k, "k", cols=COLS, dev=tab.get_device())
     if tab.shape[0] < 1:
         raise ValueError("gp2_onehot_f32: empty table")
     out = torch.empty_like(k)
@@ -165,12 +148,7 @@ def _prep_onehot(tab, k):
 
 
 def _launch(name: str, out: torch.Tensor, args: tuple) -> torch.Tensor:
-    lib = load()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LIB.launch(name, out.get_device(), args)
     return out
 
 
@@ -178,7 +156,7 @@ def gp2_take_ax0(tab: torch.Tensor, kk: torch.Tensor,
                  steps: int) -> torch.Tensor:
     """tab, kk int32 [R, 128], kk in [0, R) -> kk after `steps` chained
     steps kk = (kk + tab[kk, j]) mod R."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return take_ax0_plain(tab, kk, steps)
     global launches_take0
     out = _launch("gp2_take_ax0", *_prep_take0(tab, kk, steps))
@@ -190,7 +168,7 @@ def gp2_take_ax1(tab: torch.Tensor, kk: torch.Tensor,
                  steps: int) -> torch.Tensor:
     """tab, kk int32 [S, 128], kk in [0, 128) -> kk after `steps` chained
     steps kk = (kk + tab[i, kk]) mod 128."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return take_ax1_plain(tab, kk, steps)
     global launches_take1
     out = _launch("gp2_take_ax1", *_prep_take1(tab, kk, steps))
@@ -200,7 +178,7 @@ def gp2_take_ax1(tab: torch.Tensor, kk: torch.Tensor,
 
 def gp2_col0(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """tab int32 [R, W], k int32 [N] in [0, R) -> tab[k, 0]."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return scalar_col0_plain(tab, k)
     global launches_col0
     out = _launch("gp2_col0", *_prep_col0(tab, k))
@@ -211,7 +189,7 @@ def gp2_col0(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def gp2_onehot_f32(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """tab int32 [A, 128], k int32 [N/128, 128] -> the float32 one-hot
     product's pick (see onehot_f32_plain)."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return onehot_f32_plain(tab, k)
     global launches_onehot
     out = _launch("gp2_onehot_f32", *_prep_onehot(tab, k))

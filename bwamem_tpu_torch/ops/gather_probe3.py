@@ -32,50 +32,33 @@ from [-hi, hi], so chains keep moving and meet both ends of the clip.
 On a CUDA tensor each wrapper launches its kernel and counts the launch
 (launches_*); on a CPU tensor it runs the plain version and counts nothing.
 There is no fallback between the two: a failed build or launch raises.
-The kernels are compiled with nvcc for sm_90a into the repository's build/
-directory at first use and loaded with ctypes.
+The kernels are built and launched through ops/launch (nvcc for sm_90a at
+first use, the caller's current stream).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from bwamem_tpu_torch.ops.ext_kernel import NVCC_FLAGS, nvcc
 from bwamem_tpu_torch.ops.gather_probe import _check, _wrap32
+from bwamem_tpu_torch.ops.launch import Library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "gather_probe3_kernel.cu")
 SMEM_MAX = 232448           # bytes of shared memory a block may opt into
 MM_REPS, MM_ROWS = 64, 8    # probe_e2's iterations and output rows
+
+# (in, in, out, ints)
+LIB = Library("gather_probe3_kernel.cu", {
+    name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int
+    for name, n_int in (("gp3_dg", 4), ("gp3_ct", 2), ("gp3_col0", 2),
+                        ("gp3_mm", 4))})
+SRC = LIB.src
 
 launches_dg = 0         # kernel launches by gp3_dg (CUDA tensors)
 launches_ct = 0         # ... by gp3_ct
 launches_col0 = 0       # ... by gp3_col0
 launches_mm = 0         # ... by gp3_mm
-_lock = threading.Lock()
-_lib = None
 
-
-def load():
-    """Build (at first use) and load the kernel library; raises on
-    failure."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            from bwamem_tpu_torch._build import shared_lib
-            lib = ctypes.CDLL(shared_lib(SRC, "libgather_probe3_kernel.so",
-                                         [nvcc(), *NVCC_FLAGS]))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            # (in, in, out, ints, stream)
-            for fn, n_int in ((lib.gp3_dg, 4), (lib.gp3_ct, 2),
-                              (lib.gp3_col0, 2), (lib.gp3_mm, 4)):
-                fn.restype = ci
-                fn.argtypes = [vp] * 3 + [ci] * n_int + [vp]
-            _lib = lib
-    return _lib
 
 
 # ---- plain versions ----
@@ -174,7 +157,7 @@ def spread_inputs(seed: int, S: int, L: int, axis: int, device="cpu"):
 
 def _prep_dg(tab, kk, steps, axis):
     _check("gp3_dg", tab, "tab")
-    _check("gp3_dg", kk, "kk", dev=tab.device)
+    _check("gp3_dg", kk, "kk", dev=tab.get_device())
     if kk.shape != tab.shape or min(tab.shape) < 1 or steps < 0 \
             or axis not in (0, 1):
         raise ValueError(f"gp3_dg: kk {tuple(kk.shape)} for a table "
@@ -189,7 +172,7 @@ def _prep_dg(tab, kk, steps, axis):
 
 def _prep_ct(tab, kk, steps):
     _check("gp3_ct", tab, "tab")
-    _check("gp3_ct", kk, "kk", dev=tab.device)
+    _check("gp3_ct", kk, "kk", dev=tab.get_device())
     N = tab.shape[0]
     if tab.shape != (N, N) or kk.shape != tab.shape or N < 1 or steps < 0:
         raise ValueError(f"gp3_ct: square tab and kk expected, got "
@@ -206,7 +189,7 @@ def _prep_ct(tab, kk, steps):
 def _prep_col0(tab, k):
     _check("gp3_col0", tab, "tab")
     if k.dtype != torch.int32 or k.dim() != 1 or not k.is_contiguous() \
-            or k.device != tab.device or tab.shape[0] < 1:
+            or k.get_device() != tab.get_device() or tab.shape[0] < 1:
         raise ValueError(f"gp3_col0: k must be contiguous int32 [n] on "
                          f"{tab.device} and tab nonempty, got {k.dtype} "
                          f"{tuple(k.shape)} on {k.device}")
@@ -218,26 +201,21 @@ def _prep_col0(tab, k):
 def _prep_mm(a, b, reps, rows):
     for what, t in (("a", a), ("b", b)):
         if t.dtype != torch.float32 or t.dim() != 2 \
-                or not t.is_contiguous() or t.device != a.device:
+                or not t.is_contiguous() \
+                or t.get_device() != a.get_device():
             raise ValueError(f"gp3_mm: {what} must be contiguous float32 "
                              f"2-d on {a.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     if a.shape[1] != b.shape[0] or not 0 < rows <= a.shape[0] or reps < 0:
         raise ValueError(f"gp3_mm: a {tuple(a.shape)} @ b {tuple(b.shape)}"
                          f", rows {rows}, reps {reps}")
-    out = torch.empty((rows, b.shape[1]), dtype=torch.float32,
-                      device=a.device)
+    out = a.new_empty((rows, b.shape[1]))
     return out, (a.data_ptr(), b.data_ptr(), out.data_ptr(), rows,
                  a.shape[1], b.shape[1], int(reps))
 
 
 def _launch(name: str, out: torch.Tensor, args: tuple) -> torch.Tensor:
-    lib = load()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LIB.launch(name, out.get_device(), args)
     return out
 
 
@@ -245,7 +223,7 @@ def gp3_dg(tab: torch.Tensor, kk: torch.Tensor, steps: int,
            axis: int) -> torch.Tensor:
     """tab, kk int32 [S, L], kk in [0, hi) -> kk after `steps` clipped
     chain steps along `axis` (see dg_plain)."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return dg_plain(tab, kk, steps, axis)
     global launches_dg
     out = _launch("gp3_dg", *_prep_dg(tab, kk, steps, axis))
@@ -256,7 +234,7 @@ def gp3_dg(tab: torch.Tensor, kk: torch.Tensor, steps: int,
 def gp3_ct(tab: torch.Tensor, kk: torch.Tensor, steps: int) -> torch.Tensor:
     """tab, kk int32 [N, N], kk in [0, N) -> kk after `steps` transpose
     steps (see ct_plain)."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return ct_plain(tab, kk, steps)
     global launches_ct
     out = _launch("gp3_ct", *_prep_ct(tab, kk, steps))
@@ -266,7 +244,7 @@ def gp3_ct(tab: torch.Tensor, kk: torch.Tensor, steps: int) -> torch.Tensor:
 
 def gp3_col0(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """tab int32 [R, W], k int32 [n] in [0, R) -> tab[k, 0]."""
-    if tab.device.type != "cuda":
+    if not tab.is_cuda:
         return col0_plain(tab, k)
     global launches_col0
     out = _launch("gp3_col0", *_prep_col0(tab, k))
@@ -278,7 +256,7 @@ def gp3_mm(a: torch.Tensor, b: torch.Tensor, reps: int = MM_REPS,
            rows: int = MM_ROWS) -> torch.Tensor:
     """a float32 [M, K], b [K, N] -> float32 [rows, N], `reps` ordered
     additions of (a @ b)[:rows] (see mm_plain, mm_exact, mm_tolerance)."""
-    if a.device.type != "cuda":
+    if not a.is_cuda:
         return mm_plain(a, b, reps, rows)
     global launches_mm
     out = _launch("gp3_mm", *_prep_mm(a, b, reps, rows))

@@ -27,23 +27,19 @@ On a CUDA tensor plp_row launches the kernel (a thread a lane for the
 first four variants, a warp a lane for roll) and counts the launch in
 launches[variant]; on a CPU tensor it runs the plain version and counts
 nothing.  There is no fallback between the two: a failed build or launch
-raises.  The kernel is compiled with nvcc for sm_90a into the repository's
-build/ directory at first use and loaded with ctypes.
+raises.  The kernel is built and launched through ops/launch (nvcc for
+sm_90a at first use, the caller's current stream).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from bwamem_tpu_torch.ops.dispatch_probe import check_tables, stream_of
-from bwamem_tpu_torch.ops.ext_kernel import NVCC_FLAGS, nvcc
+from bwamem_tpu_torch.ops.dispatch_probe import check_tables
 from bwamem_tpu_torch.ops.gather_probe import _wrap32
+from bwamem_tpu_torch.ops.launch import Library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "pl_probe_kernel.cu")
 VARIANTS = ("eh_only", "noscan", "noreduce", "full", "roll")
 NEG = -0x40000000           # the TPU kernel's NEGc
 SMEM_MAX = 232448           # bytes of shared memory a block may opt into
@@ -58,30 +54,18 @@ LANE_BLOCK, WARP_BLOCK = 32, 4   # lanes a block (a thread a lane), warps
 OPS_PER_CELL = {"eh_only": 5, "noscan": 13, "noreduce": 16, "full": 23,
                 "roll": 23}
 
+# (qT, tT, out, aux, L1p, rows, B, LQ, variant, lanes a block, shared
+# bytes)
+LIB = Library("pl_probe_kernel.cu",
+              {"plp_row": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7})
+SRC = LIB.src
+
 launches = dict.fromkeys(VARIANTS, 0)   # kernel launches (CUDA tensors)
-_lock = threading.Lock()
-_lib = None
 
 
 def l1p_of(LQ: int) -> int:
     """The TPU script's query rows for a query of LQ bases (:30)."""
     return (LQ + 1 + 7) // 8 * 8
-
-
-def load():
-    """Build (at first use) and load the kernel library; raises on
-    failure."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            from bwamem_tpu_torch._build import shared_lib
-            lib = ctypes.CDLL(shared_lib(SRC, "libpl_probe_kernel.so",
-                                         [nvcc(), *NVCC_FLAGS]))
-            lib.plp_row.restype = ctypes.c_int
-            lib.plp_row.argtypes = [ctypes.c_void_p] * 4 \
-                + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            _lib = lib
-    return _lib
 
 
 def lanes_per_block(variant: str, L1p: int) -> tuple[int, int]:
@@ -169,12 +153,9 @@ def plp_row(qT: torch.Tensor, tT: torch.Tensor, variant: str,
             LQ: int) -> tuple[torch.Tensor, torch.Tensor]:
     """qT int32 [L1p, B], tT int32 [ROWS, B], 0 < LQ <= L1p -> (out int32
     [L1p, B], aux int32 [3, B]) of the variant (see plp_plain)."""
-    if qT.device.type != "cuda":
+    if not qT.is_cuda:
         return plp_plain(qT, tT, variant, LQ)
     outs, args = _prep(qT, tT, variant, LQ)
-    rc = load().plp_row(*args, stream_of(qT.device))
-    if rc != 0:
-        raise RuntimeError(f"plp_row ({variant}) launch failed: CUDA error "
-                           f"{rc}")
+    LIB.launch("plp_row", qT.get_device(), args, f"plp_row ({variant})")
     launches[variant] += 1
     return outs

@@ -10,6 +10,11 @@ Three phases; any failure exits non-zero without printing a result.
    source holds both —, the FM probe kernels and the four gather-probe
    kernels with nvcc for sm_90a, the host kernels and the suffix-array code
    with cc), all compilers started together.
+1b. The launch path (bwamem_tpu_torch/ops/launch.py, through which every
+   kernel launches): its raw stream handle equals
+   torch.cuda.current_stream().cuda_stream on the default stream and
+   inside torch.cuda.stream(side), and gp3_col0 launched inside `side`
+   equals its plain version after side.synchronize().
 2. Kernels against plain, on lanes made with numpy from a fixed seed:
    * ext_pl2_kernel (band-doubling retry in the lane): ~16k lanes shaped
      like the front's EXT lanes (query rows 128, target rows 256, default
@@ -27,7 +32,11 @@ Three phases; any failure exits non-zero without printing a result.
    from numpy with the smoke seed): gp_scalar, gp_scalar2, gp_onehot and
    gp_take_ax0, each launched by the probe (counts from 0), then held
    against its plain version (max_abs_err 0) and reported with the
-   probe's CUDA-event times, its plain and library times and its bound.
+   probe's CUDA-event times (and on the device alone), its plain and
+   library times and its bound; gp_onehot is also held on the CPU tests'
+   inputs, where bf16 rounds and k lies outside the table and at both
+   ends of int32 (ops/gather_probe.onehot_inputs), at their size and at
+   the probe's.
 2c. Round 2 of the gather probe (tools/torch_pl_gather_probe2.py) at the
    TPU script's defaults (32 steps; B on [512,128], C on [128,128] and
    [8,128], D on 1024 lanes of a [78208,8] table, E with Q = 1024 and
@@ -238,16 +247,16 @@ def phase_env():
             raise RuntimeError("the suffix-array builder did not build")
 
     jobs = [threading.Thread(target=build, args=a) for a in (
-        ("ext_kernel.cu, both kernels (nvcc sm_90a)", ext_kernel.load),
-        ("fm_probe_kernel.cu, both entries (nvcc sm_90a)", fm_probe.load),
+        ("ext_kernel.cu, both kernels (nvcc sm_90a)", ext_kernel.LIB.load),
+        ("fm_probe_kernel.cu, both entries (nvcc sm_90a)", fm_probe.LIB.load),
         ("gather_probe_kernel.cu, four kernels (nvcc sm_90a)",
-         gather_probe.load),
+         gather_probe.LIB.load),
         ("gather_probe2_kernel.cu, four kernels (nvcc sm_90a)",
-         gather_probe2.load),
+         gather_probe2.LIB.load),
         ("gather_probe3_kernel.cu, four kernels (nvcc sm_90a)",
-         gather_probe3.load),
-        ("dispatch_probe_kernel.cu (nvcc sm_90a)", dispatch_probe.load),
-        ("pl_probe_kernel.cu, five variants (nvcc sm_90a)", pl_probe.load),
+         gather_probe3.LIB.load),
+        ("dispatch_probe_kernel.cu (nvcc sm_90a)", dispatch_probe.LIB.load),
+        ("pl_probe_kernel.cu, five variants (nvcc sm_90a)", pl_probe.LIB.load),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -531,6 +540,46 @@ def phase_kernel():
                                    over["max_abs_err"])
 
 
+def phase_launch_path():
+    """ops/launch on the card: the raw stream handle it launches on is the
+    caller's current stream, on the default stream and inside
+    torch.cuda.stream(side), and a kernel launched inside `side` (gp3_col0)
+    equals its plain version once `side` has finished."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch.ops import gather_probe3 as gp3
+    from bwamem_tpu_torch.ops import launch
+    index = torch.cuda.current_device()
+    main = launch.raw_stream(index)
+    if main != torch.cuda.current_stream().cuda_stream:
+        raise RuntimeError("launch.raw_stream differs from the default "
+                           "stream's handle")
+    rng = np.random.default_rng(11)
+    tab = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (4096, 8),
+                                        dtype=np.int32)).cuda()
+    k = torch.from_numpy(rng.integers(0, 4096, 1 << 16,
+                                      dtype=np.int32)).cuda()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        handle = launch.raw_stream(index)
+        if handle != torch.cuda.current_stream().cuda_stream \
+                or handle != side.cuda_stream or handle == main:
+            raise RuntimeError(f"inside torch.cuda.stream(side): "
+                               f"launch.raw_stream {handle:#x}, side "
+                               f"{side.cuda_stream:#x}, default {main:#x}")
+        got = gp3.gp3_col0(tab, k)
+    side.synchronize()
+    err = int((got.to(torch.int64) - gp3.col0_plain(tab, k).to(
+        torch.int64)).abs().max().item())
+    log(f"launch path: raw stream {main:#x} on the default stream and "
+        f"{handle:#x} inside side, as torch.cuda.current_stream(); gp3_col0 "
+        f"launched on side vs plain: max_abs_err {err}")
+    if err:
+        raise RuntimeError("gp3_col0 launched on a side stream disagrees "
+                           "with its plain version")
+
+
 def gp_bound(name, x, steps):
     """Least time the card could take for one gather-probe kernel on the
     probe's inputs x: (bound_ms, bound_by, bytes, operations).  Bytes: k
@@ -573,10 +622,11 @@ def gp_bound(name, x, steps):
 def phase_gather_probe():
     """The gather-strategy probe as its users run it
     (tools/torch_pl_gather_probe.probe, launch counts from 0; it checks
-    every kernel against its plain version and times kernel, plain and
-    library with CUDA events), then each kernel held against its plain
-    version once more on the probe's inputs.  Returns the four
-    kernels-line entries."""
+    every kernel against its plain version, gp_onehot also on the inputs
+    of ops/gather_probe.onehot_inputs, and times kernel, plain and library
+    with CUDA events), then each kernel held against its plain version
+    once more on the probe's inputs.  Returns the four kernels-line
+    entries."""
     import torch
     import se_smoke_data as sd
     import torch_pl_gather_probe as probe
@@ -615,18 +665,27 @@ def phase_gather_probe():
         bound_ms, bound_by, nbytes = gp_bound(name, x, GP_STEPS)
         log(f"{name} vs plain: {tuple(want.shape)} outputs, "
             f"{int((got != want).sum())} differ, max_abs_err {err}; kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']} ms, bytes {nbytes}, bound {bound_ms:.6f} ms "
-            f"({bound_by}), kernel / bound {r['ms'] / bound_ms:.1f}")
+            f"{r['ms']:.4f} ms (device alone {r['device_ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bytes "
+            f"{nbytes}, bound {bound_ms:.6f} ms ({bound_by}), device time / "
+            f"bound {r['device_ms'] / bound_ms:.1f}")
         if err:
             raise RuntimeError(f"{name} disagrees with its plain version")
-        entries.append(dict(
-            name=name, route="cuda",
-            source="bwamem_tpu_torch/csrc/gather_probe_kernel.cu",
-            replaces=f"tools/pl_gather_probe.py:{line}",
-            launches=launches[name], max_abs_err=err, ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=r["library_ms"]))
+        e = dict(name=name, route="cuda",
+                 source="bwamem_tpu_torch/csrc/gather_probe_kernel.cu",
+                 replaces=f"tools/pl_gather_probe.py:{line}",
+                 launches=launches[name], max_abs_err=err, ms=r["ms"],
+                 plain_ms=r["plain_ms"], bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=r["library_ms"],
+                 device_ms=r["device_ms"])
+        e.update({k: r[k] for k in ("issue_us", "library_issue_us")
+                  if k in r})
+        if name == "gp_onehot":
+            # the probe's tab3 lies in [0, 255), where bf16 is exact: the
+            # inputs where it rounds, and k outside the table, count too
+            e["max_abs_err"] = max(err, *res["onehot"].values())
+            e["max_abs_err_by_input"] = res["onehot"]
+        entries.append(e)
     return entries
 
 
@@ -760,6 +819,8 @@ def phase_gather_probe2():
             launches=launches[name], max_abs_err=err, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=r["library_ms"], device_ms=r["device_ms"])
+        entries[name].update({k: r[k] for k in ("issue_us",
+                                                "library_issue_us") if k in r})
     tab, k = onehot_edge_inputs(sd.SEED, torch.device("cuda"))
     got = gp2.gp2_onehot_f32(tab, k).to(torch.int64)
     want = gp2.onehot_f32_plain(tab, k).to(torch.int64)
@@ -909,6 +970,8 @@ def phase_gather_probe3():
                  plain_ms=r["plain_ms"], bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=r["library_ms"],
                  device_ms=r["device_ms"])
+        e.update({k: r[k] for k in ("issue_us", "library_issue_us")
+                  if k in r})
         if name == "gp3_mm":
             # max_abs_err is the exact check on integer-valued inputs; the
             # probe's normal inputs are held within their rounding bound
@@ -1894,6 +1957,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(REPO, "tools"))
     t0 = time.perf_counter()
     phase_env()
+    phase_launch_path()
     err_pl2, err_pl = phase_kernel()
     kerns3 = phase_fm_probe()
     kerns_gp = phase_gather_probe()

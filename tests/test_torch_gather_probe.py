@@ -3,12 +3,13 @@ CPU.  The four Pallas kernel bodies of the reference's
 tools/pl_gather_probe.py (:65-157), copied here with N, STEPS and R as
 parameters, run under pl.pallas_call(..., interpret=True) at a small size,
 and each plain version must equal its kernel exactly; so must the lane
-loops of csrc/gather_probe_kernel.cu that compile for the host (gp_scalar,
-gp_scalar2, gp_take_ax0; gp_onehot's tensor-core body is held against its
-plain version on the card, by chip_smoke.py).  The edge cases: table values
-near 2^31 (the int32 wrap, and the sign of the remainder of the take),
-values up to 2^23 for the bf16 rounding of the one-hot product, and k
-outside [0, A * 128) there."""
+loops of csrc/gather_probe_kernel.cu, built for the host (gp_scalar,
+gp_scalar2, gp_take_ax0, and gp_onehot's gather with its bf16 rounding in
+integer arithmetic, held against the one-hot product in interpret mode).
+The edge cases: table values near 2^31 (the int32 wrap, and the sign of
+the remainder of the take), values up to 2^23 for the bf16 rounding of the
+one-hot product, and k outside [0, A * 128) there (ops/gather_probe
+.onehot_inputs, the inputs chip_smoke.py holds the kernel on too)."""
 import ctypes
 
 import numpy as np
@@ -149,28 +150,24 @@ def test_scalar2_plain_matches_pallas(lo, hi):
 
 @pytest.mark.parametrize("case", ["probe", "bf16_rounding", "k_outside"])
 def test_onehot_plain_matches_pallas(case):
-    rng = np.random.default_rng(3)
     A = R // 128
-    hi = {"probe": 255, "bf16_rounding": 1 << 23,
-          "k_outside": 1 << 23}[case]
-    tab3 = rng.integers(-hi if case != "probe" else 0, hi, (A, 128),
-                        dtype=np.int32)
-    if case != "probe":                    # ties to even, and exact zeros
-        tab3[0, :8] = ((1 << 23) - 1, (1 << 23) - 3, 257, 259, 513, -257,
-                       383, 385)
-        tab3[0, 8:16] = 0
-    k = rng.integers(0, A * 128, (N // 128, 128), dtype=np.int32)
-    k[0, :16] = np.arange(16)
-    if case == "k_outside":
-        k[1, :64] = rng.integers(A * 128, 1 << 30, 64)
-        k[1, 64:] = rng.integers(-(1 << 30), 0, 64)
+    tab3, k = gp.onehot_inputs(case, A, N)
     want = pl_mm(jnp.asarray(tab3), jnp.asarray(k), N)
     got = gp.onehot_plain(T(tab3), T(k))
     assert_same(want, got, f"onehot {case}")
+    # the kernel's lane (one load, bf16 rounding by integer arithmetic),
+    # built for the host, against the same product
+    assert_same(want, _host("gp_onehot_host", tab3, k, np.zeros_like(k), N,
+                            A), f"gp_onehot lanes {case}")
     if case == "bf16_rounding":           # bf16 keeps 8 bits: most round
         assert (np.asarray(want) != tab3[k >> 7, k & 127]).mean() > 0.5
     if case == "k_outside":
         assert (np.asarray(got)[1] == 0).all()
+        # and k at both ends of the table and of int32, no product needed
+        tab3, k = gp.onehot_inputs("k_extremes", A, N)
+        assert_same(gp.onehot_plain(T(tab3), T(k)),
+                    _host("gp_onehot_host", tab3, k, np.zeros_like(k), N, A),
+                    "gp_onehot lanes k_extremes")
 
 
 @pytest.mark.parametrize("lo,hi,steps", [(0, 1 << 20, STEPS),

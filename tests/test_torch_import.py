@@ -42,7 +42,7 @@ MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
            "bwamem_tpu_torch.bwasw.ksort", "bwamem_tpu_torch.bwasw.pair",
            "bwamem_tpu_torch.ops.gather_probe3",
            "bwamem_tpu_torch.ops.dispatch_probe",
-           "bwamem_tpu_torch.ops.pl_probe"]
+           "bwamem_tpu_torch.ops.pl_probe", "bwamem_tpu_torch.ops.launch"]
 
 
 def _clean_env():

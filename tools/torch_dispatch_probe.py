@@ -19,12 +19,15 @@ host clocks:
   (b) n in (1, 4, 16) calls enqueued, then one fetch each: the enqueue
       time, the fetch time and the total a call.  Then the port's own
       issue path, on the host clock over ISSUE_CALLS calls: the wrapper
-      whole, its checks and allocation (_prep), the stream lookup (and
-      torch.cuda.current_stream() without the device context beside it),
-      the lookup and ctypes launch (_launch on prepared arguments),
-      against one PyTorch op of the same size (qT + 1, and into a given
-      output) on the same stream; and the time between events of a call
-      of the wrapper and of qT + 1;
+      whole, its checks and allocation (_prep), ops/launch's stream
+      lookup (launch.raw_stream) and device check
+      (torch.cuda.current_device()), the launch on prepared arguments
+      (_launch: check, lookup, ctypes call), beside the lookup the
+      wrappers made before ops/launch (a device context and
+      torch.cuda.current_stream(dev).cuda_stream, written out here) and
+      torch.cuda.current_stream() alone, against one PyTorch op of the
+      same size (qT + 1, and into a given output) on the same stream; and
+      the time between events of a call of the wrapper and of qT + 1;
   (c) D2H against size (1x256, 136x2048, 1024x8192 int32): a * 2, then
       a fetch to pageable memory (the script's) and, non-blocking, to
       pinned memory;
@@ -132,6 +135,7 @@ def probe(seed: int = 0, log=print) -> dict:
     import torch
     sys.path.insert(0, REPO)
     from bwamem_tpu_torch.ops import dispatch_probe as dp
+    from bwamem_tpu_torch.ops import launch
     from torch_pl_gather_probe2 import device_ms, median_ms
 
     smi = subprocess.run(
@@ -182,13 +186,25 @@ def probe(seed: int = 0, log=print) -> dict:
     q8, t8 = x["rows"][ROWS_SWEEP[0]]
     out, args = dp._prep(q8, t8)
     buf = torch.empty_like(q8)
+    index = q8.get_device()
+
+    def old_lookup():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+    if old_lookup() != launch.raw_stream(index):
+        raise RuntimeError("launch.raw_stream differs from the current "
+                           "stream's handle")
     parts = {"wrapper dp_eh (ROWS=8)": lambda: dp.dp_eh(q8, t8),
              "  _prep: checks, torch.empty": lambda: dp._prep(q8, t8),
-             "  stream lookup": lambda: dp.stream_of(dev),
+             "  stream lookup (launch.raw_stream)": lambda:
+                 launch.raw_stream(index),
+             "  device check (current_device())":
+                 torch.cuda.current_device,
+             "  _launch: check, lookup, ctypes, launch": lambda: dp._launch(
+                 out, args),
+             "old lookup (device context, current_stream)": old_lookup,
              "  (current_stream() alone)": lambda:
                  torch.cuda.current_stream().cuda_stream,
-             "  _launch: stream, ctypes, launch": lambda: dp._launch(out,
-                                                                     args),
              "torch op: qT + 1": lambda: q8 + 1,
              "torch op: torch.add(qT, 1, out=)": lambda: torch.add(
                  q8, 1, out=buf)}
@@ -196,12 +212,12 @@ def probe(seed: int = 0, log=print) -> dict:
     issue_ms = {k: median_ms(parts[k]) for k in
                 ("wrapper dp_eh (ROWS=8)", "torch op: qT + 1")}
     for k, us in issue.items():
-        log(f"issue {k:36s} {us:8.2f} us a call (host clock, "
+        log(f"issue {k:44s} {us:8.2f} us a call (host clock, "
             f"{ISSUE_CALLS} calls)")
     for k, ms in issue_ms.items():
-        log(f"events {k:35s} {ms:8.4f} ms a call")
+        log(f"events {k:43s} {ms:8.4f} ms a call")
     wrap, op = issue["wrapper dp_eh (ROWS=8)"], issue["torch op: qT + 1"]
-    look = issue["  stream lookup"]
+    look = issue["  stream lookup (launch.raw_stream)"]
     log(f"the port's issue path takes {wrap / op:.2f} times a PyTorch op's "
         f"host time; the stream lookup is {look / wrap:.2f} of it")
 

@@ -12,14 +12,22 @@ ops/gather_probe run on the same seeded numpy tables:
 
   gp_scalar    a per-lane 4-byte load, `steps` passes
   gp_scalar2   a per-lane 8-byte row read (two words, added), `steps` passes
-  gp_onehot    one-hot [n_lanes, 624] x bf16 table [624, 128] on the tensor
-               cores, then the pick of one column per lane
+  gp_onehot    the gather the TPU probe's one-hot product computes: one
+               load of the [611, 128] table a lane, rounded to bf16
   gp_take_ax0  a chained take along axis 0 over the whole [R, 128] table,
                `steps` dependent steps
 
 Each kernel's output must equal its plain PyTorch version exactly before
-anything is timed (a difference exits non-zero).  Times are the median of
-5 runs between CUDA events after a warm-up, in ms and us per step, beside
+anything is timed (a difference exits non-zero); gp_onehot also on the
+inputs of ops/gather_probe.onehot_inputs (the CPU tests' cases: values
+where bf16 rounds, its ties, k outside the table and at both ends of
+int32), at the tests' size and at the probe's.  Times are the median of 5
+runs between CUDA events after a warm-up, in ms and us per step, and on
+the device alone (torch_pl_gather_probe2.device_ms: the launch queued
+behind a spin of the card, so the host's issue is off the clock), and for
+the three at a launch's latency on the host clock with their library
+call (`issue_us`, `library_issue_us`: torch_dispatch_probe.issue_us, 200
+calls back to back), beside
 the plain version and, where one exists, a PyTorch call computing the same
 function (torch.gather; for gp_onehot the gather its pick equals,
 torch.take of the bf16-rounded table at k, 0 outside the table; the take
@@ -33,6 +41,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 R = 78208            # table rows (5 Mbp cmb), padded to /128
 W = 8                # words a row of the two-word table
 REPS = 5
@@ -77,14 +86,51 @@ def make_inputs(n_lanes: int, seed: int, device) -> dict:
              ("kfull", kfull))}
 
 
+def check_onehot(n_lanes: int, device, log=print) -> dict:
+    """gp_onehot against onehot_plain on every case of
+    ops/gather_probe.onehot_inputs (seed 3), at the CPU tests' size (A = 8,
+    256 lanes: their inputs) and at the probe's (A = R / 128, n_lanes).
+    Returns {"case A=.. n=..": max_abs_err}; raises on any difference, or
+    when the bf16_rounding case leaves half of its values unrounded."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch.ops import gather_probe as gp
+    errs = {}
+    for case in gp.ONEHOT_CASES:
+        for A, n in ((8, 256), (R // 128, max(n_lanes, 256))):
+            tab3, k = gp.onehot_inputs(case, A, n)
+            t, kk = (torch.from_numpy(x).to(device) for x in (tab3, k))
+            got = gp.gp_onehot(t, kk).to(torch.int64)
+            want = gp.onehot_plain(t, kk).to(torch.int64)
+            torch.cuda.synchronize()
+            label = f"{case} A={A} n={n}"
+            errs[label] = int((got - want).abs().max().item())
+            if errs[label]:
+                raise RuntimeError(f"gp_onehot differs from its plain "
+                                   f"version on {label}: "
+                                   f"{int((got != want).sum())} outputs")
+            if case == "bf16_rounding":
+                raw = tab3[k >> 7, k & 127]
+                share = float((got.cpu().numpy() != raw).mean())
+                if share <= 0.5:
+                    raise RuntimeError(f"{label}: only {share:.2f} of the "
+                                       f"values round in bf16")
+    log(f"gp_onehot vs plain, max_abs_err: {errs}")
+    return errs
+
+
 def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
           log=print) -> dict:
     """Runs the probe on the current CUDA device.  Returns dict(inputs=...
-    (make_inputs), results={kernel: dict(ms, plain_ms, library_ms,
-    max_abs_err)}); raises when a kernel differs from its plain version."""
+    (make_inputs), results={kernel: dict(ms, device_ms, plain_ms,
+    library_ms, max_abs_err, and but for gp_take_ax0 issue_us,
+    library_issue_us)}, onehot=check_onehot's errors); raises when a
+    kernel differs from its plain version."""
     import torch
     sys.path.insert(0, REPO)
     from bwamem_tpu_torch.ops import gather_probe as gp
+    from torch_dispatch_probe import issue_us
+    from torch_pl_gather_probe2 import device_ms
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,10 +141,8 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
     x = make_inputs(n_lanes, seed, dev)
     tab, tabw, tab3, k, kfull = (x[n] for n in
                                  ("tab", "tabw", "tab3", "k", "kfull"))
-    A = tab3.shape[0]
-    Ap = -(-A // 16) * 16
-    log(f"lanes={n_lanes}, steps={steps}, R={R}, W={W}, A={A} "
-        f"(padded to {Ap}); tab {tab.numel() * 4 / 1e6:.2f} MB")
+    log(f"lanes={n_lanes}, steps={steps}, R={R}, W={W}, A="
+        f"{tab3.shape[0]}; tab {tab.numel() * 4 / 1e6:.2f} MB")
 
     k64 = k.to(torch.int64)
     t3 = tab3.to(torch.bfloat16)          # the product's operand rounding
@@ -139,18 +183,26 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
         raise RuntimeError("the bfloat16 table gather differs from "
                            "onehot_plain")
     log("every kernel equals its plain version on every output")
+    onehot = check_onehot(n_lanes, dev, log)
 
     results = {}
     for name, kern, plain, lib in cases:
-        r = dict(max_abs_err=0, ms=median_ms(kern), plain_ms=median_ms(plain),
+        r = dict(max_abs_err=0, ms=median_ms(kern), device_ms=device_ms(kern),
+                 plain_ms=median_ms(plain),
                  library_ms=None if lib is None else median_ms(lib))
         results[name] = r
         per = steps if name != "gp_onehot" else 1
         lib_txt = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
         log(f"{name:12s} kernel {r['ms']:9.4f} ms ({r['ms'] / per * 1e3:9.3f}"
-            f" us/step), plain {r['plain_ms']:9.4f} ms, library {lib_txt}")
-    return dict(inputs=x, results=results)
+            f" us/step), on the device alone {r['device_ms']:9.4f} ms, plain "
+            f"{r['plain_ms']:9.4f} ms, library {lib_txt}")
+        if name != "gp_take_ax0":
+            r.update(issue_us=issue_us(kern), library_issue_us=None
+                     if lib is None else issue_us(lib))
+            log(f"{name:12s} host issue {r['issue_us']:.2f} us a call, "
+                f"library {r['library_issue_us']} us")
+    return dict(inputs=x, results=results, onehot=onehot)
 
 
 def main() -> int:

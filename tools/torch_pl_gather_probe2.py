@@ -27,7 +27,10 @@ torch.gather, add and remainder for B and C, tab[k, 0] for D, and for E
 the gather the one-hot product's pick equals: torch.take of the table at
 k (row k >> 7, column k & 127), 0 where k lies outside the table.  Each kernel's call is also timed on the device alone
 (`device_ms`: the events and the launch are queued behind a 1 ms spin of
-the card, so the host's cost of issuing the call is off the clock).  The
+the card, so the host's cost of issuing the call is off the clock), and
+D's, at a launch's latency on the device, also on the host clock with its
+library call (`issue_us`, `library_issue_us`:
+torch_dispatch_probe.issue_us, 200 calls back to back).  The
 card's name and power limit are printed first.  Needs a CUDA device;
 exits non-zero without one.
 """
@@ -154,11 +157,13 @@ def cases(x: dict, steps: int) -> list:
 def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
     """Runs the probe on the current CUDA device.  Returns dict(inputs=...
     (make_inputs), results={label: dict(name, ms, device_ms, plain_ms,
-    library_ms, max_abs_err, steps)}, a_ms=probe A's chain); raises when a
-    kernel or a library call differs from its plain version.  Each kernel
-    launches 12 times a shape: 1 check, 1 warm-up and 5 timed calls, then
-    5 timed on the device alone."""
+    library_ms, max_abs_err, steps)}, D's also with issue_us and
+    library_issue_us, a_ms=probe A's chain); raises when a kernel or a
+    library call differs from its plain version.  Each kernel launches 12
+    times a shape: 1 check, 1 warm-up and 5 timed calls, then 5 timed on
+    the device alone; D 201 more for its issue."""
     import torch
+    from torch_dispatch_probe import issue_us
     sys.path.insert(0, REPO)
 
     smi = subprocess.run(
@@ -192,6 +197,10 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
             f"({r['ms'] / per * 1e3:8.3f} us/step), on the device alone "
             f"{r['device_ms']:8.4f} ms, plain {r['plain_ms']:8.4f} ms, "
             f"library {r['library_ms']:8.4f} ms")
+        if name == "gp2_col0":
+            r.update(issue_us=issue_us(kern), library_issue_us=issue_us(lib))
+            log(f"{label:24s} host issue {r['issue_us']:.2f} us a call, "
+                f"library {r['library_issue_us']:.2f} us")
     a_ms = median_ms(lambda: torch_chain(x["a_tab"], x["a_kk"], steps, 0))
     log(f"{'A torch.gather [611,128]':24s} chain   {a_ms:8.4f} ms "
         f"({a_ms / steps * 1e3:8.3f} us/step), issued from PyTorch (no "

@@ -28,8 +28,11 @@ function: the 512-step chain of torch.gather, add and clamp (for 7B with
 the transpose) issued from PyTorch, tab[k, 0] for 7C, and for 7D
 torch.matmul(a[:8], b) followed by the 64 additions (TF32 off).  Each
 kernel's call is also timed on the device alone (`device_ms`: the events
-and the launch are queued behind a 1 ms spin of the card).  The card's
-name and power limit are printed first.  Needs a CUDA device; exits
+and the launch are queued behind a 1 ms spin of the card), and 7C's, at a
+launch's latency on the device, also on the host clock with its library
+call (`issue_us`, `library_issue_us`: torch_dispatch_probe.issue_us, 200
+calls back to back), which is what its call between events mostly is.
+The card's name and power limit are printed first.  Needs a CUDA device; exits
 non-zero without one.
 """
 from __future__ import annotations
@@ -152,10 +155,12 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
     library_ms, max_abs_err, tolerance, steps)} for the timed cases,
     checks={label: (max_abs_err, tolerance)} for every case); raises when
     a kernel or a library call differs from its plain version by more
-    than the case's tolerance.  Each kernel launches 12 times a timed case
-    (1 check, 1 warm-up and 5 timed calls, then 5 on the device alone)
-    and once an untimed one."""
+    than the case's tolerance; 7C's result also has issue_us and
+    library_issue_us.  Each kernel launches 12 times a timed case (1
+    check, 1 warm-up and 5 timed calls, then 5 on the device alone), 201
+    more for 7C's issue, and once an untimed case."""
     import torch
+    from torch_dispatch_probe import issue_us
     from torch_pl_gather_probe2 import device_ms, median_ms
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -201,6 +206,10 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
             f"({r['ms'] / per * 1e3:8.3f} us/step), on the device alone "
             f"{r['device_ms']:8.4f} ms, plain {r['plain_ms']:8.4f} ms, "
             f"library {r['library_ms']:8.4f} ms")
+        if name == "gp3_col0":
+            r.update(issue_us=issue_us(kern), library_issue_us=issue_us(lib))
+            log(f"{label:34s} host issue {r['issue_us']:.2f} us a call, "
+                f"library {r['library_issue_us']:.2f} us")
     return dict(inputs=x, results=results, checks=checks)
 
 
