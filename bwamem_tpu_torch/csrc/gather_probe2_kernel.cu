@@ -22,35 +22,34 @@
 //                  system-scope loads of gather_probe_kernel.cu.
 //   gp2_onehot_f32 (kernel in probe_e, :150) out[q] = int(m1[q, k[q] & 127])
 //                  with m1 = f32(onehot(k >> 7, A)) @ f32(tab), tab [A,128].
-//                  The one-hot product in float32 FMA on the CUDA cores, not
-//                  on the tensor cores: TF32 keeps 11 significant bits and
-//                  would round every value from 2^11 on (the probe's reach
-//                  2^20), while each of these sums is exact — one term is
-//                  1 x f32(v), every other term adds 0 — so m1[q, c] is
-//                  f32(tab[k >> 7, c]) as in the TPU kernel, and 0 where
-//                  k >> 7 is outside [0, A).  A block takes E_QT queries and
-//                  128 threads, one a table column; a thread walks the
-//                  depth A, one coalesced table load and E_QT FMAs a row;
-//                  the sums go to shared memory for the pick of column
-//                  k & 127, and float -> int truncates as astype(int32).
+//                  Each sum of that product is exact (one term is
+//                  1 x f32(v), every other term adds 0), so m1[q, c] is
+//                  f32(tab[k >> 7, c]), and 0 where k >> 7 is outside
+//                  [0, A): the product computes a gather, and so does this
+//                  kernel.  A thread a query: k[q] read coalesced, one
+//                  4-byte read-only load of tab at flat index k (row
+//                  k >> 7, column k & 127) where 0 <= k >> 7 < A, the word
+//                  converted int32 -> float32 (to nearest even, as the TPU
+//                  kernel's astype(float32): from 2^24 on it rounds) and
+//                  truncated back to int32 as astype(int32).  Precondition:
+//                  |tab| <= 2^31 - 129, so that f32(v) < 2^31 converts
+//                  back (the host's cast is undefined from 2^31, the
+//                  card's saturates).
 //
 // The add of the chains wraps in 32 bits and the remainder is never
 // negative (jnp's %), as next_k of fm_probe_kernel.cu.
 //
-// What bounds them on an H100 (3.35 TB/s; 67 TFLOP/s float32 outside the
-// tensor cores, at 700 W): the three gathers move under a megabyte (tab,
-// kk in and out: 786 KB for take_ax0 at [512,128], 197 KB for take_ax1 at
-// [128,128], tens of KB for col0 at 1024 lanes), well under a
-// microsecond, so launch latency and the dependent steps of the chains
-// are what one sees.  onehot_f32's function is the same kind of lookup
-// (k, out and at most Q table words, about 12 KB at Q = 1024); this
-// kernel computes it the TPU kernel's way, the whole product, 2 x Q x A x
-// 128 FMA operations (2.5 us at 67 TFLOP/s for Q = 1024, A = 640), so it
-// stands far above its bound by design.
+// What bounds them on an H100 (3.35 TB/s at 700 W): bytes, and all four
+// move under a megabyte (tab, kk in and out: 786 KB for take_ax0 at
+// [512,128], 197 KB for take_ax1 at [128,128], tens of KB for col0 at 1024
+// lanes; for onehot_f32 k, out and at most Q table words, about 12 KB at
+// Q = 1024), well under a microsecond, so launch latency and the dependent
+// steps of the chains are what one sees.  onehot_f32 does not make the TPU
+// kernel's whole product (2 x Q x A x 128 FMA operations).
 //
 // The same source compiles as host C++ (no __CUDACC__), exposing the lane
-// loops of gp2_take_ax0, gp2_take_ax1 and gp2_col0 as *_host entries, so
-// the CPU tests check their arithmetic without a card.
+// loops of all four as *_host entries, so the CPU tests check their
+// arithmetic without a card.
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -82,6 +81,16 @@ static GP_HD inline int chain(const int* words, long long stride, int kk,
 static GP_HD inline int col0_lane(const int* __restrict__ tab,
                                   const int* __restrict__ k, int q, int W) {
   return GP_LDG(tab + (long long)k[q] * W);
+}
+
+// lane of gp2_onehot_f32 for the query kq: f32(tab.flat[kq]) truncated to
+// int, 0 where row kq >> 7 (an arithmetic shift) is outside [0, A); the
+// flat index kq equals (kq >> 7) * 128 + (kq & 127)
+static GP_HD inline int onehot_f32_lane(const int* __restrict__ tab, int kq,
+                                        int A) {
+  const int hi = kq >> 7;
+  const int v = (0 <= hi && hi < A) ? GP_LDG(tab + kq) : 0;
+  return (int)(float)v;
 }
 
 #ifdef __CUDACC__
@@ -117,42 +126,18 @@ gp2_col0_kernel(const int* __restrict__ tab, const int* __restrict__ k,
   if (q < N) out[q] = col0_lane(tab, k, q, W);
 }
 
-namespace {
-constexpr int E_QT = 8;                 // queries a block
-}
-
 __global__ void __launch_bounds__(128)
 gp2_onehot_f32_kernel(const int* __restrict__ tab,
                       const int* __restrict__ k, int* __restrict__ out,
-                      int A) {
-  __shared__ int k_s[E_QT];
-  __shared__ float m1[E_QT][128];
-  const int c = threadIdx.x, q0 = blockIdx.x * E_QT;
-  if (c < E_QT) k_s[c] = k[q0 + c];
-  __syncthreads();
-  int hi[E_QT];
-  float acc[E_QT];
-#pragma unroll
-  for (int qi = 0; qi < E_QT; ++qi) {
-    hi[qi] = k_s[qi] >> 7;                       // arithmetic shift
-    acc[qi] = 0.0f;
-  }
-  for (int a = 0; a < A; ++a) {
-    const float v = (float)__ldg(tab + (long long)a * 128 + c);
-#pragma unroll
-    for (int qi = 0; qi < E_QT; ++qi)
-      acc[qi] = fmaf(hi[qi] == a ? 1.0f : 0.0f, v, acc[qi]);
-  }
-#pragma unroll
-  for (int qi = 0; qi < E_QT; ++qi) m1[qi][c] = acc[qi];
-  __syncthreads();
-  if (c < E_QT) out[q0 + c] = (int)m1[c][k_s[c] & 127];
+                      int N, int A) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < N) out[q] = onehot_f32_lane(tab, __ldg(k + q), A);
 }
 
 // C entries for ctypes: device pointers; each returns cudaGetLastError()
 // after the launch on the caller's stream.  The wrappers in
-// ops/gather_probe2.py check shapes (the 128-column tables, N a multiple
-// of E_QT for the one-hot product, R words of shared memory at most).
+// ops/gather_probe2.py check shapes (the 128-column tables, R words of
+// shared memory at most).
 extern "C" int gp2_take_ax0(const int* tab, const int* kk0, int* out, int R,
                             int steps, void* stream) {
   const size_t smem = (size_t)R * sizeof(int);
@@ -188,8 +173,8 @@ extern "C" int gp2_col0(const int* tab, const int* k, int* out, int N, int W,
 extern "C" int gp2_onehot_f32(const int* tab, const int* k, int* out, int N,
                               int A, void* stream) {
   if (N > 0)
-    gp2_onehot_f32_kernel<<<N / E_QT, 128, 0, (cudaStream_t)stream>>>(
-        tab, k, out, A);
+    gp2_onehot_f32_kernel<<<(N + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        tab, k, out, N, A);
   return (int)cudaGetLastError();
 }
 
@@ -213,6 +198,12 @@ extern "C" int gp2_take_ax1_host(const int* tab, const int* kk0, int* out,
 extern "C" int gp2_col0_host(const int* tab, const int* k, int* out, int N,
                              int W) {
   for (int q = 0; q < N; ++q) out[q] = col0_lane(tab, k, q, W);
+  return 0;
+}
+
+extern "C" int gp2_onehot_f32_host(const int* tab, const int* k, int* out,
+                                   int N, int A) {
+  for (int q = 0; q < N; ++q) out[q] = onehot_f32_lane(tab, k[q], A);
   return 0;
 }
 

@@ -2,14 +2,17 @@
 // a table row per lane, each priced on its own.  They replace the four TPU
 // probe kernels of tools/pl_gather_probe.py, one __global__ each:
 //
-//   gp_scalar    (kernel_scalar, :65)   out[i,j] = tab[k[i,j], j], the pass
-//                repeated `steps` times; tab [R,128], k and out [N/128,128].
-//                On Hopper: one thread per lane, an uncoalesced 4-byte load
-//                per lane from L2 (the 40 MB table of the probe stays there
-//                after the first pass).
+//   gp_scalar    (kernel_scalar, :65)   out[i,j] = tab[k[i,j], j]; tab
+//                [R,128], k and out [N/128,128].  The TPU kernel rewrites
+//                the same output `STEPS` times to price a pass (its script
+//                divides by STEPS); the output does not depend on it, so
+//                this kernel makes one pass: a thread a lane, k read
+//                coalesced, one 4-byte read-only load of the table a lane
+//                (uncoalesced: each lane its own row), a coalesced store.
 //   gp_scalar2   (kernel_scalarw, :93)  out = tab[k,0] + tab[k,1], the add
 //                wrapping in 32 bits; tab [R,W].  A short row read: one
-//                8-byte load per lane.
+//                8-byte load per lane, the pass repeated `steps` times as
+//                the TPU kernel's loop does.
 //   gp_onehot    (kernel_mm, :120)      out = int(bf16(tab3[k>>7, k&127])),
 //                0 where k>>7 is outside [0, A); tab3 [A,128].  The TPU
 //                kernel prices its matrix unit: a one-hot [N, A] times the
@@ -37,9 +40,10 @@
 // words: 0.000029 ms), so a launch's own latency is all one sees;
 // gp_take_ax0 moves 120 MB (table, kk in, kk out), ~0.036 ms.
 //
-// gp_scalar and gp_scalar2 must issue every pass's loads, as the TPU
-// kernel's loop does: they load through volatile PTX (ld.volatile) with a
-// memory clobber, which nvcc may neither hoist out of the loop nor merge.
+// gp_scalar2 must issue every pass's loads, as the TPU kernel's loop
+// does: it loads through volatile PTX (ld.volatile) with a memory clobber,
+// which nvcc may neither hoist out of the loop nor merge.  gp_scalar has
+// no loop and loads through the read-only path (__ldg).
 //
 // The same source compiles as host C++ (no __CUDACC__), exposing the lane
 // loops of all four as *_host entries, so the CPU tests check their
@@ -93,13 +97,9 @@ static inline void ld_volatile2(const int* p, int& a, int& b) {
 #endif
 
 // lane q of gp_scalar: row k[q], column q & 127 of the 128-column table
-static GP_HD inline void scalar_lane(const int* tab, const int* k, int* out,
-                                     int q, int steps) {
-  const int j = q & 127;
-  for (int s = 0; s < steps; ++s) {
-    const int r = ld_volatile(k + q);
-    out[q] = ld_volatile(tab + (long long)r * 128 + j);
-  }
+static GP_HD inline int scalar_lane(const int* __restrict__ tab,
+                                    const int* __restrict__ k, int q) {
+  return GP_LDG(tab + (long long)GP_LDG(k + q) * 128 + (q & 127));
 }
 
 // lane q of gp_scalar2: words 0 and 1 of row k[q] of the W-word table
@@ -155,9 +155,10 @@ static GP_HD inline int onehot_lane(const int* __restrict__ tab3, int kq,
 #ifdef __CUDACC__
 
 __global__ void __launch_bounds__(128)
-gp_scalar_kernel(const int* tab, const int* k, int* out, int N, int steps) {
+gp_scalar_kernel(const int* __restrict__ tab, const int* __restrict__ k,
+                 int* __restrict__ out, int N) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q < N) scalar_lane(tab, k, out, q, steps);
+  if (q < N) out[q] = scalar_lane(tab, k, q);
 }
 
 __global__ void __launch_bounds__(128)
@@ -185,10 +186,10 @@ gp_onehot_kernel(const int* __restrict__ tab3, const int* __restrict__ k,
 // after the launch on the caller's stream.  The wrappers in
 // ops/gather_probe.py check shapes (N a multiple of 128).
 extern "C" int gp_scalar(const int* tab, const int* k, int* out, int N,
-                         int steps, void* stream) {
+                         void* stream) {
   if (N > 0)
     gp_scalar_kernel<<<(N + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        tab, k, out, N, steps);
+        tab, k, out, N);
   return (int)cudaGetLastError();
 }
 
@@ -220,9 +221,9 @@ extern "C" int gp_take_ax0(const int* tab, const int* kk0, int* out, int R,
 #else
 
 // Host builds of the lane loops (all pointers are host memory).
-extern "C" int gp_scalar_host(const int* tab, const int* k, int* out, int N,
-                              int steps) {
-  for (int q = 0; q < N; ++q) scalar_lane(tab, k, out, q, steps);
+extern "C" int gp_scalar_host(const int* tab, const int* k, int* out,
+                              int N) {
+  for (int q = 0; q < N; ++q) out[q] = scalar_lane(tab, k, q);
   return 0;
 }
 

@@ -17,8 +17,10 @@ the reference package's tools/pl_gather_probe.py:
                                      times, over a table-shaped kk [R, 128]
 
 k is int32 [N/128, 128] (N lanes, lane q at row q // 128, column q % 128);
-every table is int32.  gp_scalar and gp_scalar2 repeat their pass `steps`
-times, as the TPU kernels do (the output does not depend on it; steps >= 1).
+every table is int32.  gp_scalar computes one pass: the TPU kernel repeats
+its pass STEPS times only to price one, and the output does not depend on
+it.  Only gp_scalar2 repeats its pass `steps` times, as its TPU kernel
+does (steps >= 1).
 Preconditions the kernels do not check (a plain version raises on the
 first): k in [0, R) for gp_scalar and gp_scalar2, kk in [0, R) for
 gp_take_ax0, and |tab3| < 2^24 for gp_onehot — there int32 -> float ->
@@ -39,11 +41,11 @@ import torch
 from bwamem_tpu_torch.ops.launch import Library
 
 COLS = 128                  # columns of k, tab and tab3; lanes per k row
-# (in, in, out, ints): (N, steps) for gp_scalar, (N, W, steps) for
-# gp_scalar2, (N, A) for gp_onehot, (R, steps) for gp_take_ax0
+# (in, in, out, ints): (N) for gp_scalar, (N, W, steps) for gp_scalar2,
+# (N, A) for gp_onehot, (R, steps) for gp_take_ax0
 LIB = Library("gather_probe_kernel.cu", {
     name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int
-    for name, n_int in (("gp_scalar", 2), ("gp_scalar2", 3),
+    for name, n_int in (("gp_scalar", 1), ("gp_scalar2", 3),
                         ("gp_onehot", 2), ("gp_take_ax0", 2))})
 SRC = LIB.src
 
@@ -141,24 +143,23 @@ def _check(name: str, t: torch.Tensor, what: str, *, cols=None, dev=None):
                          + f", got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _prep_lanes(name, tab, k, steps, tab_cols=COLS):
+def _prep_lanes(name, tab, k, tab_cols=COLS):
     _check(name, tab, "tab", cols=tab_cols)
     _check(name, k, "k", cols=COLS, dev=tab.get_device())
-    if steps < 1:
-        raise ValueError(f"{name}: steps {steps} < 1")
     if tab.shape[0] < 1:
         raise ValueError(f"{name}: empty table")
     out = torch.empty_like(k)
     return out, (tab.data_ptr(), k.data_ptr(), out.data_ptr(), k.numel())
 
 
-def _prep_scalar(tab, k, steps):
-    out, args = _prep_lanes("gp_scalar", tab, k, steps)
-    return out, args + (int(steps),)
+def _prep_scalar(tab, k):
+    return _prep_lanes("gp_scalar", tab, k)
 
 
 def _prep_scalar2(tab, k, steps):
-    out, args = _prep_lanes("gp_scalar2", tab, k, steps, tab_cols=None)
+    if steps < 1:
+        raise ValueError(f"gp_scalar2: steps {steps} < 1")
+    out, args = _prep_lanes("gp_scalar2", tab, k, tab_cols=None)
     W = tab.shape[1]
     if W < 2 or W % 2 or tab.data_ptr() % 8:
         raise ValueError(f"gp_scalar2: rows of {W} words at "
@@ -167,7 +168,7 @@ def _prep_scalar2(tab, k, steps):
 
 
 def _prep_onehot(tab3, k):
-    out, args = _prep_lanes("gp_onehot", tab3, k, 1)
+    out, args = _prep_lanes("gp_onehot", tab3, k)
     return out, args + (tab3.shape[0],)
 
 
@@ -188,12 +189,13 @@ def _launch(name: str, out: torch.Tensor, args: tuple) -> torch.Tensor:
     return out
 
 
-def gp_scalar(tab: torch.Tensor, k: torch.Tensor, steps: int) -> torch.Tensor:
-    """tab int32 [R, 128], k int32 [N/128, 128] -> tab[k, column]."""
+def gp_scalar(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """tab int32 [R, 128], k int32 [N/128, 128] -> tab[k, column], one
+    pass."""
     if not tab.is_cuda:
         return scalar_plain(tab, k)
     global launches_scalar
-    out = _launch("gp_scalar", *_prep_scalar(tab, k, steps))
+    out = _launch("gp_scalar", *_prep_scalar(tab, k))
     launches_scalar += 1
     return out
 

@@ -15,13 +15,19 @@ package's tools/pl_gather_probe2.py:
   gp2_onehot_f32  (probe_e, :150)  out[q] = int(f32(onehot(k >> 7, A)) @
                                    f32(tab))[q, k & 127]); tab int32
                                    [A, 128], k and out int32 [N/128, 128];
-                                   0 where k >> 7 is outside [0, A)
+                                   0 where k >> 7 is outside [0, A).  Each
+                                   sum of that product is exact, so it is
+                                   the gather int(f32(tab.flat[k])), and
+                                   the kernel computes it so: one load a
+                                   query, no product
 
 Preconditions the kernels do not check (a plain version raises on the
 first two): kk in [0, R) for gp2_take_ax0 and in [0, 128) for
-gp2_take_ax1, k in [0, R) for gp2_col0, and |tab| < 2^24 for
-gp2_onehot_f32, where float32 holds every value exactly.  The adds of the
-chains wrap in int32 and the remainder is never negative (jnp's %).
+gp2_take_ax1, k in [0, R) for gp2_col0, and |tab| <= 2^31 - 129 for
+gp2_onehot_f32, so that f32(tab) < 2^31 converts back to int32 (from 2^24
+on float32 rounds, to nearest even, as the TPU kernel's astype does).
+The adds of the chains wrap in int32 and the remainder is never negative
+(jnp's %).
 
 On a CUDA tensor each wrapper launches its kernel and counts the launch
 (launches_*); on a CPU tensor it runs the plain version and counts nothing.
@@ -53,7 +59,6 @@ launches_take0 = 0      # kernel launches by gp2_take_ax0 (CUDA tensors)
 launches_take1 = 0      # ... by gp2_take_ax1
 launches_col0 = 0       # ... by gp2_col0
 launches_onehot = 0     # ... by gp2_onehot_f32
-
 
 
 # ---- plain versions ----
@@ -188,7 +193,7 @@ def gp2_col0(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def gp2_onehot_f32(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """tab int32 [A, 128], k int32 [N/128, 128] -> the float32 one-hot
-    product's pick (see onehot_f32_plain)."""
+    product's pick (see onehot_f32_plain), computed as the gather it is."""
     if not tab.is_cuda:
         return onehot_f32_plain(tab, k)
     global launches_onehot

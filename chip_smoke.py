@@ -28,22 +28,25 @@ Three phases; any failure exits non-zero without printing a result.
    A kernel must equal its plain PyTorch version; both are timed with
    CUDA events.
 2b. The gather-strategy probe (tools/torch_pl_gather_probe.py) at the TPU
-   script's defaults (8192 lanes, 16 passes, a table of 78208 rows; tables
-   from numpy with the smoke seed): gp_scalar, gp_scalar2, gp_onehot and
-   gp_take_ax0, each launched by the probe (counts from 0), then held
-   against its plain version (max_abs_err 0) and reported with the
-   probe's CUDA-event times (and on the device alone), its plain and
-   library times and its bound; gp_onehot is also held on the CPU tests'
-   inputs, where bf16 rounds and k lies outside the table and at both
-   ends of int32 (ops/gather_probe.onehot_inputs), at their size and at
-   the probe's.
+   script's defaults (8192 lanes, 16 passes for gp_scalar2 and the take,
+   a table of 78208 rows; tables from numpy with the smoke seed):
+   gp_scalar (one pass: the TPU kernel's passes only price one), gp_scalar2,
+   gp_onehot and gp_take_ax0, each launched by the probe (counts from 0),
+   then held against its plain version (max_abs_err 0) and reported with
+   the probe's CUDA-event times (and on the device alone), its plain and
+   library times (5b's library call two ops) and its bound; gp_onehot is
+   also held on the CPU tests' inputs, where bf16 rounds and k lies
+   outside the table and at both ends of int32
+   (ops/gather_probe.onehot_inputs), at their size and at the probe's.
 2c. Round 2 of the gather probe (tools/torch_pl_gather_probe2.py) at the
    TPU script's defaults (32 steps; B on [512,128], C on [128,128] and
    [8,128], D on 1024 lanes of a [78208,8] table, E with Q = 1024 and
-   A = 640): gp2_take_ax0, gp2_take_ax1, gp2_col0 and gp2_onehot_f32, the
-   same way, each also timed on the device alone; gp2_onehot_f32 is also
-   held on a small input past the probe's range (table values up to
-   +-2^23, k at both ends of the table and outside it).
+   A = 640): gp2_take_ax0, gp2_take_ax1, gp2_col0 and gp2_onehot_f32 (the
+   gather the TPU kernel's float32 one-hot product computes), the same way,
+   each also timed on the device alone; gp2_onehot_f32 is also held on a
+   small input past the probe's range (table values up to +-2^23, and in
+   (2^24, 2^30) with float32 ties, where int32 -> float32 rounds; k at both
+   ends of the table and outside it).
 2d. Round 3 of the gather probe (tools/torch_pl_gather_probe3.py) at the
    TPU script's shapes (512 steps; the clipped chain on B8 [8,128] and B32
    [32,128] along axis 0 and C512 [128,512] along axis 1, the transpose
@@ -593,10 +596,10 @@ def gp_bound(name, x, steps):
     import torch
     k = x["k"].reshape(-1).to(torch.int64)
     n = k.numel()
-    if name == "gp_scalar":
+    if name == "gp_scalar":                # one pass
         words = torch.unique(k * 128 + torch.arange(n, device=k.device) % 128)
         nbytes = 4 * (2 * n + words.numel())
-        t_ops = n * steps * 2 / PEAK_INT32_OPS * 1e3
+        t_ops = n * 2 / PEAK_INT32_OPS * 1e3
     elif name == "gp_scalar2":
         nbytes = 4 * 2 * n + 8 * torch.unique(k).numel()
         t_ops = n * steps * 3 / PEAK_INT32_OPS * 1e3
@@ -644,7 +647,7 @@ def phase_gather_probe():
     if min(launches.values()) <= 0:
         raise RuntimeError("the gather probe never launched a kernel")
     x = res["inputs"]
-    held = {"gp_scalar": (lambda: gp.gp_scalar(x["tab"], x["k"], GP_STEPS),
+    held = {"gp_scalar": (lambda: gp.gp_scalar(x["tab"], x["k"]),
                           lambda: gp.scalar_plain(x["tab"], x["k"]), 65),
             "gp_scalar2": (lambda: gp.gp_scalar2(x["tabw"], x["k"],
                                                  GP_STEPS),
@@ -730,10 +733,16 @@ def gp2_bound(name, tab, k, steps):
             "bytes", int(nbytes))
 
 
+EDGE_BIG_ROWS = 12           # rows of the edge table with |v| in (2^24, 2^30)
+
+
 def onehot_edge_inputs(seed, dev):
     """A small input for gp2_onehot_f32 past the probe's range: A = 24,
     tab in (-2^23, 2^23) with 2049, 4097 and their negatives in it (values
-    a TF32 product would round), and k [2, 128] with 0, A x 128 - 1 and
+    a TF32 product would round), its last EDGE_BIG_ROWS rows with |v| in
+    (2^24, 2^30), where int32 -> float32 rounds, and the float32 ties
+    2^24 + 1, 2^24 + 3, 2^25 + 2, -(2^24 + 1) and the precondition's end
+    2^31 - 129 in row 0; k [2, 128] with 0, A x 128 - 1, the ties and
     values below 0, at A x 128 and near +-2^31 (rows outside the table,
     which give 0)."""
     import numpy as np
@@ -742,9 +751,16 @@ def onehot_edge_inputs(seed, dev):
     rng = np.random.default_rng(seed)
     tab = rng.integers(-(1 << 23) + 1, 1 << 23, (A, 128), dtype=np.int32)
     tab.flat[:4] = (2049, 4097, -2049, -4097)
+    big = rng.integers((1 << 24) + 1, 1 << 30, (EDGE_BIG_ROWS, 128),
+                       dtype=np.int32)
+    tab[-EDGE_BIG_ROWS:] = np.where(rng.integers(0, 2, big.shape) == 1, big,
+                                    -big)
+    tab.flat[4:9] = ((1 << 24) + 1, (1 << 24) + 3, (1 << 25) + 2,
+                     -((1 << 24) + 1), (1 << 31) - 129)
     k = rng.integers(-300, A * 128 + 300, (2, 128), dtype=np.int32)
     k.flat[:8] = (0, 1, 2, 3, A * 128 - 1, -1, A * 128, -(1 << 31))
     k.flat[8] = (1 << 31) - 1
+    k.flat[9:14] = np.arange(4, 9)
     return torch.from_numpy(tab).to(dev), torch.from_numpy(k).to(dev)
 
 
@@ -825,12 +841,24 @@ def phase_gather_probe2():
     got = gp2.gp2_onehot_f32(tab, k).to(torch.int64)
     want = gp2.onehot_f32_plain(tab, k).to(torch.int64)
     err = int((got - want).abs().max().item())
+    # of the picked words past 2^24, the share that float32 rounds
+    hi = (k >> 7).to(torch.int64)
+    inside = (hi >= 0) & (hi < tab.shape[0])
+    raw = tab.reshape(-1)[k.to(torch.int64).clamp(0, tab.numel() - 1)]
+    big = inside & (raw.to(torch.int64).abs() > (1 << 24))
+    rounded = float((want != raw.to(torch.int64))[big].float().mean())
     log(f"E onehot_f32 edge input ({tuple(tab.shape)} table in (-2^23, "
-        f"2^23), k {tuple(k.shape)} at the ends and outside) vs plain: "
-        f"{int((got != want).sum())} differ, max_abs_err {err}")
+        f"2^23), {EDGE_BIG_ROWS} rows in +-(2^24, 2^30) with float32 ties, "
+        f"k {tuple(k.shape)} at the ends and outside) vs plain: "
+        f"{int((got != want).sum())} differ, max_abs_err {err}; "
+        f"{int(big.sum())} picked words past 2^24, {rounded:.2f} of them "
+        f"rounded")
     if err:
         raise RuntimeError("gp2_onehot_f32 disagrees with its plain version "
                            "on the edge input")
+    if not rounded > 0.5:
+        raise RuntimeError("the edge input leaves most words past 2^24 "
+                           "unrounded")
     e = entries["gp2_onehot_f32"]
     e["max_abs_err"] = max(e["max_abs_err"], err)
     return list(entries.values()), entries["gp2_col0"]

@@ -3,7 +3,8 @@ CPU.  The four Pallas kernel bodies of the reference's
 tools/pl_gather_probe.py (:65-157), copied here with N, STEPS and R as
 parameters, run under pl.pallas_call(..., interpret=True) at a small size,
 and each plain version must equal its kernel exactly; so must the lane
-loops of csrc/gather_probe_kernel.cu, built for the host (gp_scalar,
+loops of csrc/gather_probe_kernel.cu, built for the host (gp_scalar's one
+pass, held against kernel_scalar's STEPS passes in interpret mode,
 gp_scalar2, gp_take_ax0, and gp_onehot's gather with its bf16 rounding in
 integer arithmetic, held against the one-hot product in interpret mode).
 The edge cases: table values near 2^31 (the int32 wrap, and the sign of
@@ -136,6 +137,10 @@ def test_scalar_plain_matches_pallas(lo, hi):
     tab, _, k, _ = _inputs(1, lo, hi)
     want = pl_scalar(jnp.asarray(tab), jnp.asarray(k), N, STEPS)
     assert_same(want, gp.scalar_plain(T(tab), T(k)), "scalar")
+    # the kernel's one pass, built for the host, against STEPS > 1 passes
+    assert STEPS > 1
+    assert_same(want, _host("gp_scalar_host", tab, k, np.zeros_like(k), N),
+                "gp_scalar lanes")
 
 
 @pytest.mark.parametrize("lo,hi", [(0, 1 << 20), ((1 << 31) - 64, 1 << 31),
@@ -187,7 +192,7 @@ def test_take_ax0_plain_matches_pallas(lo, hi, steps):
 def test_kernel_source_scalar_lanes_match_plain(lo, hi):
     tab, tabw, k, _ = _inputs(5, lo, hi)
     assert_same(gp.scalar_plain(T(tab), T(k)),
-                _host("gp_scalar_host", tab, k, np.zeros_like(k), N, 2),
+                _host("gp_scalar_host", tab, k, np.zeros_like(k), N),
                 "gp_scalar lanes")
     assert_same(gp.scalar2_plain(T(tabw), T(k)),
                 _host("gp_scalar2_host", tabw, k, np.zeros_like(k), N, 8, 2),
@@ -213,7 +218,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
     names = ("launches_scalar", "launches_scalar2", "launches_onehot",
              "launches_take")
     before = [getattr(gp, n) for n in names]
-    assert torch.equal(gp.gp_scalar(tab, k, STEPS), gp.scalar_plain(tab, k))
+    assert torch.equal(gp.gp_scalar(tab, k), gp.scalar_plain(tab, k))
     assert torch.equal(gp.gp_scalar2(tabw, k, STEPS),
                        gp.scalar2_plain(tabw, k))
     assert torch.equal(gp.gp_onehot(tab3, k), gp.onehot_plain(tab3, k))
@@ -224,7 +229,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     tab, tabw, k, kfull = (T(a) for a in _inputs(8))
-    good = {"scalar": (gp._prep_scalar, dict(tab=tab, k=k, steps=2)),
+    good = {"scalar": (gp._prep_scalar, dict(tab=tab, k=k)),
             "scalar2": (gp._prep_scalar2, dict(tab=tabw, k=k, steps=2)),
             "onehot": (gp._prep_onehot, dict(tab3=tab[:8], k=k)),
             "take": (gp._prep_take, dict(tab=tab, kk=kfull, steps=2))}
@@ -237,7 +242,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
            ("scalar", dict(k=k[:, :64].contiguous())),
            ("scalar", dict(k=k.t())),
            ("scalar", dict(k=k.reshape(-1))),
-           ("scalar", dict(steps=0)),
+           ("scalar2", dict(steps=0)),
            ("scalar2", dict(tab=tabw[:, :3].contiguous())),
            ("scalar2", dict(tab=tabw.reshape(-1)[1:9 * 8 + 1].reshape(9, 8))),
            ("onehot", dict(tab3=tab[:0])),

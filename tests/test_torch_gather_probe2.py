@@ -3,12 +3,13 @@ the CPU.  The four Pallas kernel bodies of the reference's
 tools/pl_gather_probe2.py (:75-161), copied here with their sizes and
 STEPS as parameters, run under pl.pallas_call(..., interpret=True) at a
 small size, and each plain version must equal its kernel exactly; so must
-the lane loops of csrc/gather_probe2_kernel.cu that compile for the host
-(gp2_take_ax0, gp2_take_ax1, gp2_col0; gp2_onehot_f32's block body is held
-against its plain version on the card, by chip_smoke.py).  The edge cases:
+the lane loops of csrc/gather_probe2_kernel.cu, built for the host
+(gp2_take_ax0, gp2_take_ax1, gp2_col0, and gp2_onehot_f32's gather, held
+against the float32 one-hot product in interpret mode).  The edge cases:
 table values near +-2^31 for the chains (the int32 wrap, and the sign of
-the remainder), values up to 2^23 for the float32 one-hot product, and k
-at 0, at A * 128 - 1 and outside [0, A * 128) there."""
+the remainder), values up to 2^23 for the float32 one-hot product, values
+in (2^24, 2^30) and at float32 ties there, where the int32 -> float32
+conversion rounds, and k at 0, at A * 128 - 1 and outside [0, A * 128)."""
 import ctypes
 
 import numpy as np
@@ -174,13 +175,26 @@ def test_col0_plain_and_lanes_match_pallas(W):
                 "col0 lanes")
 
 
-@pytest.mark.parametrize("case", ["probe", "to_2^23", "k_outside"])
+F32_TIES = ((1 << 24) + 1, (1 << 24) + 3, (1 << 25) + 2, -((1 << 24) + 1),
+            (1 << 31) - 129)
+F32_TIES_ROUNDED = [1 << 24, (1 << 24) + 4, 1 << 25, -(1 << 24),
+                    (1 << 31) - 128]
+
+
+@pytest.mark.parametrize("case", ["probe", "to_2^23", "k_outside",
+                                  "f32_rounding"])
 def test_onehot_f32_plain_matches_pallas(case):
     rng = np.random.default_rng(5)
     A, Q = 20, 512
-    hi = {"probe": 1 << 20, "to_2^23": 1 << 23, "k_outside": 1 << 23}[case]
-    tab = _table(rng, (A, 128), 0 if case == "probe" else -hi, hi)
-    if case != "probe":          # values a TF32 or bf16 product would round
+    if case == "f32_rounding":   # |tab| in (2^24, 2^30): float32 rounds
+        tab = _table(rng, (A, 128), (1 << 24) + 1, 1 << 30)
+        tab = np.where(rng.integers(0, 2, tab.shape) == 1, tab, -tab)
+        tab[0, :5] = F32_TIES    # ties to even, and the precondition's end
+    else:
+        hi = {"probe": 1 << 20, "to_2^23": 1 << 23,
+              "k_outside": 1 << 23}[case]
+        tab = _table(rng, (A, 128), 0 if case == "probe" else -hi, hi)
+    if case in ("to_2^23", "k_outside"):  # a TF32 or bf16 product rounds
         tab[0, :6] = ((1 << 23) - 1, -(1 << 23) + 1, 2049, 4097, -2049, 0)
     k = rng.integers(0, A * 128, (Q // 128, 128), dtype=np.int32)
     k[0, :8] = (0, 1, 2, 3, 4, 5, A * 128 - 1, A * 128 - 128)
@@ -190,8 +204,17 @@ def test_onehot_f32_plain_matches_pallas(case):
     want = np.asarray(pl_e(jnp.asarray(tab), jnp.asarray(k)))
     got = gp2.onehot_f32_plain(T(tab), T(k))
     assert_same(want, got, f"onehot_f32 {case}")
+    # the kernel's lane (one load, the int32 -> float32 -> int32 round
+    # trip), built for the host, against the same product
+    assert_same(want, _host("gp2_onehot_f32_host", tab, k, np.zeros_like(k),
+                            Q, A), f"gp2_onehot_f32 lanes {case}")
     inside = (k >> 7 >= 0) & (k >> 7 < A)
-    assert (want[inside] == tab[(k >> 7)[inside], (k & 127)[inside]]).all()
+    raw = tab[(k >> 7)[inside], (k & 127)[inside]]
+    if case == "f32_rounding":   # a lane that skips the round trip fails
+        assert (want[inside] != raw).mean() > 0.5
+        assert want[0, :5].tolist() == F32_TIES_ROUNDED
+    else:
+        assert (want[inside] == raw).all()
     if case == "k_outside":
         assert (want[1] == 0).all()
 

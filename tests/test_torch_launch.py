@@ -87,7 +87,7 @@ def _cases():
         ("chain_rows", fm_probe, "fm_chain_rows", "launches_rows",
          lambda: fm_probe.chain_rows(cmb, k0, 3, 4 * 128)),
         ("gp_scalar", gp, "gp_scalar", "launches_scalar",
-         lambda: gp.gp_scalar(tab, k, 2)),
+         lambda: gp.gp_scalar(tab, k)),
         ("gp_scalar2", gp, "gp_scalar2", "launches_scalar2",
          lambda: gp.gp_scalar2(tabw, k, 2)),
         ("gp_onehot", gp, "gp_onehot", "launches_onehot",

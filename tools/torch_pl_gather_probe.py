@@ -4,13 +4,15 @@
     python3 tools/torch_pl_gather_probe.py [n_lanes] [steps]
 
 The counterpart of tools/pl_gather_probe.py (the TPU probe) with its
-shapes: n_lanes lanes (8192, a multiple of 128), `steps` passes (16), a
-table of R = 78208 rows (the combined rows of a 5 Mbp index, padded to a
-multiple of 128), W = 8 words a row for the two-word read, and A = R / 128
-= 611 rows for the one-hot product.  The four hand-written CUDA kernels of
-ops/gather_probe run on the same seeded numpy tables:
+shapes: n_lanes lanes (8192, a multiple of 128), `steps` passes (16) for
+the two kernels that repeat one, a table of R = 78208 rows (the combined
+rows of a 5 Mbp index, padded to a multiple of 128), W = 8 words a row for
+the two-word read, and A = R / 128 = 611 rows for the one-hot product.
+The four hand-written CUDA kernels of ops/gather_probe run on the same
+seeded numpy tables:
 
-  gp_scalar    a per-lane 4-byte load, `steps` passes
+  gp_scalar    a per-lane 4-byte load, one pass (the TPU kernel's passes
+               price one; its output does not depend on them)
   gp_scalar2   a per-lane 8-byte row read (two words, added), `steps` passes
   gp_onehot    the gather the TPU probe's one-hot product computes: one
                load of the [611, 128] table a lane, rounded to bf16
@@ -27,12 +29,14 @@ the device alone (torch_pl_gather_probe2.device_ms: the launch queued
 behind a spin of the card, so the host's issue is off the clock), and for
 the three at a launch's latency on the host clock with their library
 call (`issue_us`, `library_issue_us`: torch_dispatch_probe.issue_us, 200
-calls back to back), beside
-the plain version and, where one exists, a PyTorch call computing the same
-function (torch.gather; for gp_onehot the gather its pick equals,
-torch.take of the bf16-rounded table at k, 0 outside the table; the take
-chain issued from PyTorch in int32).  The card's name and power limit
-are printed first.  Needs a CUDA device; exits non-zero without one.
+calls back to back), beside the plain version and a PyTorch call
+computing the same function: torch.gather for gp_scalar; for gp_scalar2
+tab[k, :2].sum(-1, dtype=int32), two ops (an index and a reduce); for
+gp_onehot the gather its pick equals, torch.take of the bf16-rounded
+table at k, 0 outside the table; the take chain issued from PyTorch in
+int32.  Each library call must equal the plain version too.  The card's
+name and power limit are printed first.  Needs a CUDA device; exits
+non-zero without one.
 """
 from __future__ import annotations
 
@@ -147,6 +151,9 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
     k64 = k.to(torch.int64)
     t3 = tab3.to(torch.bfloat16)          # the product's operand rounding
 
+    def scalar2_sum():                     # values < 2^21: no wrap
+        return tabw[k64, :2].sum(-1, dtype=torch.int32)
+
     def onehot_gather():
         inside = (k64 >= 0) & (k64 < t3.numel())
         got = torch.take(t3, k64.clamp(0, t3.numel() - 1))
@@ -159,49 +166,42 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
         return kk
 
     cases = (
-        ("gp_scalar", lambda: gp.gp_scalar(tab, k, steps),
+        ("gp_scalar", lambda: gp.gp_scalar(tab, k),
          lambda: gp.scalar_plain(tab, k),
          lambda: torch.gather(tab, 0, k64)),
         ("gp_scalar2", lambda: gp.gp_scalar2(tabw, k, steps),
-         lambda: gp.scalar2_plain(tabw, k), None),
+         lambda: gp.scalar2_plain(tabw, k), scalar2_sum),
         ("gp_onehot", lambda: gp.gp_onehot(tab3, k),
          lambda: gp.onehot_plain(tab3, k), onehot_gather),
         ("gp_take_ax0", lambda: gp.gp_take_ax0(tab, kfull, steps),
          lambda: gp.take_ax0_plain(tab, kfull, steps), take_chain))
-    for name, kern, plain, _ in cases:
-        got = kern().to(torch.int64)
+    for name, kern, plain, lib in cases:
         want = plain().to(torch.int64)
-        torch.cuda.synchronize()
-        n_bad = int((got != want).sum())
-        if n_bad:
-            raise RuntimeError(f"{name} differs from its plain version on "
-                               f"{n_bad} of {want.numel()} outputs")
-    if not torch.equal(take_chain(), gp.take_ax0_plain(tab, kfull, steps)):
-        raise RuntimeError("the int32 PyTorch take chain differs from "
-                           "take_ax0_plain")
-    if not torch.equal(onehot_gather(), gp.onehot_plain(tab3, k)):
-        raise RuntimeError("the bfloat16 table gather differs from "
-                           "onehot_plain")
-    log("every kernel equals its plain version on every output")
+        for what, fn in (("kernel", kern), ("library call", lib)):
+            got = fn().to(torch.int64)
+            torch.cuda.synchronize()
+            n_bad = int((got != want).sum())
+            if n_bad:
+                raise RuntimeError(f"{name}: the {what} differs from its "
+                                   f"plain version on {n_bad} of "
+                                   f"{want.numel()} outputs")
+    log("every kernel and library call equals its plain version on every "
+        "output")
     onehot = check_onehot(n_lanes, dev, log)
 
     results = {}
     for name, kern, plain, lib in cases:
         r = dict(max_abs_err=0, ms=median_ms(kern), device_ms=device_ms(kern),
-                 plain_ms=median_ms(plain),
-                 library_ms=None if lib is None else median_ms(lib))
+                 plain_ms=median_ms(plain), library_ms=median_ms(lib))
         results[name] = r
-        per = steps if name != "gp_onehot" else 1
-        lib_txt = ("none" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f} ms")
+        per = steps if name in ("gp_scalar2", "gp_take_ax0") else 1
         log(f"{name:12s} kernel {r['ms']:9.4f} ms ({r['ms'] / per * 1e3:9.3f}"
             f" us/step), on the device alone {r['device_ms']:9.4f} ms, plain "
-            f"{r['plain_ms']:9.4f} ms, library {lib_txt}")
+            f"{r['plain_ms']:9.4f} ms, library {r['library_ms']:.4f} ms")
         if name != "gp_take_ax0":
-            r.update(issue_us=issue_us(kern), library_issue_us=None
-                     if lib is None else issue_us(lib))
+            r.update(issue_us=issue_us(kern), library_issue_us=issue_us(lib))
             log(f"{name:12s} host issue {r['issue_us']:.2f} us a call, "
-                f"library {r['library_issue_us']} us")
+                f"library {r['library_issue_us']:.2f} us")
     return dict(inputs=x, results=results, onehot=onehot)
 
 

@@ -13,8 +13,9 @@ kernels of ops/gather_probe2 on seeded numpy tables:
   D  gp2_col0        word 0 of 1024 rows of a [78208, 8] table (the
                      combined rows of a 5 Mbp index: one `aln` round's
                      lookups at 1024 lanes)
-  E  gp2_onehot_f32  a float32 one-hot [1024, 640] x [640, 128] product and
-                     the pick of one column per query
+  E  gp2_onehot_f32  the gather that the TPU kernel's float32 one-hot
+                     [1024, 640] x [640, 128] product and pick of one
+                     column per query compute: one load a query
 
 It also times probe A, which has no Pallas kernel: the 32-step
 take_along_axis chain on [611, 128], as torch.gather calls issued from
@@ -25,10 +26,11 @@ events after a warm-up, in ms and us per step, beside the plain version
 and a PyTorch call computing the same function: the chain of
 torch.gather, add and remainder for B and C, tab[k, 0] for D, and for E
 the gather the one-hot product's pick equals: torch.take of the table at
-k (row k >> 7, column k & 127), 0 where k lies outside the table.  Each kernel's call is also timed on the device alone
-(`device_ms`: the events and the launch are queued behind a 1 ms spin of
-the card, so the host's cost of issuing the call is off the clock), and
-D's, at a launch's latency on the device, also on the host clock with its
+k (row k >> 7, column k & 127), 0 where k lies outside the table.  Each
+kernel's call is also timed on the device alone (`device_ms`: the events
+and the launch are queued behind a 1 ms spin of the card, so the host's
+cost of issuing the call is off the clock), and D's and E's, at a
+launch's latency on the device, also on the host clock with their
 library call (`issue_us`, `library_issue_us`:
 torch_dispatch_probe.issue_us, 200 calls back to back).  The
 card's name and power limit are printed first.  Needs a CUDA device;
@@ -157,11 +159,11 @@ def cases(x: dict, steps: int) -> list:
 def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
     """Runs the probe on the current CUDA device.  Returns dict(inputs=...
     (make_inputs), results={label: dict(name, ms, device_ms, plain_ms,
-    library_ms, max_abs_err, steps)}, D's also with issue_us and
+    library_ms, max_abs_err, steps)}, D's and E's also with issue_us and
     library_issue_us, a_ms=probe A's chain); raises when a kernel or a
     library call differs from its plain version.  Each kernel launches 12
     times a shape: 1 check, 1 warm-up and 5 timed calls, then 5 timed on
-    the device alone; D 201 more for its issue."""
+    the device alone; D and E 201 more for their issue."""
     import torch
     from torch_dispatch_probe import issue_us
     sys.path.insert(0, REPO)
@@ -197,7 +199,7 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
             f"({r['ms'] / per * 1e3:8.3f} us/step), on the device alone "
             f"{r['device_ms']:8.4f} ms, plain {r['plain_ms']:8.4f} ms, "
             f"library {r['library_ms']:8.4f} ms")
-        if name == "gp2_col0":
+        if name in ("gp2_col0", "gp2_onehot_f32"):
             r.update(issue_us=issue_us(kern), library_issue_us=issue_us(lib))
             log(f"{label:24s} host issue {r['issue_us']:.2f} us a call, "
                 f"library {r['library_issue_us']:.2f} us")
