@@ -15,8 +15,9 @@ def shared_lib(src: str, name: str, cmd: list[str],
     """Path of `build/<name>`, compiled from `src` with `cmd` unless a copy
     at least as new as the source exists.  The library is written to a
     temporary name and renamed into place, so concurrent builders (test
-    workers) never load a half-written file.  Raises RuntimeError with the
-    compiler's output when the build fails."""
+    workers) never load a half-written file; the compiler's output goes to
+    `build/<name>.log`.  Raises RuntimeError with it when the build
+    fails."""
     out = os.path.join(BUILD_DIR, name)
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
@@ -29,6 +30,8 @@ def shared_lib(src: str, name: str, cmd: list[str],
         if r.returncode != 0:
             raise RuntimeError(f"building {name} from {src} failed "
                                f"(rc={r.returncode}):\n{r.stdout}{r.stderr}")
+        with open(out + ".log", "w") as f:
+            f.write(r.stdout + r.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -3,26 +3,33 @@ and their plain PyTorch versions.
 
 extend_batch_pl2 replaces the Pallas TPU kernel of the reference package,
 bwamem_tpu/ops/pallas_ext.py extend_batch_pl2 (pallas_ext.py:316, kernel
-body _kernel_retry at :229).  On a CUDA tensor it launches the kernel (one
-thread per lane running the scalar ksw_extend2 row loop, pass 1 at w_opt
-and an in-lane rerun at 2*w_opt, bwamem.c:732-741); on a CPU tensor it runs
-extend_batch_pl2_plain.
+body _kernel_retry at :229): ksw_extend2 at w_opt and an in-lane rerun at
+2*w_opt (bwamem.c:732-741).  extend_batch_pl replaces extend_batch_pl
+(pallas_ext.py:262, kernel body _kernel at :213): one pass at a per-lane
+band, no retry (the long-read side path, pipeline/extend_host._ExtBatcher,
+and bwasw rerun the lanes that need a wider band).  On a CUDA tensor each
+launches its kernel, on a CPU tensor it runs its plain version; there is
+no fallback between the two (a failed build or launch raises), and each
+wrapper counts its own launches.
 
-extend_batch_pl replaces extend_batch_pl (pallas_ext.py:262, kernel body
-_kernel at :213): one pass at a per-lane band, no retry — the long-read
-side path (pipeline/extend_host._ExtBatcher) reruns the lanes that
-need the doubled band.  Same lane loop, same split: the kernel on a CUDA
-tensor, extend_batch_pl_plain on a CPU tensor.
-
-There is no fallback between a kernel and its plain version: a failed
-build or launch raises.  Each wrapper counts its own launches.
+The kernels run a lane on a group of G threads (8, 16 or 32), a row's
+cells in chunks of G columns with F as a shuffle scan, and keep the
+lane's H and E in a ring of R columns (R a power of two of at least
+2 w + 8, or lq_max + 1 slots when that is fewer) beside its query bytes:
+in shared memory, 128 / G lanes a block, or, when a block's lanes do not
+fit, lane-major in a global scratch the wrapper allocates.  `plan` sizes
+all of it from lq_max and the widest band (2*w_opt for extend_batch_pl2,
+max(w) for extend_batch_pl: one host read) at G = GROUP.  The band
+clamp of ksw.c:399-407 runs in the lane, so the wrapper issues no torch
+op for it.
 
 What bounds the kernels on an H100: the DP cells of the data-dependent band
-(about 16 int32 operations each, at the card's int32 rate), not bytes — a
+(about 16 int32 operations each, at the card's int32 rate), not bytes: a
 batch reads the query and target rows of its nonempty lanes and each
-per-lane value once (megabytes: microseconds at 3.35 TB/s).  In
-practice the thread-serial band and the imbalance between the lanes of a
-warp (different target lengths and z-drop exits) set the time.
+per-lane value once (megabytes: microseconds at 3.35 TB/s).  What holds
+them is each row's dependent chain (a chunk's load, scan and rotation, the
+row's reductions) with too few warps a scheduler to hide it when a call
+has only 1024-2048 lanes (csrc/ext_kernel.cu, PERF.md).
 
 The kernels are built and launched through ops/launch (nvcc for sm_90a
 at first use, the caller's current stream).
@@ -30,54 +37,98 @@ at first use, the caller's current stream).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from bwamem_tpu_torch.ops import extend as extops
-from bwamem_tpu_torch.ops.extend import ExtendResult, _adjust_w
+from bwamem_tpu_torch.ops.extend import ExtendResult
 from bwamem_tpu_torch.ops.launch import Library
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = Library("ext_kernel.cu", {
-    "ext_pl2_launch": [_vp] * 7 + [_ci] + [_vp] * 2 + [_ci] * 3 + [_vp]
-                      + [_ci] * 5,
-    "ext_pl_launch": [_vp] * 8 + [_ci] * 3 + [_vp] + [_ci] * 5})
+    "ext_pl2_launch": [_vp] * 6 + [_ci] * 2 + [_vp] * 2 + [_ci] * 3 + [_vp]
+                      + [_ci] * 9,
+    "ext_pl_launch": [_vp] * 9 + [_ci] * 3 + [_vp] + [_ci] * 9},
+    flags=["-Xptxas", "-v"])
 SRC = LIB.src
 # longest query of the fused two-pass route (extend_batch_pl2), and of one
 # plain-extension dispatch at the narrow (h << 12) | col packing
 LQ_MAX = 4095
+THREADS = 128                  # a block (EXT_THREADS): 128 / G lanes
+GROUPS = (8, 16, 32)           # threads a lane
+# G of every call: 32.  Timed on each main path's widest call by
+# chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W), G = 8 / 16 / 32: 101 bp
+# 0.4085 / 0.2933 / 0.2291 ms, 150 bp pairs 0.7579 / 0.5267 / 0.4380,
+# 1000 bp 13.649 / 8.285 / 5.769, 5000 bp 36.90 / 19.73 / 11.48.  A
+# smaller G packs more lanes in a warp but runs more chunks a row, and the
+# rows' chain, not the number of lanes, holds the kernel.
+GROUP = 32
+# dynamic shared memory a block may take: the H100's 227 KB a block, less
+# room for the block's matrix
+SMEM_MAX = 232448 - 1024
+STORAGE = ("shared", "global")
 
 launches = 0        # kernel launches by extend_batch_pl2 (CUDA tensors)
 launches_pl = 0     # kernel launches by extend_batch_pl (CUDA tensors)
 
 
+class Plan(NamedTuple):
+    """How a call runs: G threads a lane, a ring of R columns, `area`
+    bytes a lane, `storage` "shared" or "global", `smem` bytes of dynamic
+    shared memory a block (0 in the global mode)."""
+    group: int
+    R: int
+    area: int
+    storage: str
+    smem: int
+
+
+def _pow2(x: int) -> int:
+    return 1 << (max(int(x), 1) - 1).bit_length()
+
+
+def plan(lq_max: int, w_max: int, group: int | None = None,
+         storage: str | None = None) -> Plan:
+    """The ring, the lane area and the storage of a call whose lanes run
+    at bands up to w_max.  R is the smaller of the power of two at least
+    2 w_max + 8 (the span of columns read again is at most 2 w + 2) and
+    the one at least lq_max + 1, where no column wraps and lq_max + 1
+    slots are kept; the area holds those slots (8 bytes each) and lq_max
+    query bytes, rounded to 16.  Shared memory when a block's lanes fit,
+    else the global scratch; `group` and `storage` default to GROUP and
+    that choice."""
+    G = group or GROUP
+    if G not in GROUPS:
+        raise ValueError(f"group {G} is not one of {GROUPS}")
+    R = min(_pow2(max(2 * w_max + 8, 8)), _pow2(lq_max + 1))
+    area = -(-(8 * min(R, lq_max + 1) + lq_max) // 16) * 16
+    smem = THREADS // G * area
+    if storage is None:
+        storage = "shared" if smem <= SMEM_MAX else "global"
+    if storage not in STORAGE:
+        raise ValueError(f"storage {storage!r} is not one of {STORAGE}")
+    return Plan(G, R, area, storage, smem if storage == "shared" else 0)
+
+
 def _mat25(mat_bytes: bytes) -> np.ndarray:
-    return np.frombuffer(mat_bytes, np.int8).astype(np.int32).reshape(25)
+    return np.ascontiguousarray(
+        np.frombuffer(mat_bytes, np.int8).astype(np.int32).reshape(25))
 
 
-def _bands(qlen, end_bonus, *, mat_bytes, o_del, e_del, o_ins, e_ins,
-           w_opt):
-    """Per-lane clamped bands for both passes and the retry threshold."""
-    max_mat = int(_mat25(mat_bytes).max())
-    w1 = torch.full_like(qlen, w_opt)
-    w2 = torch.full_like(qlen, 2 * w_opt)
-    kw = (max_mat, end_bonus, o_ins, e_ins, o_del, e_del)
-    return (_adjust_w(w1, qlen, *kw).to(torch.int32),
-            _adjust_w(w2, qlen, *kw).to(torch.int32),
-            (w_opt >> 1) + (w_opt >> 2))
-
-
-def _checked_lanes(name, queryT, qlen, targetT, tlen, h0, lq_max, t_max):
+def _checked_lanes(name, queryT, qlen, targetT, tlen, h0, lq_max, t_max,
+                   *lane_vectors):
     """Shape/device checks shared by the two wrappers; returns the int32
-    contiguous (qT, tT, qlen, tlen, h0) the kernels read."""
+    contiguous (qT, tT, qlen, tlen, h0, *lane_vectors) the kernels read."""
     B = queryT.shape[1]
     if queryT.shape != (lq_max, B) or targetT.shape != (t_max, B):
         raise ValueError(f"{name}: queryT {tuple(queryT.shape)} "
                          f"targetT {tuple(targetT.shape)} for lq_max="
                          f"{lq_max} t_max={t_max} B={B}")
     i32 = torch.int32
-    out = [x.to(i32).contiguous() for x in (queryT, targetT, qlen, tlen, h0)]
+    out = [x.to(i32).contiguous() for x in (queryT, targetT, qlen, tlen, h0,
+                                            *lane_vectors)]
     index = queryT.get_device()
     for x in out:
         if x.get_device() != index:
@@ -87,6 +138,15 @@ def _checked_lanes(name, queryT, qlen, targetT, tlen, h0, lq_max, t_max):
             raise ValueError(f"{name}: per-lane vector of shape "
                              f"{tuple(x.shape)} for B={B}")
     return out
+
+
+def _scratch(p: Plan, B: int, dev) -> tuple[torch.Tensor | None, int]:
+    """The global scratch of the global mode (B lane areas) and its
+    address; nothing in the shared mode."""
+    if p.storage == "shared":
+        return None, 0
+    s = torch.empty((B, p.area), dtype=torch.uint8, device=dev)
+    return s, s.data_ptr()
 
 
 def extend_batch_pl2(queryT, qlen, targetT, tlen, h0, end_bonus, *,
@@ -99,33 +159,40 @@ def extend_batch_pl2(queryT, qlen, targetT, tlen, h0, end_bonus, *,
     queryT: [lq_max, B] int32 nt4 (already reversed for left extensions,
     every qlen <= lq_max); targetT: [t_max, B] int32; per-lane vectors [B].
     Returns (ExtendResult, retried [B] int32)."""
+    kw = dict(lq_max=lq_max, t_max=t_max, mat_bytes=mat_bytes, o_del=o_del,
+              e_del=e_del, o_ins=o_ins, e_ins=e_ins, zdrop=zdrop)
     if not queryT.is_cuda:
-        return extend_batch_pl2_plain(
-            queryT, qlen, targetT, tlen, h0, end_bonus, lq_max=lq_max,
-            t_max=t_max, mat_bytes=mat_bytes, o_del=o_del, e_del=e_del,
-            o_ins=o_ins, e_ins=e_ins, zdrop=zdrop, w_opt=w_opt)
-    global launches
+        return extend_batch_pl2_plain(queryT, qlen, targetT, tlen, h0,
+                                      end_bonus, w_opt=w_opt, **kw)
     if lq_max > LQ_MAX:
         # the bound of the fused two-pass route, as the reference routes
         # its lanes
         raise ValueError(f"extend_batch_pl2: lq_max {lq_max} > {LQ_MAX}")
+    return launch_pl2(queryT, qlen, targetT, tlen, h0, end_bonus,
+                      plan(lq_max, 2 * w_opt), w_opt=w_opt, **kw)
+
+
+def launch_pl2(queryT, qlen, targetT, tlen, h0, end_bonus, p: Plan, *,
+               lq_max, t_max, mat_bytes, o_del, e_del, o_ins, e_ins, zdrop,
+               w_opt):
+    """ext_pl2_kernel on CUDA tensors as `p` plans it (extend_batch_pl2's
+    launch; chip_smoke.py times each G through it)."""
+    global launches
     B = queryT.shape[1]
     dev = queryT.device
-    i32 = torch.int32
-    qT, tT, ql, tl, hh = _checked_lanes("extend_batch_pl2", queryT, qlen,
-                                        targetT, tlen, h0, lq_max, t_max)
-    w1, w2, thr = _bands(ql, end_bonus.to(i32), mat_bytes=mat_bytes,
-                         o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
-                         w_opt=w_opt)
-    eh = torch.empty((2, lq_max + 1, B), dtype=i32, device=dev)
-    out = torch.empty((7, B), dtype=i32, device=dev)
-    mat = np.ascontiguousarray(_mat25(mat_bytes))
+    qT, tT, ql, tl, hh, eb = _checked_lanes(
+        "extend_batch_pl2", queryT, qlen, targetT, tlen, h0, lq_max, t_max,
+        end_bonus)
+    scratch, sp = _scratch(p, B, dev)   # held until the launch is issued
+    out = torch.empty((7, B), dtype=torch.int32, device=dev)
+    mat = _mat25(mat_bytes)
     LIB.launch("ext_pl2_launch", qT.get_device(), (
         qT.data_ptr(), tT.data_ptr(), ql.data_ptr(), tl.data_ptr(),
-        hh.data_ptr(), w1.data_ptr(), w2.data_ptr(), int(thr),
-        eh.data_ptr(), out.data_ptr(), int(B), int(lq_max), int(t_max),
-        mat.ctypes.data, int(o_del), int(e_del), int(o_ins),
-        int(e_ins), int(zdrop)), "ext_pl2_kernel")
+        hh.data_ptr(), eb.data_ptr(), int(w_opt),
+        (w_opt >> 1) + (w_opt >> 2), sp, out.data_ptr(), int(B),
+        int(lq_max), int(t_max), mat.ctypes.data, int(o_del), int(e_del),
+        int(o_ins), int(e_ins), int(zdrop), p.group, p.R, p.area,
+        STORAGE.index(p.storage)), "ext_pl2_kernel")
     launches += 1
     return (ExtendResult(score=out[0], qle=out[1], tle=out[2], gtle=out[3],
                          gscore=out[4], max_off=out[5]), out[6])
@@ -176,34 +243,39 @@ def extend_batch_pl(queryT, qlen, targetT, tlen, h0, w, end_bonus, *,
     per lane as ksw.c:399-407 does), no retry.
 
     queryT: [lq_max, B] int32 nt4 (already reversed for left extensions,
-    every qlen <= lq_max; any lq_max: the scalar lane loop packs nothing,
-    scores are plain int32, and the eh scratch is sized from lq_max);
-    targetT: [t_max, B] int32; per-lane vectors [B].  Returns
-    ExtendResult."""
+    every qlen <= lq_max; any lq_max: the lane packs nothing and scores are
+    plain int32); targetT: [t_max, B] int32; per-lane vectors [B].  The
+    ring is sized from max(w) (one host read), which bounds the clamped
+    band of every lane.  Returns ExtendResult."""
     kw = dict(lq_max=lq_max, t_max=t_max, mat_bytes=mat_bytes, o_del=o_del,
               e_del=e_del, o_ins=o_ins, e_ins=e_ins, zdrop=zdrop)
     if not queryT.is_cuda:
         return extend_batch_pl_plain(queryT, qlen, targetT, tlen, h0, w,
                                      end_bonus, **kw)
+    w_max = int(w.max()) if w.numel() else 0
+    return launch_pl(queryT, qlen, targetT, tlen, h0, w, end_bonus,
+                     plan(lq_max, w_max), **kw)
+
+
+def launch_pl(queryT, qlen, targetT, tlen, h0, w, end_bonus, p: Plan, *,
+              lq_max, t_max, mat_bytes, o_del, e_del, o_ins, e_ins, zdrop):
+    """ext_pl_kernel on CUDA tensors as `p` plans it (extend_batch_pl's
+    launch; chip_smoke.py times each G through it)."""
     global launches_pl
     B = queryT.shape[1]
     dev = queryT.device
-    i32 = torch.int32
-    qT, tT, ql, tl, hh = _checked_lanes("extend_batch_pl", queryT, qlen,
-                                        targetT, tlen, h0, lq_max, t_max)
-    mat = np.ascontiguousarray(_mat25(mat_bytes))
-    wadj = _adjust_w(w.to(i32), ql, int(mat.max()), end_bonus.to(i32), o_ins,
-                     e_ins, o_del, e_del).to(i32).contiguous()
-    if wadj.shape != (B,) or wadj.get_device() != qT.get_device():
-        raise ValueError("extend_batch_pl: band vector does not match the "
-                         "lanes")
-    eh = torch.empty((2, lq_max + 1, B), dtype=i32, device=dev)
-    out = torch.empty((6, B), dtype=i32, device=dev)
+    qT, tT, ql, tl, hh, wv, eb = _checked_lanes(
+        "extend_batch_pl", queryT, qlen, targetT, tlen, h0, lq_max, t_max,
+        w, end_bonus)
+    scratch, sp = _scratch(p, B, dev)   # held until the launch is issued
+    out = torch.empty((6, B), dtype=torch.int32, device=dev)
+    mat = _mat25(mat_bytes)
     LIB.launch("ext_pl_launch", qT.get_device(), (
         qT.data_ptr(), tT.data_ptr(), ql.data_ptr(), tl.data_ptr(),
-        hh.data_ptr(), wadj.data_ptr(), eh.data_ptr(), out.data_ptr(),
+        hh.data_ptr(), wv.data_ptr(), eb.data_ptr(), sp, out.data_ptr(),
         int(B), int(lq_max), int(t_max), mat.ctypes.data, int(o_del),
-        int(e_del), int(o_ins), int(e_ins), int(zdrop)), "ext_pl_kernel")
+        int(e_del), int(o_ins), int(e_ins), int(zdrop), p.group, p.R,
+        p.area, STORAGE.index(p.storage)), "ext_pl_kernel")
     launches_pl += 1
     return ExtendResult(score=out[0], qle=out[1], tle=out[2], gtle=out[3],
                         gscore=out[4], max_off=out[5])

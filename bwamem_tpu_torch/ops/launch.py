@@ -68,12 +68,16 @@ def launch(fn, name: str, index: int, args: tuple) -> None:
 class Library:
     """The C entries of one CUDA source (csrc/<source>), built and bound at
     the first load.  `entries` maps each entry to its arguments before the
-    stream (ctypes.c_void_p for a pointer, ctypes.c_int for an int)."""
+    stream (ctypes.c_void_p for a pointer, ctypes.c_int for an int);
+    `flags` go to nvcc after NVCC_FLAGS (the compiler's output is kept in
+    build/<library>.log)."""
 
-    def __init__(self, source: str, entries: dict[str, list]):
+    def __init__(self, source: str, entries: dict[str, list],
+                 flags: list[str] = ()):
         self.src = os.path.join(CSRC, source)
         self.so_name = "lib" + os.path.splitext(source)[0] + ".so"
         self.entries = entries
+        self.flags = list(flags)
         self._fns = None
         self._lock = threading.Lock()
 
@@ -84,8 +88,9 @@ class Library:
             with self._lock:
                 if self._fns is None:
                     from bwamem_tpu_torch._build import shared_lib
-                    lib = ctypes.CDLL(shared_lib(self.src, self.so_name,
-                                                 [nvcc(), *NVCC_FLAGS]))
+                    lib = ctypes.CDLL(shared_lib(
+                        self.src, self.so_name,
+                        [nvcc(), *NVCC_FLAGS, *self.flags]))
                     fns = {}
                     for name, argtypes in self.entries.items():
                         fn = getattr(lib, name)

@@ -47,11 +47,17 @@ def _compact_flat(mask, fields, arena):
     source lane (for scattering results back to the source grid).  Lanes
     past the arena are DROPPED (written to a spill slot that is cut off),
     so output is only valid when overflow is False — callers must retry
-    with a bigger arena.  n and overflow stay 0-d device tensors."""
+    with a bigger arena.  n and overflow stay 0-d device tensors.
+
+    Even on overflow every slot holds one whole lane: the reference clamps
+    the lanes past the arena into its last slot, where a CUDA scatter with
+    repeated indices may keep each field from another lane, and the
+    gathers of the same dispatch (sa_lookup's rank from x0 and x2) then
+    index past their tables, a device-side assert where JAX clamps."""
     pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
     n_all = pos[-1] + 1
     over = n_all > arena
-    tgt = torch.where(mask, torch.clamp(pos, max=arena - 1),
+    tgt = torch.where(mask & (pos < arena), pos,
                       torch.full_like(pos, arena)).to(torch.int64)
     outs = []
     for a, dt in fields:

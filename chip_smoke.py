@@ -9,7 +9,9 @@ Three phases; any failure exits non-zero without printing a result.
    native source the paths below need (the CUDA extension kernels — one
    source holds both —, the FM probe kernels and the four gather-probe
    kernels with nvcc for sm_90a, the host kernels and the suffix-array code
-   with cc), all compilers started together.
+   with cc), all compilers started together; then the registers, spills
+   and shared memory that ptxas reported for each instantiation of the
+   extension kernels (G = 8, 16, 32; shared or global storage).
 1b. The launch path (bwamem_tpu_torch/ops/launch.py, through which every
    kernel launches): its raw stream handle equals
    torch.cuda.current_stream().cuda_stream on the default stream and
@@ -25,8 +27,13 @@ Three phases; any failure exits non-zero without printing a result.
      target rows 4608, queries of 1000-4095 bases) and 256 over-long lanes
      (query rows 5000, target rows 5376, queries of 4096-5000 bases: past
      what the TPU kernel's packing held), all 6 outputs.
+   * both kernels on 1024 ring-wrap lanes (queries of 1500-3000 bases
+     against their mutated copy): the one-pass kernel at band 10, ext_pl2
+     at w_opt 5 (w2 10): a ring of 32 columns that wraps about 90 times.
    A kernel must equal its plain PyTorch version; both are timed with
-   CUDA events.
+   CUDA events.  Each held call prints its plan (G, storage, ring R, lane
+   area, dynamic shared memory a block), its time, band cells/s and
+   times its bound.
 2b. The gather-strategy probe (tools/torch_pl_gather_probe.py) at the TPU
    script's defaults (8192 lanes, 16 passes for gp_scalar2 and the take,
    a table of 78208 rows; tables from numpy with the smoke seed):
@@ -106,7 +113,8 @@ Three phases; any failure exits non-zero without printing a result.
    byte-identical again.  The widest call of each extension kernel in its
    path (for the 5000 bp path: the widest with a query over 4095 bases) is
    kept, and the kernel is held against its plain version on those lanes
-   too; the kernels line reports these main-path lanes.  The FM probe
+   too, and timed at each G (each G's output held to plain as well); the
+   kernels line reports these main-path lanes.  The FM probe
    kernels are held against their plain version on the probe's own lanes.
    Last, the seeding and merging tools through cli.main on the card, with
    the stage timers on: fastmap and maxk over the first 8192 reads of
@@ -166,6 +174,8 @@ LANES, LQ, T_MAX = 16384, 128, 256
 LONG_LANES, LONG_LQ, LONG_T_MAX = 1024, 4095, 4608
 # over-long lanes: queries past the 4095 bases of the TPU kernel's packing
 OVER_LANES, OVER_LQ, OVER_T_MAX = 256, 5000, 5376
+# lanes whose ring of columns wraps: queries of 1500-3000 bases at band 10
+RING_LANES, RING_LQ = 1024, 3000
 # the FM probe's shape
 FM_LANES, FM_STEPS = 8192, 64
 # H100 SXM peaks: HBM bytes/s (data sheet), and the int32 rate outside the
@@ -270,7 +280,40 @@ def phase_env():
     if errors:
         raise RuntimeError("build failed: " + "; ".join(errors))
     log(f"build total: {time.perf_counter() - t0:.1f} s")
+    log_ptxas(ext_kernel.LIB)
     return smi.stdout.strip().splitlines()[0]
+
+
+def log_ptxas(lib):
+    """The registers, spills and shared memory that ptxas reported for
+    each kernel of `lib` (built with -Xptxas -v; the build's output is
+    kept in build/<library>.log)."""
+    from bwamem_tpu_torch._build import BUILD_DIR
+    path = os.path.join(BUILD_DIR, lib.so_name + ".log")
+    if not os.path.exists(path):
+        raise RuntimeError(f"no build log {path}")
+    name, spill = None, ""
+    n = 0
+    for line in open(path):
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I"
+                      r"((?:Li\d+E)*)(?:Lb([01])E)?", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            name = (f"{m.group(1)}<{', '.join(args)}, "
+                    f"{'shared' if m.group(3) == '1' else 'global'}>")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)} bytes spill stores, {m.group(2)} loads"
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            log(f"ptxas {name}: {m.group(1)} registers, {spill}"
+                f"{m.group(2)}")
+            name, n = None, n + 1
+    if n == 0:
+        raise RuntimeError(f"{path} reports no kernel's registers")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -355,10 +398,54 @@ def bound(qlen, tlen, w1, w2, retried, t_max, lane_words=4 + 7):
             "bytes", nbytes, cells)
 
 
-def hold_kernel(label, qT, qlen, tT, tlen, h0, eb, **kw):
+def ext_bands(qlen, eb, w, kw):
+    """The bands the extension kernels run at: w ([B] or an int) clamped
+    per lane as ksw.c:399-407 does."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch.ops.extend import _adjust_w
+    mat = np.frombuffer(kw["mat_bytes"], np.int8)
+    w = torch.as_tensor(w, dtype=torch.int32, device=qlen.device)
+    return _adjust_w(w.expand(qlen.shape), qlen.to(torch.int32),
+                     int(mat.max()), eb.to(torch.int32), kw["o_ins"],
+                     kw["e_ins"], kw["o_del"], kw["e_del"])
+
+
+def ext_groups(label, launch, args, kw, lq, w_max, want):
+    """The kernel at each G on these lanes through its launch function
+    (ops/ext_kernel.launch_pl2 or launch_pl), each held to `want`:
+    {G: ms}, timed with CUDA events."""
+    import torch
+    from bwamem_tpu_torch.ops import ext_kernel
+
+    def flat(r):
+        return torch.stack(list(r[0]) + [r[1]] if isinstance(r, tuple)
+                           and len(r) == 2 else list(r)).to(torch.int64)
+    times = {}
+    for g in ext_kernel.GROUPS:
+        p = ext_kernel.plan(lq, w_max, g)
+        got = flat(launch(*args, p, **kw))
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{label}: the kernel at G = {g} disagrees "
+                               f"with its plain version")
+        times[g] = median_ms(lambda: launch(*args, p, **kw))
+    log(f"{label}: kernel ms by G " + ", ".join(
+        f"{g}: {t:.4f}" for g, t in times.items()) + " (each equal to plain)")
+    return times
+
+
+def plan_line(label, p, ms, cells, bound_ms):
+    log(f"{label}: G {p.group}, {p.storage} storage, ring R {p.R}, lane "
+        f"area {p.area} bytes, dynamic shared memory {p.smem} bytes a "
+        f"block; kernel {ms:.4f} ms, {cells / ms * 1e3:.4g} band cells/s, "
+        f"{ms / bound_ms:.1f} x bound")
+
+
+def hold_kernel(label, qT, qlen, tT, tlen, h0, eb, groups=False, **kw):
     """ext_pl2_kernel against its plain version on one set of lanes (all
-    7 outputs must be equal), both timed with CUDA events; returns the
-    kernel's entry of the kernels line (launches filled in later)."""
+    7 outputs must be equal), both timed with CUDA events, the kernel also
+    at each G when `groups`; returns the kernel's entry of the kernels line
+    (launches filled in later)."""
     import torch
     from bwamem_tpu_torch.ops import ext_kernel
     B = qlen.shape[0]
@@ -387,21 +474,27 @@ def hold_kernel(label, qT, qlen, tT, tlen, h0, eb, **kw):
         qT, qlen, tT, tlen, h0, eb, **kw))
     plain_ms = median_ms(lambda: ext_kernel.extend_batch_pl2_plain(
         qT, qlen, tT, tlen, h0, eb, **kw))
-    w1, w2, _ = ext_kernel._bands(
-        qlen.to(torch.int32), eb.to(torch.int32), mat_bytes=kw["mat_bytes"],
-        o_del=kw["o_del"], e_del=kw["e_del"], o_ins=kw["o_ins"],
-        e_ins=kw["e_ins"], w_opt=kw["w_opt"])
+    w1 = ext_bands(qlen, eb, kw["w_opt"], kw)
+    w2 = ext_bands(qlen, eb, 2 * kw["w_opt"], kw)
     bound_ms, bound_by, nbytes, cells = bound(qlen, tlen, w1, w2, pretried,
                                               tm)
+    p = ext_kernel.plan(lq, 2 * kw["w_opt"])
     log(f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, band cells {cells}, "
         f"bytes {nbytes}, bound {bound_ms:.5f} ms ({bound_by}), kernel / "
         f"bound {ms / bound_ms:.1f}")
-    return dict(name="ext_pl2_kernel", route="cuda",
-                source="bwamem_tpu_torch/csrc/ext_kernel.cu",
-                replaces="bwamem_tpu/ops/pallas_ext.py:229",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                retried=n_retried)
+    plan_line(label, p, ms, cells, bound_ms)
+    entry = dict(name="ext_pl2_kernel", route="cuda",
+                 source="bwamem_tpu_torch/csrc/ext_kernel.cu",
+                 replaces="bwamem_tpu/ops/pallas_ext.py:229",
+                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                 retried=n_retried, group=p.group, storage=p.storage,
+                 smem_bytes=p.smem, cells=cells)
+    if groups:
+        entry["ms_by_group"] = ext_groups(
+            label, ext_kernel.launch_pl2, (qT, qlen, tT, tlen, h0, eb), kw,
+            lq, 2 * kw["w_opt"], want)
+    return entry
 
 
 def ext_lanes_long(B=LONG_LANES, lq=LONG_LQ, t_max=LONG_T_MAX, q_lo=1000,
@@ -443,14 +536,13 @@ def ext_lanes_long(B=LONG_LANES, lq=LONG_LQ, t_max=LONG_T_MAX, q_lo=1000,
 
 
 def hold_kernel_pl(label, qT, qlen, tT, tlen, h0, w, eb, plain_reps=5,
-                   **kw):
+                   groups=False, **kw):
     """ext_pl_kernel against its plain version on one set of lanes (all 6
-    outputs must be equal), both timed with CUDA events; returns the
-    kernel's entry of the kernels line (launches filled in later)."""
-    import numpy as np
+    outputs must be equal), both timed with CUDA events, the kernel also at
+    each G when `groups`; returns the kernel's entry of the kernels line
+    (launches filled in later)."""
     import torch
     from bwamem_tpu_torch.ops import ext_kernel
-    from bwamem_tpu_torch.ops.extend import _adjust_w
     B = qlen.shape[0]
     lq, tm = kw["lq_max"], kw["t_max"]
     args = (qT, qlen, tT, tlen, h0, w, eb)
@@ -479,21 +571,60 @@ def hold_kernel_pl(label, qT, qlen, tT, tlen, h0, w, eb, plain_reps=5,
     # seconds): its one run above, on the host clock, is its time
     plain_ms = (median_ms(lambda: ext_kernel.extend_batch_pl_plain(
         *args, **kw), reps=plain_reps) if plain_reps > 1 else plain_first)
-    mat = np.frombuffer(kw["mat_bytes"], np.int8)
-    wadj = _adjust_w(w.to(torch.int32), qlen.to(torch.int32), int(mat.max()),
-                     eb.to(torch.int32), kw["o_ins"], kw["e_ins"],
-                     kw["o_del"], kw["e_del"])
+    wadj = ext_bands(qlen, eb, w, kw)
     bound_ms, bound_by, nbytes, cells = bound(
         qlen, tlen, wadj, wadj, torch.zeros_like(qlen), tm,
-        lane_words=4 + 6)
+        lane_words=5 + 6)
+    w_max = int(w.max())
+    p = ext_kernel.plan(lq, w_max)
     log(f"one-pass kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, band cells "
         f"{cells}, bytes {nbytes}, bound {bound_ms:.5f} ms ({bound_by}), "
         f"kernel / bound {ms / bound_ms:.1f}")
-    return dict(name="ext_pl_kernel", route="cuda",
-                source="bwamem_tpu_torch/csrc/ext_kernel.cu",
-                replaces="bwamem_tpu/ops/pallas_ext.py:213",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    plan_line(label, p, ms, cells, bound_ms)
+    entry = dict(name="ext_pl_kernel", route="cuda",
+                 source="bwamem_tpu_torch/csrc/ext_kernel.cu",
+                 replaces="bwamem_tpu/ops/pallas_ext.py:213",
+                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                 group=p.group, storage=p.storage, smem_bytes=p.smem,
+                 cells=cells)
+    if groups:
+        entry["ms_by_group"] = ext_groups(label, ext_kernel.launch_pl, args,
+                                          kw, lq, w_max, want)
+    return entry
+
+
+def ext_lanes_ring(B=RING_LANES, lq=RING_LQ, pad=16):
+    """Lanes whose ring of columns wraps: queries of 1500-3000 bases
+    against their mutated copy (2 % substitutions, two short indels, a
+    random tail of 40), h0 20-60, and `pad` padding lanes."""
+    import numpy as np
+    import se_smoke_data as sd
+    rng = np.random.default_rng(sd.SEED + 3)
+    t_max = lq + 64
+    qT = np.full((lq, B), 4, np.int32)
+    tT = np.full((t_max, B), 4, np.int32)
+    qlen = np.zeros(B, np.int32)
+    tlen = np.zeros(B, np.int32)
+    h0 = np.ones(B, np.int32)
+    for b in range(B - pad):
+        ql = int(rng.integers(1500, lq + 1))
+        q = rng.integers(0, 4, ql)
+        m = q.copy()
+        sub = rng.random(ql) < 0.02
+        m[sub] = rng.integers(0, 4, int(sub.sum()))
+        for _ in range(2):
+            at = int(rng.integers(100, len(m) - 100))
+            n = int(rng.integers(1, 4))
+            m = (np.concatenate([m[:at], rng.integers(0, 4, n), m[at:]])
+                 if rng.random() < 0.5 else
+                 np.concatenate([m[:at], m[at + n:]]))
+        t = np.concatenate([m, rng.integers(0, 4, 40)])[:t_max]
+        qT[:ql, b] = q
+        tT[:len(t), b] = t
+        qlen[b], tlen[b], h0[b] = ql, len(t), int(rng.integers(20, 61))
+    eb = np.full(B, 5, np.int32)
+    return qT, tT, qlen, tlen, h0, eb
 
 
 def phase_kernel():
@@ -538,9 +669,22 @@ def phase_kernel():
     over = hold_kernel_pl("generated over-long lanes", qT, qlen, tT, tlen,
                           h0, w, eb, plain_reps=1, lq_max=OVER_LQ,
                           t_max=OVER_T_MAX, **score)
-    return res["max_abs_err"], max(short["max_abs_err"],
-                                   long_["max_abs_err"],
-                                   over["max_abs_err"])
+    # ring-wrap lanes: band 10 (R = 32 columns) over queries of 1500-3000
+    # bases, the one-pass kernel at w = 10 and ext_pl2 at w_opt = 5 (both
+    # passes on the ring, w2 = 10)
+    qT, tT, qlen, tlen, h0, eb = (torch.from_numpy(a).to(dev)
+                                  for a in ext_lanes_ring())
+    ring_kw = dict(lq_max=RING_LQ, t_max=RING_LQ + 64, **score)
+    ring = hold_kernel_pl("ring-wrap lanes, band 10", qT, qlen, tT, tlen, h0,
+                          torch.full_like(qlen, 10), eb, plain_reps=1,
+                          **ring_kw)
+    ring2 = hold_kernel("ring-wrap lanes, w_opt 5", qT, qlen, tT, tlen, h0,
+                        eb, w_opt=5, **ring_kw)
+    if ring2["retried"] == 0:
+        raise RuntimeError("no ring-wrap lane retried")
+    return max(res["max_abs_err"], ring2["max_abs_err"]), max(
+        short["max_abs_err"], long_["max_abs_err"], over["max_abs_err"],
+        ring["max_abs_err"])
 
 
 def phase_launch_path():
@@ -2015,10 +2159,11 @@ def main() -> int:
     # other held calls (generated lanes with retries, empty queries and
     # z-drop cuts; the fused path's lanes) add their error
     kern2 = hold_kernel("main-path lanes, 101 bp", *main_pl2.args,
-                        **main_pl2.kw)
-    pe_k = hold_kernel("PE-path lanes, 150 bp", *pe_pl2.args, **pe_pl2.kw)
+                        groups=True, **main_pl2.kw)
+    pe_k = hold_kernel("PE-path lanes, 150 bp", *pe_pl2.args, groups=True,
+                       **pe_pl2.kw)
     fused = hold_kernel("fused-path lanes, 1000 bp", *fused_pl2.args,
-                        **fused_pl2.kw)
+                        groups=True, **fused_pl2.kw)
     kern2.pop("retried")
     kern2["launches"] = main_pl2.launches
     kern2["launches_by_path"] = {"101bp": main_pl2.launches,
@@ -2028,9 +2173,13 @@ def main() -> int:
     kern2["max_abs_err"] = max(kern2["max_abs_err"], pe_k["max_abs_err"],
                                fused["max_abs_err"], err_pl2)
     kern2["ms_pe150bp"] = pe_k["ms"]
+    kern2["ms_1000bp"] = fused["ms"]
+    kern2["ms_by_group"] = {"101bp": kern2["ms_by_group"],
+                            "pe150bp": pe_k["ms_by_group"],
+                            "1000bp": fused["ms_by_group"]}
     kern1 = hold_kernel_pl("main-path lanes, 5000 bp, the widest call with "
                            "queries over 4095 bases", *side_pl.args,
-                           plain_reps=1, **side_pl.kw)
+                           plain_reps=1, groups=True, **side_pl.kw)
     kern1["launches"] = side_pl.launches
     kern1["launches_by_path"] = {"101bp": main_pl.launches,
                                  "pe150bp": pe_pl.launches,

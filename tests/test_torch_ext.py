@@ -1,10 +1,13 @@
 """The extension kernel's plain version against the reference's Pallas
 kernel (extend_batch_pl2 in interpret mode) on the test_extend.gen_cases
-corpora, with bands that make lanes retry; the CUDA source's lane loop,
-compiled for the host, against the plain version on the same lanes; and
-the EXT program (_ext_body, one- and two-round modes) against the
+corpora, with bands that make lanes retry; the CUDA source's group step,
+compiled for the host with its G threads run one after the other, against
+the plain version on the same lanes at G = 8, 16 and 32 and in both
+storage modes, and on long lanes whose ring of columns wraps many times;
+and the EXT program (_ext_body, one- and two-round modes) against the
 reference's.  Exact equality."""
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from bwamem_tpu_torch.ops import ext_kernel
 from bwamem_tpu_torch.pipeline import device_front as tdf
 
 from test_extend import NT4, gen_cases
+from torch_ext_cases import block, ring_wrap_cases, trace
 from torch_port_util import T, assert_same, front_setup
 
 KW = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=100)
@@ -70,6 +74,11 @@ def _pl2_plain(lanes, w_opt):
     return [x.numpy() for x in res] + [retried.numpy()]
 
 
+# the group sizes and storage modes of the kernels' group step
+GS = [(g, s) for g in ext_kernel.GROUPS for s in ext_kernel.STORAGE]
+GS_IDS = [f"G{g}-{s}" for g, s in GS]
+
+
 # (gen_cases seed, count, w_opt): narrow bands make some lanes retry; 100
 # is the default band
 CORPORA = [(0, 200, 10), (7, 100, 5), (13, 100, 5), (21, 150, 30),
@@ -93,36 +102,74 @@ def _host_kernel():
         ["c++", "-x", "c++", "-O2", "-shared", "-fPIC"]))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ext_pl2_host.restype = ci
-    lib.ext_pl2_host.argtypes = ([vp] * 7 + [ci] + [vp] * 2 + [ci] * 3
-                                 + [vp] + [ci] * 5)
+    lib.ext_pl2_host.argtypes = ([vp] * 6 + [ci] * 2 + [vp] * 2 + [ci] * 3
+                                 + [vp] + [ci] * 9)
     return lib
 
 
-@pytest.mark.parametrize("seed,n,w_opt", CORPORA)
-def test_kernel_source_lane_loop_matches_plain(seed, n, w_opt):
-    """csrc/ext_kernel.cu's lane loop (built as host C++; the card runs
-    the same code per thread) against the plain version."""
-    lanes = _lanes(gen_cases(seed, n), lane_mult=1)
+def _host_pl2(lanes, w_opt, group, storage):
+    """csrc/ext_kernel.cu's ext_pl2 group step built as host C++ (the
+    card runs the same step, a thread for each of the G), planned as
+    extend_batch_pl2 plans it; returns out [7, B]."""
     qT, tT, qlen, tlen, h0, eb, LQ, Tm = lanes
     B = qlen.shape[0]
-    w1, w2, thr = ext_kernel._bands(
-        T(qlen), T(eb), mat_bytes=np.asarray(fill_scmat(1, 4),
-                                             np.int8).tobytes(),
-        o_del=6, e_del=1, o_ins=6, e_ins=1, w_opt=w_opt)
-    w1, w2 = np.ascontiguousarray(w1.numpy()), np.ascontiguousarray(
-        w2.numpy())
-    eh = np.zeros((2, LQ + 1, B), np.int32)
+    p = ext_kernel.plan(LQ, 2 * w_opt, group, storage)
+    assert p.storage == storage
+    scratch = np.zeros(B * p.area if storage == "global" else 1, np.uint8)
     out = np.zeros((7, B), np.int32)
     mat = np.asarray(fill_scmat(1, 4), np.int32).reshape(25).copy()
-    arrs = [np.ascontiguousarray(a) for a in (qT, tT, qlen, tlen, h0)]
+    arrs = [np.ascontiguousarray(a, np.int32)
+            for a in (qT, tT, qlen, tlen, h0, eb)]
     rc = _host_kernel().ext_pl2_host(
-        *(a.ctypes.data for a in arrs), w1.ctypes.data, w2.ctypes.data,
-        thr, eh.ctypes.data, out.ctypes.data, B, LQ, Tm,
-        mat.ctypes.data, 6, 1, 6, 1, 100)
+        *(a.ctypes.data for a in arrs), w_opt, (w_opt >> 1) + (w_opt >> 2),
+        scratch.ctypes.data if storage == "global" else None,
+        out.ctypes.data, B, LQ, Tm, mat.ctypes.data, 6, 1, 6, 1, 100,
+        p.group, p.R, p.area, ext_kernel.STORAGE.index(storage))
     assert rc == 0
-    want = _pl2_plain(lanes, w_opt)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _corpus(seed, n, w_opt):
+    """The lanes of a corpus and the plain version's outputs (shared by
+    the G and storage cases)."""
+    lanes = _lanes(gen_cases(seed, n), lane_mult=1)
+    return lanes, _pl2_plain(lanes, w_opt)
+
+
+@pytest.mark.parametrize("group,storage", GS, ids=GS_IDS)
+@pytest.mark.parametrize("seed,n,w_opt", CORPORA)
+def test_kernel_source_lane_loop_matches_plain(seed, n, w_opt, group,
+                                               storage):
+    """csrc/ext_kernel.cu's group step (built as host C++) against the
+    plain version, every output field."""
+    lanes, want = _corpus(seed, n, w_opt)
+    out = _host_pl2(lanes, w_opt, group, storage)
     for k, nm in enumerate(OUT_NAMES):
         assert_same(want[k], out[k], nm)
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_wrap():
+    cases = ring_wrap_cases(seed=53)
+    lanes, _ = block(cases)
+    return cases, lanes, _pl2_plain(lanes, 5)
+
+
+@pytest.mark.parametrize("group,storage", GS, ids=GS_IDS)
+def test_kernel_source_ring_wraps_with_retry(group, storage):
+    """Queries of 1500-3000 bases at w_opt 5: both passes run on a ring of
+    R = 32 columns (2 x 10 + 8 rounded up) that the stored columns pass
+    dozens of times; the retry reruns on the ring pass 1 left behind."""
+    cases, lanes, want = _ring_wrap()
+    out = _host_pl2(lanes, 5, group, storage)
+    for k, nm in enumerate(OUT_NAMES):
+        assert_same(want[k], out[k], nm)
+    assert ext_kernel.plan(lanes[6], 10).R == 32
+    assert want[6][:len(cases)].sum() >= 2, "some lane should retry"
+    mat = np.asarray(fill_scmat(1, 4), np.int8)
+    hi = [trace(q, t, h, 10, e, mat, **KW)["hi"] for q, t, h, _, e in cases]
+    assert min(hi) > 30 * 32, hi                   # slot 0 reused 30 times
 
 
 @pytest.fixture(scope="module")

@@ -100,6 +100,23 @@ def test_compact_flat_overflow_flags():
             assert_same(jo[0], to[0], "out")
 
 
+def test_compact_flat_overflow_keeps_whole_lanes():
+    """On overflow the lanes past the arena are dropped: every slot holds
+    the lane of its position, in every field (the reference's last slot
+    takes an overflowing lane, which a CUDA scatter may take field by
+    field from different lanes)."""
+    rng = np.random.default_rng(6)
+    mask = rng.random(300) < 0.4
+    vals = [rng.integers(-50, 50, 300).astype(np.int32) for _ in range(3)]
+    kept = [v[mask] for v in vals]
+    for arena in (16, 64):
+        outs, n, over, _ = t_compact(
+            T(mask), [(T(v), torch.int32) for v in vals], arena)
+        assert bool(over) and int(n) == arena
+        for o, k in zip(outs, kept):
+            assert_same(k[:arena], o, "out")
+
+
 @pytest.fixture(scope="module")
 def expanded(fx):
     (j1, jm1), (j2, jm2), (j3, jm3) = _jax_front(fx)
