@@ -15,11 +15,8 @@
 //                  takes one row (512 B in shared memory) and its 128
 //                  chains.  At S = 8 the launch is all there is.
 //   gp2_col0       (kernel in probe_d, :122) out[q] = tab[k[q], 0] on a
-//                  table of W-word rows: one thread a lane, one cached
-//                  load (one 32-byte sector of the row).  Ordinary loads
-//                  through the read-only path: there is no repeat loop for
-//                  nvcc to hoist, so nothing needs the volatile
-//                  system-scope loads of gather_probe_kernel.cu.
+//                  table of W-word rows: col0_kernel of csrc/col0.cuh,
+//                  which gp3_col0 launches too.
 //   gp2_onehot_f32 (kernel in probe_e, :150) out[q] = int(m1[q, k[q] & 127])
 //                  with m1 = f32(onehot(k >> 7, A)) @ f32(tab), tab [A,128].
 //                  Each sum of that product is exact (one term is
@@ -52,6 +49,8 @@
 // arithmetic without a card.
 #include <stdint.h>
 
+#include "col0.cuh"
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define GP_HD __device__
@@ -75,12 +74,6 @@ static GP_HD inline int chain(const int* words, long long stride, int kk,
                               int steps, int m) {
   for (int s = 0; s < steps; ++s) kk = next_k(kk, words[kk * stride], m);
   return kk;
-}
-
-// lane q of gp2_col0: word 0 of row k[q] of the W-word table
-static GP_HD inline int col0_lane(const int* __restrict__ tab,
-                                  const int* __restrict__ k, int q, int W) {
-  return GP_LDG(tab + (long long)k[q] * W);
 }
 
 // lane of gp2_onehot_f32 for the query kq: f32(tab.flat[kq]) truncated to
@@ -117,13 +110,6 @@ gp2_take_ax1_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
   row[threadIdx.x] = tab[e];
   __syncthreads();
   out[e] = chain(row, 1, kk0[e], steps, 128);
-}
-
-__global__ void __launch_bounds__(128)
-gp2_col0_kernel(const int* __restrict__ tab, const int* __restrict__ k,
-                int* __restrict__ out, int N, int W) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q < N) out[q] = col0_lane(tab, k, q, W);
 }
 
 __global__ void __launch_bounds__(128)
@@ -164,10 +150,7 @@ extern "C" int gp2_take_ax1(const int* tab, const int* kk0, int* out, int S,
 
 extern "C" int gp2_col0(const int* tab, const int* k, int* out, int N, int W,
                         void* stream) {
-  if (N > 0)
-    gp2_col0_kernel<<<(N + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        tab, k, out, N, W);
-  return (int)cudaGetLastError();
+  return col0_launch(tab, k, out, N, W, (cudaStream_t)stream);
 }
 
 extern "C" int gp2_onehot_f32(const int* tab, const int* k, int* out, int N,
@@ -197,8 +180,7 @@ extern "C" int gp2_take_ax1_host(const int* tab, const int* kk0, int* out,
 
 extern "C" int gp2_col0_host(const int* tab, const int* k, int* out, int N,
                              int W) {
-  for (int q = 0; q < N; ++q) out[q] = col0_lane(tab, k, q, W);
-  return 0;
+  return col0_host(tab, k, out, N, W);
 }
 
 extern "C" int gp2_onehot_f32_host(const int* tab, const int* k, int* out,

@@ -23,8 +23,8 @@
 //             buffer a lane could read a row another lane has already moved
 //             to step t + 1.
 //   gp3_col0  (kernel in probe_d2, :103)  out[q] = tab[k[q], 0] for a few
-//             lanes (8 in the probe) of a [R, W] table: one warp, one
-//             cached load a lane (row 6D's function at a warp's width).
+//             lanes (8 in the probe) of a [R, W] table: col0_kernel of
+//             csrc/col0.cuh, which gp2_col0 launches too (one warp here).
 //   gp3_mm    (kernel in probe_e2, :125)  out = 64 ordered float32
 //             additions acc = acc + m of m = (a @ b)[:8]: a [M, K], b
 //             [K, N], out [R, N].  Only rows :R of the product reach the
@@ -52,6 +52,8 @@
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+
+#include "col0.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -142,13 +144,6 @@ gp3_ct_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
   for (int e = threadIdx.x; e < n2; e += blockDim.x) out[e] = cur[e];
 }
 
-__global__ void __launch_bounds__(32)
-gp3_col0_kernel(const int* __restrict__ tab, const int* __restrict__ k,
-                int* __restrict__ out, int N, int W) {
-  for (int q = threadIdx.x; q < N; q += 32)
-    out[q] = __ldg(tab + (long long)k[q] * W);
-}
-
 __global__ void __launch_bounds__(1024)
 gp3_mm_kernel(const float* __restrict__ a, const float* __restrict__ b,
               float* __restrict__ out, int K, int N, int reps) {
@@ -199,9 +194,7 @@ extern "C" int gp3_ct(const int* tab, const int* kk0, int* out, int N,
 
 extern "C" int gp3_col0(const int* tab, const int* k, int* out, int N, int W,
                         void* stream) {
-  if (N > 0)
-    gp3_col0_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(tab, k, out, N, W);
-  return (int)cudaGetLastError();
+  return col0_launch(tab, k, out, N, W, (cudaStream_t)stream);
 }
 
 extern "C" int gp3_mm(const float* a, const float* b, float* out, int R,
@@ -254,8 +247,7 @@ extern "C" int gp3_ct_host(const int* tab, const int* kk0, int* out, int N,
 
 extern "C" int gp3_col0_host(const int* tab, const int* k, int* out, int N,
                              int W) {
-  for (int q = 0; q < N; ++q) out[q] = tab[(long long)k[q] * W];
-  return 0;
+  return col0_host(tab, k, out, N, W);
 }
 
 extern "C" int gp3_mm_host(const float* a, const float* b, float* out, int R,

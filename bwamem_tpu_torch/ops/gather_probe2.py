@@ -11,7 +11,8 @@ package's tools/pl_gather_probe2.py:
   gp2_take_ax1    (probe_c, :98)   kk = (kk + tab[i, kk]) mod 128, `steps`
                                    times; tab and kk int32 [S, 128]
   gp2_col0        (probe_d, :122)  out[q] = tab[k[q], 0]; tab int32 [R, W],
-                                   k int32 [N]
+                                   k int32 [N]: ops/col0's call of
+                                   col0_kernel (csrc/col0.cuh)
   gp2_onehot_f32  (probe_e, :150)  out[q] = int(f32(onehot(k >> 7, A)) @
                                    f32(tab))[q, k & 127]); tab int32
                                    [A, 128], k and out int32 [N/128, 128];
@@ -41,6 +42,7 @@ import ctypes
 
 import torch
 
+from bwamem_tpu_torch.ops import col0
 from bwamem_tpu_torch.ops.gather_probe import _check, _wrap32
 from bwamem_tpu_torch.ops.launch import Library
 
@@ -86,10 +88,6 @@ def take_ax1_plain(tab: torch.Tensor, kk: torch.Tensor,
     return _chain(tab, kk, steps, 1)
 
 
-def scalar_col0_plain(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    return tab[k.to(torch.int64), 0]
-
-
 def onehot_f32_plain(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """The one-hot product's pick, written as the gather it equals: row
     k >> 7 of the float32 table (0 outside [0, A)), column k & 127,
@@ -128,18 +126,6 @@ def _prep_take0(tab, kk, steps):
 
 def _prep_take1(tab, kk, steps):
     return _prep_chain("gp2_take_ax1", tab, kk, steps)
-
-
-def _prep_col0(tab, k):
-    _check("gp2_col0", tab, "tab")
-    if k.dtype != torch.int32 or k.dim() != 1 or not k.is_contiguous() \
-            or k.get_device() != tab.get_device() or tab.shape[0] < 1:
-        raise ValueError(f"gp2_col0: k must be contiguous int32 [N] on "
-                         f"{tab.device} and tab nonempty, got {k.dtype} "
-                         f"{tuple(k.shape)} on {k.device}")
-    out = torch.empty_like(k)
-    return out, (tab.data_ptr(), k.data_ptr(), out.data_ptr(), k.numel(),
-                 tab.shape[1])
 
 
 def _prep_onehot(tab, k):
@@ -184,9 +170,9 @@ def gp2_take_ax1(tab: torch.Tensor, kk: torch.Tensor,
 def gp2_col0(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """tab int32 [R, W], k int32 [N] in [0, R) -> tab[k, 0]."""
     if not tab.is_cuda:
-        return scalar_col0_plain(tab, k)
+        return col0.plain(tab, k)
     global launches_col0
-    out = _launch("gp2_col0", *_prep_col0(tab, k))
+    out = col0.launch(LIB, "gp2_col0", tab, k)
     launches_col0 += 1
     return out
 

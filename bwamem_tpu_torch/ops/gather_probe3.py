@@ -12,7 +12,8 @@ tools/pl_gather_probe3.py, which maps what a gather costs in a kernel:
                               clip(kk + g2, 0, N - 1); tab and kk int32
                               [N, N]
   gp3_col0  (probe_d2, :103)  out[q] = tab[k[q], 0]; tab int32 [R, W], k
-                              int32 [n]
+                              int32 [n]: ops/col0's call of col0_kernel
+                              (csrc/col0.cuh)
   gp3_mm    (probe_e2, :125)  acc = 0, then `reps` times acc = acc +
                               (a @ b)[:rows] in float32; a [M, K], b [K, N]
 
@@ -41,6 +42,7 @@ import ctypes
 
 import torch
 
+from bwamem_tpu_torch.ops import col0
 from bwamem_tpu_torch.ops.gather_probe import _check, _wrap32
 from bwamem_tpu_torch.ops.launch import Library
 
@@ -95,10 +97,6 @@ def ct_plain(tab: torch.Tensor, kk: torch.Tensor, steps: int) -> torch.Tensor:
         g2 = g.t().gather(1, k)
         k = _clip_step(k, g2, N)
     return k.to(torch.int32)
-
-
-def col0_plain(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    return tab[k.to(torch.int64), 0]
 
 
 def mm_plain(a: torch.Tensor, b: torch.Tensor, reps: int = MM_REPS,
@@ -186,18 +184,6 @@ def _prep_ct(tab, kk, steps):
                  int(steps))
 
 
-def _prep_col0(tab, k):
-    _check("gp3_col0", tab, "tab")
-    if k.dtype != torch.int32 or k.dim() != 1 or not k.is_contiguous() \
-            or k.get_device() != tab.get_device() or tab.shape[0] < 1:
-        raise ValueError(f"gp3_col0: k must be contiguous int32 [n] on "
-                         f"{tab.device} and tab nonempty, got {k.dtype} "
-                         f"{tuple(k.shape)} on {k.device}")
-    out = torch.empty_like(k)
-    return out, (tab.data_ptr(), k.data_ptr(), out.data_ptr(), k.numel(),
-                 tab.shape[1])
-
-
 def _prep_mm(a, b, reps, rows):
     for what, t in (("a", a), ("b", b)):
         if t.dtype != torch.float32 or t.dim() != 2 \
@@ -245,9 +231,9 @@ def gp3_ct(tab: torch.Tensor, kk: torch.Tensor, steps: int) -> torch.Tensor:
 def gp3_col0(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """tab int32 [R, W], k int32 [n] in [0, R) -> tab[k, 0]."""
     if not tab.is_cuda:
-        return col0_plain(tab, k)
+        return col0.plain(tab, k)
     global launches_col0
-    out = _launch("gp3_col0", *_prep_col0(tab, k))
+    out = col0.launch(LIB, "gp3_col0", tab, k)
     launches_col0 += 1
     return out
 

@@ -29,12 +29,16 @@ mem_flt_chained_seeds (bwamem.c:607-625) and reads the final two-round
 walk demotes need the host-compacted front (pipeline/seeding_host +
 pipeline/extend_host): front_finish returns them as fallback rows and
 the caller re-runs them there.  A batch in which half the rows or more are
-such long reads is not dispatched at all: every row is handed back.
+such long reads is not dispatched at all: every row is handed back.  So
+is a batch the front gives up on (FrontBailout: arena growth that does
+not converge, or a chain table overflow), as the reference package's
+front_finish does.
 """
 from __future__ import annotations
 
 import math
 import os
+import sys
 
 import numpy as np
 import torch
@@ -529,6 +533,15 @@ def front_start(al, reads, seq: np.ndarray, l_seq: np.ndarray):
                 l_dev=l_dev, arrs=tuple(arrs), Nkey=Nkey, ext2ctx=ext2ctx)
 
 
+MAX_RETRIES = 16        # arena regrowths of one batch before it bails
+
+
+class FrontBailout(RuntimeError):
+    """The device front gives up on a batch: its arenas did not converge
+    within MAX_RETRIES regrowths, or its chain table overflowed.  Only
+    front_finish catches it."""
+
+
 def front_finish(al, tok):
     """Fetch + grow-and-retry + exact-filter replay for a front_start
     token.
@@ -537,10 +550,27 @@ def front_finish(al, tok):
     mem_chain2aln emission order (pre-dedup) for every read NOT in
     fallback_rows; fallback rows (cap overflows, long reads entering
     mem_flt_chained_seeds, reads the final two-round walk demotes) need
-    the host-compacted front.  Raises RuntimeError when arena growth does
-    not converge within 16 retries."""
+    the host-compacted front.  When the front bails on the batch
+    (FrontBailout), every row is a fallback row: one line on stderr names
+    the cause, and `front.bailouts` counts it.  The reference package
+    catches every RuntimeError there; this catches only FrontBailout, so a
+    CUDA error or a failed kernel build or launch still propagates and
+    the device is never bypassed silently."""
+    n = tok["n"]
     if tok["abort"]:
-        return [[] for _ in range(tok["n"])], list(range(tok["n"]))
+        return [[] for _ in range(n)], list(range(n))
+    try:
+        return _finish(al, tok)
+    except FrontBailout as e:
+        print(f"[bwamem_tpu_torch] device front bailed for this batch: {e}; "
+              "re-running on the host-compacted front", file=sys.stderr,
+              flush=True)
+        timers.count("front.bailouts")
+        return [[] for _ in range(n)], list(range(n))
+
+
+def _finish(al, tok):
+    """front_finish for a dispatched batch; raises FrontBailout."""
     reads, n, N, Lr = tok["reads"], tok["n"], tok["N"], tok["Lr"]
     hist, sizes, use_kmer = tok["hist"], tok["sizes"], tok["use_kmer"]
     fallback = tok["fallback"]
@@ -567,8 +597,8 @@ def front_finish(al, tok):
         if not grow:
             break
         retries += 1
-        if retries > 16:
-            raise RuntimeError(f"front arena growth did not converge: "
+        if retries > MAX_RETRIES:
+            raise FrontBailout(f"front arena growth did not converge: "
                                f"{grow} sizes={sizes}")
         _grow_sizes(sizes, grow, m1, m2)
         timers.count("front.retries")
@@ -587,7 +617,7 @@ def front_finish(al, tok):
     _note_hwm(hist, Nkey, a_seed=m4[1], s_cap=m4[2], a_ch=m5[3], a_it=m5[4],
               t_span=m5[6], a_sel=m6[0])
     if m5[0]:
-        raise RuntimeError("chain table overflow with chain_cap == seed cap")
+        raise FrontBailout("chain table overflow with chain_cap == seed cap")
 
     seed_cnt = scl[0].astype(np.int64)
     l_rep = scl[1]

@@ -63,6 +63,13 @@ Three phases; any failure exits non-zero without printing a result.
    tables (values in [-hi, hi]: the probe's saturate after one step),
    gp3_mm exact on integer-valued inputs and within its rounding bound on
    the probe's normal ones.
+   The column-0 gathers of 2c and 2d (D, gp2_col0, and gp3_col0: one
+   kernel, csrc/col0.cuh) are timed as 200 back-to-back calls, on the
+   device alone and on the host clock, in turns with tab[k, 0]; then
+   both wrappers are held against the plain version at 1, 8, 33 and 1024
+   lanes of tables 1, 3 and 8 words wide and on 64-launch chains where
+   each launch reads the last one's output, and timed in turns beside the
+   design they replaced and tab[k, 0] (tools/torch_col0_variants.py).
 2e. The dispatch probe (tools/torch_dispatch_probe.py) and the row-body
    ablation probe (tools/torch_pl_probe.py) at the TPU scripts' shapes and
    inputs (seed 0): dp_eh on qT [136,2048] at ROWS 8, 128, 512 and 2048,
@@ -93,6 +100,12 @@ Three phases; any failure exits non-zero without printing a result.
      proper, the inferred FR insert mean is within 400 +- 10 and mate
      rescue ran; one batch of 256 pairs run whole on the card and on the
      CPU gives byte-identical SAM;
+   * the first 256 reads and the 256 pairs rerun on the CPU, on the card
+     again with the device front's first arenas forced small (it must
+     grow and retry, no row falling back) and with its item arena pinned
+     (it must bail to the host-compacted front after its 16 retries,
+     every row a fallback row): the SAM must equal the CPU's bytes, and
+     front.retries, front.bailouts and the fallback rows are printed;
    * 512 reads of 1000 bp: every row is handed to the host-compacted
      front, whose fused path launches ext_pl2_kernel;
    * 64 reads of 5000 bp: the host-compacted front's side path, which
@@ -694,7 +707,7 @@ def phase_launch_path():
     equals its plain version once `side` has finished."""
     import numpy as np
     import torch
-    from bwamem_tpu_torch.ops import gather_probe3 as gp3
+    from bwamem_tpu_torch.ops import col0, gather_probe3 as gp3
     from bwamem_tpu_torch.ops import launch
     index = torch.cuda.current_device()
     main = launch.raw_stream(index)
@@ -717,7 +730,7 @@ def phase_launch_path():
                                f"{side.cuda_stream:#x}, default {main:#x}")
         got = gp3.gp3_col0(tab, k)
     side.synchronize()
-    err = int((got.to(torch.int64) - gp3.col0_plain(tab, k).to(
+    err = int((got.to(torch.int64) - col0.plain(tab, k).to(
         torch.int64)).abs().max().item())
     log(f"launch path: raw stream {main:#x} on the default stream and "
         f"{handle:#x} inside side, as torch.cuda.current_stream(); gp3_col0 "
@@ -825,8 +838,7 @@ def phase_gather_probe():
                  plain_ms=r["plain_ms"], bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=r["library_ms"],
                  device_ms=r["device_ms"])
-        e.update({k: r[k] for k in ("issue_us", "library_issue_us")
-                  if k in r})
+        e.update({k: r[k] for k in COL0_KEYS if k in r})
         if name == "gp_onehot":
             # the probe's tab3 lies in [0, 255), where bf16 is exact: the
             # inputs where it rounds, and k outside the table, count too
@@ -918,7 +930,7 @@ def phase_gather_probe2():
     import torch
     import se_smoke_data as sd
     import torch_pl_gather_probe2 as probe
-    from bwamem_tpu_torch.ops import gather_probe2 as gp2
+    from bwamem_tpu_torch.ops import col0, gather_probe2 as gp2
     counters = {"gp2_take_ax0": "launches_take0",
                 "gp2_take_ax1": "launches_take1",
                 "gp2_col0": "launches_col0",
@@ -940,7 +952,7 @@ def phase_gather_probe2():
                                      x["c128_tab"], x["c128_kk"], 98),
             "C take_ax1 [8,128]": (gp2.gp2_take_ax1, gp2.take_ax1_plain,
                                    x["c8_tab"], x["c8_kk"], 98),
-            "D col0 x1024 [78208,8]": (gp2.gp2_col0, gp2.scalar_col0_plain,
+            "D col0 x1024 [78208,8]": (gp2.gp2_col0, col0.plain,
                                        x["d_tab"], x["d_k"], 122),
             "E onehot_f32 Q1024 A640": (gp2.gp2_onehot_f32,
                                         gp2.onehot_f32_plain, x["e_tab"],
@@ -974,13 +986,13 @@ def phase_gather_probe2():
             continue
         entries[name] = dict(
             name=name, route="cuda",
-            source="bwamem_tpu_torch/csrc/gather_probe2_kernel.cu",
+            source=("bwamem_tpu_torch/csrc/col0.cuh" if name == "gp2_col0"
+                    else "bwamem_tpu_torch/csrc/gather_probe2_kernel.cu"),
             replaces=f"tools/pl_gather_probe2.py:{line}",
             launches=launches[name], max_abs_err=err, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=r["library_ms"], device_ms=r["device_ms"])
-        entries[name].update({k: r[k] for k in ("issue_us",
-                                                "library_issue_us") if k in r})
+        entries[name].update({k: r[k] for k in COL0_KEYS if k in r})
     tab, k = onehot_edge_inputs(sd.SEED, torch.device("cuda"))
     got = gp2.gp2_onehot_f32(tab, k).to(torch.int64)
     want = gp2.onehot_f32_plain(tab, k).to(torch.int64)
@@ -1006,6 +1018,18 @@ def phase_gather_probe2():
     e = entries["gp2_onehot_f32"]
     e["max_abs_err"] = max(e["max_abs_err"], err)
     return list(entries.values()), entries["gp2_col0"]
+
+
+# keys of a kernels-line entry past the contract's: the host issue of the
+# kernel's call and of its library call (6D, 6E, 7C); for the column-0
+# gathers (6D, 7C, timed back to back) also one call between events, and
+# the library call's time on the device alone and in one call
+COL0_KEYS = ("issue_us", "library_issue_us", "single_ms", "library_device_ms",
+             "library_single_ms")
+# the column-0 gather (csrc/col0.cuh) is also held at these lane counts and
+# row widths, and on chains of this many launches, each reading the output
+# of the launch before
+COL0_LANES, COL0_WIDTHS, COL0_CHAIN = (1, 8, 33, 1024), (1, 3, 8), 64
 
 
 def gp3_bound(name, x):
@@ -1069,7 +1093,7 @@ def phase_gather_probe3():
     import torch
     import se_smoke_data as sd
     import torch_pl_gather_probe3 as probe
-    from bwamem_tpu_torch.ops import gather_probe3 as gp3
+    from bwamem_tpu_torch.ops import col0, gather_probe3 as gp3
     counters = {"gp3_dg": "launches_dg", "gp3_ct": "launches_ct",
                 "gp3_col0": "launches_col0", "gp3_mm": "launches_mm"}
     for c in counters.values():
@@ -1098,7 +1122,7 @@ def phase_gather_probe3():
     held[f"7C col0 x{probe.D_LANES} [{probe.D_ROWS},{probe.D_W}]"] = (
         "gp3_col0", dict(tab=x["d_tab"], k=x["d_k"]),
         lambda d: gp3.gp3_col0(d["tab"], d["k"]),
-        lambda d: gp3.col0_plain(d["tab"], d["k"]), 103)
+        lambda d: col0.plain(d["tab"], d["k"]), 103)
     held[f"7D mm {probe.E_M}x{probe.E_K}x{probe.E_N} x64"] = (
         "gp3_mm", dict(a=x["e_a"], b=x["e_b"]),
         lambda d: gp3.gp3_mm(d["a"], d["b"]),
@@ -1136,14 +1160,14 @@ def phase_gather_probe3():
             e["max_abs_err"] = max(e["max_abs_err"], err)
             continue
         e = dict(name=name, route="cuda",
-                 source="bwamem_tpu_torch/csrc/gather_probe3_kernel.cu",
+                 source=("bwamem_tpu_torch/csrc/col0.cuh" if name == "gp3_col0"
+                         else "bwamem_tpu_torch/csrc/gather_probe3_kernel.cu"),
                  replaces=f"tools/pl_gather_probe3.py:{line}",
                  launches=launches[name], max_abs_err=err, ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=r["library_ms"],
                  device_ms=r["device_ms"])
-        e.update({k: r[k] for k in ("issue_us", "library_issue_us")
-                  if k in r})
+        e.update({k: r[k] for k in COL0_KEYS if k in r})
         if name == "gp3_mm":
             # max_abs_err is the exact check on integer-valued inputs; the
             # probe's normal inputs are held within their rounding bound
@@ -1155,6 +1179,78 @@ def phase_gather_probe3():
                              "the 64 additions")
         entries[name] = e
     return list(entries.values())
+
+
+def phase_col0(kerns_gp2, kerns_gp3):
+    """The column-0 gather that gp2_col0 (6D) and gp3_col0 (7C) both launch
+    (csrc/col0.cuh): held against its plain version at COL0_LANES x
+    COL0_WIDTHS through both wrappers, and on chains of COL0_CHAIN
+    launches at 1024 and 8 lanes where each launch reads as k the output
+    of the one before (what programmatic dependent launch must wait for);
+    then timed in turns beside the design it replaced and tab[k, 0]
+    (tools/torch_col0_variants.compare; that tool alone also times the
+    kernel's variants and the call's host issue part by part), whose
+    numbers (medians of its rounds) join the two kernels-line entries as
+    `variants`."""
+    import numpy as np
+    import torch
+    import se_smoke_data as sd
+    import torch_col0_variants as variants
+    from bwamem_tpu_torch.ops import col0, gather_probe2 as gp2
+    from bwamem_tpu_torch.ops import gather_probe3 as gp3
+    rng = np.random.default_rng(sd.SEED)
+    errs = {}
+    for n in COL0_LANES:
+        for w in COL0_WIDTHS:
+            R = 1000
+            tab = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (R, w),
+                                                dtype=np.int64).astype(
+                np.int32)).cuda()
+            k = rng.integers(0, R, n, dtype=np.int32)
+            k[:2] = (R - 1, 0)[:n]
+            k = torch.from_numpy(k).cuda()
+            want = col0.plain(tab, k).to(torch.int64)
+            for fn in (gp2.gp2_col0, gp3.gp3_col0):
+                got = fn(tab, k).to(torch.int64)
+                torch.cuda.synchronize()
+                errs[f"{fn.__name__} N={n} W={w}"] = int(
+                    (got - want).abs().max().item())
+    for n in (1024, 8):
+        R = 78208
+        tab = torch.from_numpy(rng.integers(0, R, (R, 8),
+                                            dtype=np.int32)).cuda()
+        k0 = torch.from_numpy(rng.integers(0, R, n, dtype=np.int32)).cuda()
+        for fn in (gp2.gp2_col0, gp3.gp3_col0):
+            got, want = k0, k0
+            for _ in range(COL0_CHAIN):
+                got = fn(tab, got)
+            for _ in range(COL0_CHAIN):
+                want = col0.plain(tab, want)
+            torch.cuda.synchronize()
+            errs[f"{fn.__name__} chain of {COL0_CHAIN} N={n}"] = int(
+                (got.to(torch.int64) - want.to(torch.int64)).abs().max()
+                .item())
+    log(f"col0: {len(errs)} inputs and chains held, max_abs_err "
+        f"{max(errs.values())}")
+    bad = {k: v for k, v in errs.items() if v}
+    if bad:
+        raise RuntimeError(f"col0 disagrees with its plain version: {bad}")
+    res = variants.compare(variants.libraries(("replaced",)),
+                           variants.make_inputs(sd.SEED,
+                                                torch.device("cuda")), log)
+    for entries, row in ((kerns_gp2, "6D"), (kerns_gp3, "7C")):
+        name = "gp2_col0" if row == "6D" else "gp3_col0"
+        e = next(e for e in entries if e["name"] == name)
+        e["max_abs_err"] = max(e["max_abs_err"], max(errs.values()))
+        e["variants"] = res["rows"][row]
+        sh, lib = e["variants"]["shipped"], e["variants"]["library"]
+        log(f"col0 {row} ({name}), medians of the rounds, against tab[k, "
+            f"0]: back to back {sh['ms']:.5f} / {lib['ms']:.5f} ms, device "
+            f"alone {sh['device_ms']:.5f} / {lib['device_ms']:.5f} ms, host "
+            f"issue {sh['issue_us']:.2f} / {lib['issue_us']:.2f} us; the "
+            f"replaced design {e['variants']['replaced']['ms']:.5f} ms, "
+            f"{e['variants']['replaced']['device_ms']:.5f} ms, "
+            f"{e['variants']['replaced']['issue_us']:.2f} us")
 
 
 def phase_dispatch_pl_probe():
@@ -1355,7 +1451,7 @@ def check_sams(label, sams, reads, min_mapped=0.9, min_origin=0.8,
 
 def check_cpu(label, cpu_al, reads, sams, k):
     """Rerun the first k reads on the CPU: byte-identical SAM (so the same
-    reads are unmapped in both)."""
+    reads are unmapped in both).  Returns the CPU's SAM."""
     t1 = time.perf_counter()
     cpu = cpu_al.align_batch_se(reads[:k])
     if cpu != sams[:k]:
@@ -1365,6 +1461,7 @@ def check_cpu(label, cpu_al, reads, sams, k):
                            f"{sams[bad[0]]}{cpu[bad[0]]}")
     log(f"{label}: CPU rerun of {k} reads: SAM identical "
         f"({time.perf_counter() - t1:.1f} s)")
+    return cpu
 
 
 def check_sub_batch(label, al, reads, sams, k):
@@ -1385,7 +1482,8 @@ def check_sub_batch(label, al, reads, sams, k):
 
 def phase_main(idx, cpu_al):
     """The 101 bp path: device front + ext_pl2_kernel.  Returns the
-    aligner and the two kernels' hooks (launch count, widest call)."""
+    aligner, the two kernels' hooks (launch count, widest call) and the
+    reads rerun on the CPU with the CPU's SAM."""
     import torch
     from bwamem_tpu_torch.io.fastq import read_fastx
     from bwamem_tpu_torch.pipeline.align import Aligner, align_stream
@@ -1441,8 +1539,60 @@ def phase_main(idx, cpu_al):
     if fb != 0:
         raise RuntimeError(f"{fb} fallback rows")
     check_sams("main path", sams, reads)
-    check_cpu("main path", cpu_al, reads, sams, CPU_CHECK_READS)
-    return al, pl2, pl
+    cpu = check_cpu("main path", cpu_al, reads, sams, CPU_CHECK_READS)
+    return al, pl2, pl, (reads[:CPU_CHECK_READS], cpu)
+
+
+def phase_front_forced(al, se, pe):
+    """The device front's grow-and-retry loop and its bail-out on the card:
+    the batches run whole on the CPU by phase_main (`se`: reads, SAM) and
+    phase_pe (`pe`: interleaved pairs, SAM), again on the card with the
+    first-dispatch arenas forced small (the front must retry and no row
+    fall back) and with the item arena pinned (tools/torch_front_force;
+    the front must bail once after device_front.MAX_RETRIES retries,
+    every row re-run on the host-compacted front).  Each run's SAM must
+    equal the CPU's bytes, and ext_pl2_kernel must launch in it (counted
+    from 0)."""
+    import torch
+    from torch_front_force import forced_front
+    from bwamem_tpu_torch.pipeline import device_front
+    from bwamem_tpu_torch.utils import timers
+    for how in ("small", "pinned"):
+        for kind, (reads, cpu) in (("SE", se), ("PE", pe)):
+            label = f"front, {kind}, {how} arenas"
+            timers.reset()
+            timers.enable(True)
+            t0 = time.perf_counter()
+            with forced_front(how), \
+                    WidestCall("extend_batch_pl2", "launches") as pl2:
+                sams = (al.align_batch_pe(reads) if kind == "PE"
+                        else al.align_batch_se(reads))
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            timers.enable(False)
+            snap = timers.snapshot()
+            got = {k: snap.get(f"front.{k}.count", 0)
+                   for k in ("retries", "bailouts", "fallback_rows")}
+            log(f"{label}: {len(reads)} reads in {wall:.3f} s; "
+                f"front.retries {got['retries']}, front.bailouts "
+                f"{got['bailouts']}, fallback rows {got['fallback_rows']}, "
+                f"ext_pl2_kernel launches {pl2.launches}")
+            if sams != cpu:
+                bad = [i for i in range(len(cpu)) if sams[i] != cpu[i]]
+                raise RuntimeError(f"{label}: GPU and CPU SAM differ on "
+                                   f"{len(bad)} of {len(cpu)} reads (first "
+                                   f"{bad[:5]}):\n{sams[bad[0]]}{cpu[bad[0]]}")
+            want = (dict(bailouts=0, fallback_rows=0) if how == "small" else
+                    dict(retries=device_front.MAX_RETRIES, bailouts=1,
+                         fallback_rows=len(reads)))
+            if any(got[k] != v for k, v in want.items()) or (
+                    how == "small" and got["retries"] < 1) \
+                    or pl2.launches <= 0:
+                raise RuntimeError(f"{label}: expected {want} (and a retry "
+                                   f"for small arenas) and launches of "
+                                   f"ext_pl2_kernel, got {got}, "
+                                   f"{pl2.launches} launches")
+            log(f"{label}: SAM identical to the CPU's")
 
 
 def phase_long(al, cpu_al, read_len):
@@ -1493,7 +1643,7 @@ def phase_long(al, cpu_al, read_len):
 def phase_pe(al, cpu_al):
     """The paired-end path: 2 x 4096 pairs of 150 bp through
     align_stream(pe=True) on the card.  Returns the two extension kernels'
-    hooks."""
+    hooks and the batch of pairs run whole on the CPU with its SAM."""
     import torch
     from bwamem_tpu_torch.io.fastq import interleave, read_fastx
     from bwamem_tpu_torch.pipeline.align import align_stream
@@ -1604,7 +1754,7 @@ def phase_pe(al, cpu_al):
     log(f"{label}: a batch of {PE_CPU_CHECK_PAIRS} pairs on the card "
         f"({t2 - t1:.1f} s) and on the CPU ({time.perf_counter() - t2:.1f} "
         f"s): SAM identical")
-    return pl2, pl
+    return pl2, pl, (reads[:k], cpu)
 
 
 def fm_bound(n_lanes, steps, nb, W):
@@ -1848,8 +1998,9 @@ def _legacy_counts(label, snap, n_items, kernel_d):
         f"search {match:.3f} s, of it the rounds' copies and occ4 {occ:.3f} "
         f"s; host time a round {match / max(rounds, 1) * 1e3:.4f} ms (copies "
         f"and occ4 {occ / max(rounds, 1) * 1e3:.4f} ms) against kernel D "
-        f"(gp2_col0) at 1024 lanes {kernel_d['ms']:.4f} ms, "
-        f"{kernel_d['device_ms']:.4f} ms on the device alone")
+        f"(gp2_col0) at 1024 lanes {kernel_d['single_ms']:.4f} ms one call, "
+        f"{kernel_d['ms']:.4f} ms a call back to back, "
+        f"{kernel_d['device_ms']:.4f} ms on the device alone back to back")
     if rounds <= 0:
         raise RuntimeError(f"{label}: the search issued no round")
     return rounds
@@ -1888,9 +2039,13 @@ def phase_legacy(prefix, kernel_d):
     round_ms = sorted(ts)[2]
     log(f"aln round of {LEG_ROUND_LANES} lanes issued from the host (copy "
         f"in, occ4, copy out), median of 5: {round_ms:.4f} ms; kernel D "
-        f"(gp2_col0) at {LEG_ROUND_LANES} lanes {kernel_d['ms']:.4f} ms, "
-        f"{kernel_d['device_ms']:.4f} ms on the device alone: the round "
-        f"costs {round_ms / kernel_d['ms']:.1f} times the kernel's call")
+        f"(gp2_col0) at {LEG_ROUND_LANES} lanes {kernel_d['single_ms']:.4f} "
+        f"ms one call, {kernel_d['ms']:.4f} ms a call back to back, "
+        f"{kernel_d['device_ms']:.4f} ms on the device alone back to back "
+        f"(col0 after col0: the dependent launch overlaps only that): the "
+        f"round costs {round_ms / kernel_d['single_ms']:.1f} times one call "
+        f"of the kernel, {round_ms / kernel_d['ms']:.1f} times a call back "
+        f"to back")
     del fm, batcher
 
     # single-end: aln + samse
@@ -2135,14 +2290,16 @@ def main() -> int:
     kerns_gp = phase_gather_probe()
     kerns_gp2, kernel_d = phase_gather_probe2()
     kerns_gp3 = phase_gather_probe3()
+    phase_col0(kerns_gp2, kerns_gp3)
     kerns_dp_pl = phase_dispatch_pl_probe()
     from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.pipeline.align import Aligner
     import se_smoke_data as sd
     idx = load_index(sd.smoke_data(log)[0])
     cpu_al = Aligner(idx, device="cpu")
-    al, main_pl2, main_pl = phase_main(idx, cpu_al)
-    pe_pl2, pe_pl = phase_pe(al, cpu_al)
+    al, main_pl2, main_pl, se_check = phase_main(idx, cpu_al)
+    pe_pl2, pe_pl, pe_check = phase_pe(al, cpu_al)
+    phase_front_forced(al, se_check, pe_check)
     fused_pl2, none_pl = phase_long(al, cpu_al, 1000)
     if fused_pl2.launches <= 0 or none_pl.launches != 0:
         raise RuntimeError(

@@ -23,9 +23,10 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from bwamem_tpu_torch._build import shared_lib
-from bwamem_tpu_torch.ops import gather_probe2 as gp2
+from bwamem_tpu_torch.ops import col0, gather_probe2 as gp2
 
-from torch_port_util import T, assert_same
+from torch_port_util import (T, assert_same, col0_bad_inputs,
+                             col0_edge_inputs)
 
 VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
 SMEM = pl.BlockSpec(memory_space=pltpu.SMEM)
@@ -170,7 +171,20 @@ def test_col0_plain_and_lanes_match_pallas(W):
     k = rng.integers(0, R, N, dtype=np.int32)
     k[:2] = (0, R - 1)
     want = np.asarray(pl_d(jnp.asarray(tab), jnp.asarray(k)))
-    assert_same(want, gp2.scalar_col0_plain(T(tab), T(k)), "col0")
+    assert_same(want, col0.plain(T(tab), T(k)), "col0")
+    assert_same(want, _host("gp2_col0_host", tab, k, np.zeros_like(k), N, W),
+                "col0 lanes")
+
+
+@pytest.mark.parametrize("W", [1, 3, 8])
+@pytest.mark.parametrize("N", [1, 8, 33, 1024])
+def test_col0_shared_lane_loop_matches_pallas(N, W):
+    """The one lane loop of csrc/col0.cuh, which gp2_col0 and gp3_col0
+    both launch, built for the host through this library's entry, at one
+    lane, 8, past a warp and 1024 lanes; k at R - 1 and 0."""
+    tab, k = col0_edge_inputs(N, W)
+    want = np.asarray(pl_d(jnp.asarray(tab), jnp.asarray(k)))
+    assert_same(want, col0.plain(T(tab), T(k)), "col0")
     assert_same(want, _host("gp2_col0_host", tab, k, np.zeros_like(k), N, W),
                 "col0 lanes")
 
@@ -233,7 +247,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
                        gp2.take_ax0_plain(tab, kk0, STEPS))
     assert torch.equal(gp2.gp2_take_ax1(tab, kk1, STEPS),
                        gp2.take_ax1_plain(tab, kk1, STEPS))
-    assert torch.equal(gp2.gp2_col0(tab, k), gp2.scalar_col0_plain(tab, k))
+    assert torch.equal(gp2.gp2_col0(tab, k), col0.plain(tab, k))
     assert torch.equal(gp2.gp2_onehot_f32(tab, ke),
                        gp2.onehot_f32_plain(tab, ke))
     assert [getattr(gp2, n) for n in names] == before
@@ -246,7 +260,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     k = T(rng.integers(0, 64, 256, dtype=np.int32))
     good = {"take0": (gp2._prep_take0, dict(tab=tab, kk=kk, steps=2)),
             "take1": (gp2._prep_take1, dict(tab=tab, kk=kk, steps=2)),
-            "col0": (gp2._prep_col0, dict(tab=tab[:, :8].contiguous(), k=k)),
+            "col0": (lambda tab, k: col0.prep("gp2_col0", tab, k),
+                     dict(tab=tab[:, :8].contiguous(), k=k)),
             "onehot": (gp2._prep_onehot, dict(tab=tab, k=kk[:2]))}
     for fn, kw in good.values():
         out, _ = fn(**kw)
@@ -262,6 +277,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
            ("col0", dict(k=k.reshape(2, 128))),
            ("col0", dict(k=k.to(torch.int64))),
            ("col0", dict(tab=tab[:0])),
+           *(("col0", c) for c in col0_bad_inputs(tab[:, :8].contiguous(),
+                                                 k)),
            ("onehot", dict(k=k)),
            ("onehot", dict(tab=tab[:0])),
            ("onehot", dict(k=kk[:2].to(torch.float32)))]

@@ -24,9 +24,10 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from bwamem_tpu_torch._build import shared_lib
-from bwamem_tpu_torch.ops import gather_probe3 as gp3
+from bwamem_tpu_torch.ops import col0, gather_probe3 as gp3
 
-from torch_port_util import T, assert_same
+from torch_port_util import (T, assert_same, col0_bad_inputs,
+                             col0_edge_inputs)
 
 VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
 SMEM = pl.BlockSpec(memory_space=pltpu.SMEM)
@@ -212,8 +213,21 @@ def test_col0_plain_and_lanes_match_pallas(W, n):
     k = rng.integers(0, R, n, dtype=np.int32)
     k[:2] = (0, R - 1)
     want = np.asarray(pl_d2(jnp.asarray(tab), jnp.asarray(k)))
-    assert_same(want, gp3.col0_plain(T(tab), T(k)), "col0")
+    assert_same(want, col0.plain(T(tab), T(k)), "col0")
     assert_same(want, _host("gp3_col0_host", tab, k, np.zeros_like(k), n, W),
+                "col0 lanes")
+
+
+@pytest.mark.parametrize("W", [1, 3, 8])
+@pytest.mark.parametrize("N", [1, 8, 33, 1024])
+def test_col0_shared_lane_loop_matches_pallas(N, W):
+    """The one lane loop of csrc/col0.cuh, which gp3_col0 and gp2_col0
+    both launch, built for the host through this library's entry, at one
+    lane, the probe's 8, past a warp and 1024 lanes; k at R - 1 and 0."""
+    tab, k = col0_edge_inputs(N, W)
+    want = np.asarray(pl_d2(jnp.asarray(tab), jnp.asarray(k)))
+    assert_same(want, col0.plain(T(tab), T(k)), "col0")
+    assert_same(want, _host("gp3_col0_host", tab, k, np.zeros_like(k), N, W),
                 "col0 lanes")
 
 
@@ -273,7 +287,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
                            gp3.dg_plain(tab, kk, STEPS, axis))
     assert torch.equal(gp3.gp3_ct(tab, kk, STEPS),
                        gp3.ct_plain(tab, kk, STEPS))
-    assert torch.equal(gp3.gp3_col0(tab, k), gp3.col0_plain(tab, k))
+    assert torch.equal(gp3.gp3_col0(tab, k), col0.plain(tab, k))
     assert torch.equal(gp3.gp3_mm(a, b), gp3.mm_plain(a, b))
     assert [getattr(gp3, n) for n in names] == before
     with pytest.raises(ValueError):
@@ -286,7 +300,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     a, b = (T(x) for x in _mm_inputs("normal", seed=8))
     good = {"dg": (gp3._prep_dg, dict(tab=tab, kk=kk, steps=2, axis=1)),
             "ct": (gp3._prep_ct, dict(tab=tab, kk=kk, steps=2)),
-            "col0": (gp3._prep_col0, dict(tab=tab, k=k)),
+            "col0": (lambda tab, k: col0.prep("gp3_col0", tab, k),
+                     dict(tab=tab, k=k)),
             "mm": (gp3._prep_mm, dict(a=a, b=b, reps=64, rows=8))}
     for fn, kw in good.values():
         out, _ = fn(**kw)
@@ -303,6 +318,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
            ("ct", dict(tab=big, kk=big.clone())),
            ("col0", dict(k=k.reshape(2, 4))),
            ("col0", dict(k=k.to(torch.int64))),
+           *(("col0", c) for c in col0_bad_inputs(
+               T(np.arange(64, dtype=np.int32).reshape(16, 4)), k)),
            ("mm", dict(a=a.double())),
            ("mm", dict(b=b[:-1].contiguous())),
            ("mm", dict(rows=a.shape[0] + 1)),

@@ -330,3 +330,96 @@ def bwasw_dataset(dirpath, *, n_se=0, n_pairs=0):
         out["fq2"] = _fq(d / "lr2.fq", pairs[1::2])
     build_index(str(d / "g.fa")).save(out["prefix"])
     return out
+
+
+# ---- the device front's arena sizes, forced in both packages ----
+
+def force_front_sizes(monkeypatch, how):
+    """Patch the device front's first-dispatch sizes (`_sizes_for`) in both
+    packages as tools/torch_front_force.sized says: how="small" starts
+    every arena of its SMALL_ARENAS there, how="pinned" keeps the item
+    arena from growing, so the front bails to the host front after its
+    retries."""
+    from bwamem_tpu.pipeline import device_front as jdf
+    from bwamem_tpu_torch.pipeline import device_front as tdf
+    from torch_front_force import sized
+    jorig, torig = jdf._sizes_for, tdf._sizes_for
+
+    def jsizes(al, N, Lr):
+        hist, sizes = jorig(al, N, Lr)
+        return hist, sized(sizes, how)
+    monkeypatch.setattr(jdf, "_sizes_for", jsizes)
+    monkeypatch.setattr(tdf, "_sizes_for",
+                        lambda hist, N, Lr: sized(torig(hist, N, Lr), how))
+
+
+def retry_matches(data, monkeypatch, pe):
+    """SAM of a make_dataset batch (its 101 bp reads, or with pe its pairs)
+    with the first-dispatch arenas forced small in both packages: the
+    port's must equal the reference's and its own from the default sizes,
+    after at least one retry of its device front and no bail-out."""
+    from bwamem_tpu.io.fastq import read_fastx as j_read
+    from bwamem_tpu.pipeline.align import Aligner as JAligner
+    from bwamem_tpu_torch.io.fastq import read_fastx as t_read
+    from bwamem_tpu_torch.pipeline.align import Aligner as TAligner
+    from bwamem_tpu_torch.utils import timers
+
+    def port():
+        al = TAligner(data["tidx"], torch_opt(), device="cpu")
+        if pe:
+            return al.align_batch_pe(pe_reads(data, "t"))
+        return al.align_batch_se(list(t_read(data["fq"])))
+    unforced = port()
+    force_front_sizes(monkeypatch, "small")
+    ja = JAligner(data["jidx"])
+    want = (ja.align_batch_pe(pe_reads(data, "j")) if pe
+            else ja.align_batch_se(list(j_read(data["fq"]))))
+    timers.reset()
+    timers.enable(True)
+    try:
+        got = port()
+        snap = timers.snapshot()
+    finally:
+        timers.enable(False)
+        timers.reset()
+    assert want == got, first_diff(want, got)
+    assert got == unforced, first_diff(unforced, got)
+    assert snap.get("front.retries.count", 0) >= 1
+    assert snap.get("front.bailouts.count", 0) == 0
+    assert snap.get("front.fallback_rows.count", 0) == 0
+
+
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that reports CUDA device index 0."""
+
+    def get_device(self):
+        return 0
+
+
+def on_other_device(t):
+    """t, reporting another device than its CPU neighbours (get_device()
+    0): what a wrapper's device check must reject."""
+    return t.as_subclass(_OtherDevice)
+
+
+def col0_edge_inputs(N, W, R=1000):
+    """A [R, W] int32 table over the whole int32 range and N indices in
+    [0, R), the first at R - 1 and the second (N > 1) at 0."""
+    rng = np.random.default_rng(N * 16 + W)
+    tab = rng.integers(-(1 << 31), 1 << 31, (R, W),
+                       dtype=np.int64).astype(np.int32)
+    k = rng.integers(0, R, N, dtype=np.int32)
+    k[:2] = (R - 1, 0)[:N]
+    return tab, k
+
+
+def col0_bad_inputs(tab, k):
+    """Changes to a good gp2_col0 / gp3_col0 call (tab int32 [R, W], W >= 4,
+    k int32 [N], N even) that the kernel does not take: dtype, rank,
+    contiguity and device of either, and an empty table (no rows, no
+    columns)."""
+    return [dict(tab=tab.to(torch.int64)), dict(k=k.to(torch.int64)),
+            dict(tab=tab[:, 0].contiguous()), dict(k=k.reshape(2, -1)),
+            dict(tab=tab[:, :2]), dict(k=k[::2]),
+            dict(k=on_other_device(k)), dict(tab=tab[:0]),
+            dict(tab=tab[:, :0].contiguous())]

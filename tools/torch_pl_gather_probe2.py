@@ -29,12 +29,16 @@ the gather the one-hot product's pick equals: torch.take of the table at
 k (row k >> 7, column k & 127), 0 where k lies outside the table.  Each
 kernel's call is also timed on the device alone (`device_ms`: the events
 and the launch are queued behind a 1 ms spin of the card, so the host's
-cost of issuing the call is off the clock), and D's and E's, at a
-launch's latency on the device, also on the host clock with their
-library call (`issue_us`, `library_issue_us`:
-torch_dispatch_probe.issue_us, 200 calls back to back).  The
-card's name and power limit are printed first.  Needs a CUDA device;
-exits non-zero without one.
+cost of issuing the call is off the clock), and E's, at a launch's
+latency on the device, also on the host clock with its library call
+(`issue_us`, `library_issue_us`: torch_dispatch_probe.issue_us, 200 calls
+back to back).  D, a launch's latency on the device and on the host, is
+timed as a run of 200 back-to-back calls between two events (`ms`), the
+same run behind an 8 ms spin of the card (`device_ms`), one call between
+events as the other rows (`single_ms`) and on the host clock
+(`issue_us`), and so is its library call, the two in turns, six rounds
+(col0_times).  The card's name and power limit are printed first.  Needs
+a CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -51,6 +55,9 @@ E_Q, E_A = 1024, 640
 A_ROWS = 611                # probe A's table rows
 REPS = 5
 SPIN_CYCLES = 2_000_000     # about 1 ms of the card's clock
+B2B_CALLS = 200             # calls of a back-to-back run
+B2B_SPIN_CYCLES = 16_000_000  # about 8 ms: longer than issuing a run
+COL0_ROUNDS = 6             # turns of a column-0 gather and its library call
 
 
 def median_ms(fn, reps: int = REPS) -> float:
@@ -87,6 +94,103 @@ def device_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def b2b_ms(fn, calls: int = B2B_CALLS, reps: int = REPS) -> float:
+    """Time of one fn() in a run of `calls` back-to-back calls between two
+    CUDA events, after a warm-up: the median of `reps` runs, divided by
+    `calls`.  For a call at a launch's latency this is the larger of its
+    host issue and its time on the device."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return sorted(times)[len(times) // 2]
+
+
+def b2b_device_ms(fn, calls: int = B2B_CALLS, reps: int = REPS) -> float:
+    """b2b_ms with the run queued behind a spin of the card (about 8 ms),
+    so that every call is issued before the device reaches the first and
+    the host's issue is off the clock: the device's time a call, the
+    launch's latency between two kernels included.  A run whose spin ended
+    before its last call was issued is dropped and taken again behind a
+    spin twice as long; raises past 64 times the first spin."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    spin = B2B_SPIN_CYCLES
+    while len(times) < reps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        ended = a.query()
+        torch.cuda.synchronize()
+        if not ended:
+            times.append(a.elapsed_time(b) / calls)
+        elif spin >= 64 * B2B_SPIN_CYCLES:
+            raise RuntimeError("b2b_device_ms: the host did not issue the "
+                               "run within the longest spin")
+        else:
+            spin *= 2
+    return sorted(times)[len(times) // 2]
+
+
+def call_times(fn) -> dict:
+    """ms and device_ms back to back (b2b_ms, b2b_device_ms), single_ms
+    (one call between events, as the probe's other rows are timed) and
+    issue_us (host clock, torch_dispatch_probe.issue_us) of one call."""
+    from torch_dispatch_probe import issue_us
+    return dict(ms=b2b_ms(fn), device_ms=b2b_device_ms(fn),
+                single_ms=median_ms(fn), issue_us=issue_us(fn))
+
+
+def interleaved(fns: dict, rounds: int = COL0_ROUNDS) -> dict:
+    """{name: call_times, each number the median over `rounds` rounds}:
+    the calls run in turns (A B C, C B A, ...), since the host's clock
+    drifts by tens of percent within a run."""
+    runs = {name: [] for name in fns}
+    order = list(fns)
+    for i in range(rounds):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            runs[name].append(call_times(fns[name]))
+    return {name: {m: sorted(r[m] for r in rs)[len(rs) // 2]
+                   for m in rs[0]} for name, rs in runs.items()}
+
+
+def col0_times(kern, plain, lib) -> dict:
+    """The times of a column-0 gather (rows 6D and 7C) and its library
+    call on one input, taken in turns (interleaved): call_times' keys for
+    the kernel, and as library_* for the library call; plain_ms back to
+    back."""
+    t = interleaved({"kernel": kern, "library": lib})
+    r = dict(t["kernel"], plain_ms=b2b_ms(plain))
+    r.update({f"library_{m}": v for m, v in t["library"].items()})
+    return r
+
+
+def log_col0(label: str, r: dict, log=print) -> None:
+    """col0_times' numbers of one input, on two lines."""
+    log(f"{label:24s} kernel back to back {r['ms']:.4f} ms a call, device "
+        f"alone {r['device_ms']:.4f}, one call {r['single_ms']:.4f}, host "
+        f"issue {r['issue_us']:.2f} us; plain {r['plain_ms']:.4f} ms")
+    log(f"{label:24s} library back to back {r['library_ms']:.4f} ms a call,"
+        f" device alone {r['library_device_ms']:.4f}, one call "
+        f"{r['library_single_ms']:.4f}, host issue "
+        f"{r['library_issue_us']:.2f} us")
 
 
 def make_inputs(seed: int, device) -> dict:
@@ -126,7 +230,7 @@ def cases(x: dict, steps: int) -> list:
     """(label, kernel name, kernel call, plain call, library call, steps a
     launch) for each kernel and shape of the probe."""
     import torch
-    from bwamem_tpu_torch.ops import gather_probe2 as gp2
+    from bwamem_tpu_torch.ops import col0, gather_probe2 as gp2
     out = [("B take_ax0 [512,128]", "gp2_take_ax0",
             lambda: gp2.gp2_take_ax0(x["b_tab"], x["b_kk"], steps),
             lambda: gp2.take_ax0_plain(x["b_tab"], x["b_kk"], steps),
@@ -141,7 +245,7 @@ def cases(x: dict, steps: int) -> list:
     k64 = x["d_k"].long()
     out.append(("D col0 x1024 [78208,8]", "gp2_col0",
                 lambda: gp2.gp2_col0(x["d_tab"], x["d_k"]),
-                lambda: gp2.scalar_col0_plain(x["d_tab"], x["d_k"]),
+                lambda: col0.plain(x["d_tab"], x["d_k"]),
                 lambda: x["d_tab"][k64, 0], 1))
     ek, n_e = x["e_k"].long(), x["e_tab"].numel()
 
@@ -159,11 +263,13 @@ def cases(x: dict, steps: int) -> list:
 def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
     """Runs the probe on the current CUDA device.  Returns dict(inputs=...
     (make_inputs), results={label: dict(name, ms, device_ms, plain_ms,
-    library_ms, max_abs_err, steps)}, D's and E's also with issue_us and
-    library_issue_us, a_ms=probe A's chain); raises when a kernel or a
-    library call differs from its plain version.  Each kernel launches 12
-    times a shape: 1 check, 1 warm-up and 5 timed calls, then 5 timed on
-    the device alone; D and E 201 more for their issue."""
+    library_ms, max_abs_err, steps)}, E's also with issue_us and
+    library_issue_us, D's with col0_times' keys, a_ms=probe A's chain);
+    raises when a kernel or a library call differs from its plain
+    version.  Each kernel launches 12 times a shape: 1 check, 1 warm-up
+    and 5 timed calls, then 5 timed on the device alone; E 201 more for
+    its issue; D 13255 (1 check, then six rounds of two warmed runs of 5
+    x 200, a warmed single call 5 times and 201 for the issue)."""
     import torch
     from torch_dispatch_probe import issue_us
     sys.path.insert(0, REPO)
@@ -191,6 +297,12 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
         "every output")
     results = {}
     for label, name, kern, plain, lib, per in todo:
+        if name == "gp2_col0":
+            r = dict(name=name, max_abs_err=0, steps=per,
+                     **col0_times(kern, plain, lib))
+            results[label] = r
+            log_col0(label, r, log)
+            continue
         r = dict(name=name, max_abs_err=0, steps=per, ms=median_ms(kern),
                  device_ms=device_ms(kern), plain_ms=median_ms(plain),
                  library_ms=median_ms(lib))
@@ -199,7 +311,7 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
             f"({r['ms'] / per * 1e3:8.3f} us/step), on the device alone "
             f"{r['device_ms']:8.4f} ms, plain {r['plain_ms']:8.4f} ms, "
             f"library {r['library_ms']:8.4f} ms")
-        if name in ("gp2_col0", "gp2_onehot_f32"):
+        if name == "gp2_onehot_f32":
             r.update(issue_us=issue_us(kern), library_issue_us=issue_us(lib))
             log(f"{label:24s} host issue {r['issue_us']:.2f} us a call, "
                 f"library {r['library_issue_us']:.2f} us")

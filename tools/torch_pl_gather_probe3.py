@@ -28,12 +28,14 @@ function: the 512-step chain of torch.gather, add and clamp (for 7B with
 the transpose) issued from PyTorch, tab[k, 0] for 7C, and for 7D
 torch.matmul(a[:8], b) followed by the 64 additions (TF32 off).  Each
 kernel's call is also timed on the device alone (`device_ms`: the events
-and the launch are queued behind a 1 ms spin of the card), and 7C's, at a
-launch's latency on the device, also on the host clock with its library
-call (`issue_us`, `library_issue_us`: torch_dispatch_probe.issue_us, 200
-calls back to back), which is what its call between events mostly is.
-The card's name and power limit are printed first.  Needs a CUDA device; exits
-non-zero without one.
+and the launch are queued behind a 1 ms spin of the card).  7C, at a
+launch's latency on the device and on the host, is timed as row 6D is
+(torch_pl_gather_probe2.col0_times: 200 back-to-back calls between two
+events, the same behind an 8 ms spin, one call between events as
+`single_ms`, the host clock as `issue_us`), and so is its library call,
+the two in turns.
+The card's name and power limit are printed first.  Needs a CUDA device;
+exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -115,7 +117,7 @@ def cases(x: dict, steps: int) -> list:
     """(label, kernel name, kernel call, plain call, library call, tolerance
     against the plain version, timed) for each kernel, shape and input the
     probe holds; the untimed cases are the extra inputs."""
-    from bwamem_tpu_torch.ops import gather_probe3 as gp3
+    from bwamem_tpu_torch.ops import col0, gather_probe3 as gp3
     out = []
     for tag, S, L, axis in DG_SHAPES:
         for sfx in ("", "_spread"):
@@ -137,7 +139,7 @@ def cases(x: dict, steps: int) -> list:
     k64 = x["d_k"].long()
     out.append((f"7C col0 x{D_LANES} [{D_ROWS},{D_W}]", "gp3_col0",
                 lambda: gp3.gp3_col0(x["d_tab"], x["d_k"]),
-                lambda: gp3.col0_plain(x["d_tab"], x["d_k"]),
+                lambda: col0.plain(x["d_tab"], x["d_k"]),
                 lambda: x["d_tab"][k64, 0], 0.0, True))
     for sfx, timed in (("", True), ("_int", False)):
         a, b = x[f"e_a{sfx}"], x[f"e_b{sfx}"]
@@ -155,13 +157,13 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
     library_ms, max_abs_err, tolerance, steps)} for the timed cases,
     checks={label: (max_abs_err, tolerance)} for every case); raises when
     a kernel or a library call differs from its plain version by more
-    than the case's tolerance; 7C's result also has issue_us and
-    library_issue_us.  Each kernel launches 12 times a timed case (1
-    check, 1 warm-up and 5 timed calls, then 5 on the device alone), 201
-    more for 7C's issue, and once an untimed case."""
+    than the case's tolerance; 7C's result has col0_times' keys.  Each
+    kernel launches 12 times a timed case (1 check, 1 warm-up and 5 timed
+    calls, then 5 on the device alone; 7C 13255, as probe 2's D), and
+    once an untimed case."""
     import torch
-    from torch_dispatch_probe import issue_us
-    from torch_pl_gather_probe2 import device_ms, median_ms
+    from torch_pl_gather_probe2 import (col0_times, device_ms, log_col0,
+                                        median_ms)
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -196,8 +198,13 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
     for label, name, kern, plain, lib, tol, timed in todo:
         if not timed:
             continue
-        per = 64 if name == "gp3_mm" else steps if name != "gp3_col0" \
-            else 1
+        if name == "gp3_col0":
+            r = dict(name=name, max_abs_err=checks[label][0], tolerance=tol,
+                     steps=1, **col0_times(kern, plain, lib))
+            results[label] = r
+            log_col0(label, r, log)
+            continue
+        per = 64 if name == "gp3_mm" else steps
         r = dict(name=name, max_abs_err=checks[label][0], tolerance=tol,
                  steps=per, ms=median_ms(kern), device_ms=device_ms(kern),
                  plain_ms=median_ms(plain), library_ms=median_ms(lib))
@@ -206,10 +213,6 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
             f"({r['ms'] / per * 1e3:8.3f} us/step), on the device alone "
             f"{r['device_ms']:8.4f} ms, plain {r['plain_ms']:8.4f} ms, "
             f"library {r['library_ms']:8.4f} ms")
-        if name == "gp3_col0":
-            r.update(issue_us=issue_us(kern), library_issue_us=issue_us(lib))
-            log(f"{label:34s} host issue {r['issue_us']:.2f} us a call, "
-                f"library {r['library_issue_us']:.2f} us")
     return dict(inputs=x, results=results, checks=checks)
 
 
