@@ -7,81 +7,64 @@
 //           (The TPU kernel reads tT at min(i, ROWS - 1), which inside the
 //           loop is always i.)
 //
-// Every element is independent, so a thread takes one (r, b) and runs its
-// ROWS steps in a register.  A block is 128 lanes by 4 rows, lanes fastest
-// across the threads of a warp: the qT and out accesses are coalesced, a
-// warp reads tT[i, b..b+31] as one 128-byte line a step, and the four row
-// warps of a block find it in L1.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; 3.35 TB/s, and
+// the int32 rate that chip_smoke.py phase 1 measures, PEAK_INT32_OPS): 4
+// int32 operations a cell (compare, select, add, max) over L1p x B x ROWS
+// cells against qT, tT and out moved once.  At the probe's L1p = 136, B =
+// 2048: ROWS = 8 is bytes (2.3 MB) and under the launch's own cost, ROWS =
+// 128 to 2048 operations.
 //
-// What bounds it on an H100 (3.35 TB/s, 33.5 T int32 operations/s at
-// 700 W, chip_smoke.py's peaks): about 4 int32 operations a cell (compare,
-// select, add, max) over L1p x B x ROWS cells against qT, tT and out moved
-// once.  At the probe's L1p = 136, B = 2048: ROWS = 8 is bytes (2.3 MB,
-// 0.7 us), ROWS = 2048 operations (2.3 G, 0.068 ms).  The TPU script uses
-// it to price a call against its work; on this card the launch and the
-// host's issue are what one sees at small ROWS.
+// The design (csrc/rows.cuh, ROWS_DP32 and ROWS_DP16): every cell is an
+// independent recurrence, so a thread takes RPT rows of LPT adjacent lanes
+// and keeps its cells in registers; a step is one load of tT[i, b..] for
+// all of them (issued ROWS_AHEAD steps ahead) and, a cell, a compare, a
+// select, an add and a max.  A block is a tile of lanes by row groups, so
+// that a tT word read once from L2 serves the tile's rows.  The 16x2 form
+// packs two rows in one word and runs two cells a DPX add-max
+// (__viaddmax_s16x2_relu), for ROWS up to 32751 (the wrapper keeps the
+// 32-bit form past it).  The 32-bit cell is not written as __viaddmax_s32:
+// sm_90 runs that at half the rate of the add and max the compiler makes
+// of the plain form (tools/torch_int_rate.py), and the kernel measured
+// slower with it (tools/torch_row_variants.py).  The design this replaced,
+// a thread a cell with a load of tT each step, is kept only in that tool.  The
+// plan (RPT, LPT, bits, threads and lane groups a block) is the wrapper's:
+// ops/dispatch_probe.plan.
 //
-// The same source compiles as host C++ (no __CUDACC__), exposing the lane
-// loop as dp_eh_host, so the CPU tests check its arithmetic without a card.
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define DP_HD __device__ __forceinline__
-#define DP_LDG(p) __ldg(p)
-#else
-#define DP_HD inline
-#define DP_LDG(p) (*(p))
-#endif
-
-// one element's ROWS steps; t points at tT[0, b], rows B words apart
-static DP_HD int dp_cell(int q, const int* __restrict__ t, int B, int rows,
-                         int eh) {
-#ifdef __CUDACC__
-#pragma unroll 4
-#endif
-  for (int i = 0; i < rows; ++i) {
-    const int v = eh + (q == DP_LDG(t + (long long)i * B) ? 1 : -4);
-    eh = v > 0 ? v : 0;
-  }
-  return eh;
-}
+// The same source compiles as host C++ (no __CUDACC__), exposing every
+// plan's threads one after another as dp_eh_host, so the CPU tests check
+// its arithmetic, DPX and 16-bit packing included, without a card.
+#include "rows.cuh"
 
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(512)
-dp_eh_kernel(const int* __restrict__ qT, const int* __restrict__ tT,
-             int* __restrict__ out, int L1p, int rows, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (b >= B || r >= L1p) return;
-  const long long e = (long long)r * B + b;
-  out[e] = dp_cell(__ldg(qT + e), tT + b, B, rows, r * 3 % 17);
-}
-
-// C entry for ctypes: device pointers; returns cudaGetLastError() after
-// the launch on the caller's stream.  ops/dispatch_probe.py checks shapes.
+// C entry for ctypes: device pointers; rpt, lpt, bits (32 or 16), threads
+// a block and lgb (lane groups a block) from ops/dispatch_probe.plan,
+// which checks shapes and alignment.  Returns cudaGetLastError() after the
+// launch on the caller's stream, or cudaErrorInvalidValue on a plan the
+// kernel does not take.
 extern "C" int dp_eh(const int* qT, const int* tT, int* out, int L1p,
-                     int rows, int B, void* stream) {
-  const dim3 block(128, 4);
-  const dim3 grid((B + 127) / 128, (L1p + 3) / 4);
-  if (L1p > 0 && B > 0)
-    dp_eh_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(qT, tT, out, L1p,
-                                                           rows, B);
+                     int rows, int B, int rpt, int lpt, int bits,
+                     int threads, int lgb, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (L1p <= 0 || B <= 0) return (int)cudaGetLastError();
+  const int rc = bits == 16
+                     ? rows_launch<ROWS_DP16>(qT, tT, out, nullptr, L1p, rows,
+                                              B, rpt, lpt, threads, lgb, st)
+                     : rows_launch<ROWS_DP32>(qT, tT, out, nullptr, L1p, rows,
+                                              B, rpt, lpt, threads, lgb, st);
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }
 
 #else
 
-// Host build of the lane loop (all pointers are host memory).
+// Host build of the plan's threads (all pointers are host memory); returns
+// 1 on a plan the kernel does not take.
 extern "C" int dp_eh_host(const int* qT, const int* tT, int* out, int L1p,
-                          int rows, int B) {
-  for (int r = 0; r < L1p; ++r)
-    for (int b = 0; b < B; ++b) {
-      const long long e = (long long)r * B + b;
-      out[e] = dp_cell(qT[e], tT + b, B, rows, r * 3 % 17);
-    }
-  return 0;
+                          int rows, int B, int rpt, int lpt, int bits) {
+  return bits == 16
+             ? rows_host<ROWS_DP16>(qT, tT, out, L1p, rows, B, rpt, lpt)
+             : rows_host<ROWS_DP32>(qT, tT, out, L1p, rows, B, rpt, lpt);
 }
 
 #endif

@@ -23,19 +23,33 @@ reductions by zero (:85).  Here they go to a side output `aux` int32
 so that the kernel has to compute them.  The shift of mj_enc wraps in
 int32, as jnp's does.
 
-On a CUDA tensor plp_row launches the kernel (a thread a lane for the
-first four variants, a warp a lane for roll) and counts the launch in
-launches[variant]; on a CPU tensor it runs the plain version and counts
-nothing.  There is no fallback between the two: a failed build or launch
-raises.  The kernel is built and launched through ops/launch (nvcc for
-sm_90a at first use, the caller's current stream).
+On a CUDA tensor plp_row launches the kernel at its plan and counts the
+launch in launches[variant]; on a CPU tensor it runs the plain version and
+counts nothing.  There is no fallback between the two: a failed build or
+launch raises.  The kernel is built and launched through ops/launch (nvcc
+for sm_90a at first use, the caller's current stream).
+
+What bounds it on an H100: int32 operations (OPS_PER_CELL a cell, at the
+rate chip_smoke.py phase 1 measures, PEAK_INT32_OPS), each lane a chain
+of dependent steps and, inside a step, the scan and the shift chaining
+its rows.  So the designs (csrc/pl_probe_kernel.cu) keep the rows in
+registers and spread a lane over threads: noscan, noreduce and full run a
+group of G threads a lane, each thread a chunk of rows (in shared memory
+past CHUNKS[-1] rows a thread), the chunk maxima scanned by shuffles;
+roll runs a warp a lane with the log-step masked scan, several rows a
+thread; eh_only, whose cells are independent, runs dp_eh's design
+(csrc/rows.cuh), RPT rows of LPT lanes a thread.  plan() picks each one's
+launch and owns its layout; the shipped G and plans were chosen by
+tools/torch_row_variants.py (PERF.md §6).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
+from bwamem_tpu_torch.ops import dispatch_probe
 from bwamem_tpu_torch.ops.dispatch_probe import check_tables
 from bwamem_tpu_torch.ops.gather_probe import _wrap32
 from bwamem_tpu_torch.ops.launch import Library
@@ -43,7 +57,19 @@ from bwamem_tpu_torch.ops.launch import Library
 VARIANTS = ("eh_only", "noscan", "noreduce", "full", "roll")
 NEG = -0x40000000           # the TPU kernel's NEGc
 SMEM_MAX = 232448           # bytes of shared memory a block may opt into
-LANE_BLOCK, WARP_BLOCK = 32, 4   # lanes a block (a thread a lane), warps
+GROUPS = (8, 16, 32)        # threads a lane of the group design
+# rows a thread the group design holds in registers (PLP_FOR_CHUNKS of the
+# source)
+CHUNKS = (1, 2, 3, 4, 5, 6, 8, 9, 12, 13, 16, 17, 24, 32)
+# rows a thread of roll's warp a lane (PLP_FOR_SLOTS of the source)
+SLOTS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
+STORAGE = ("registers", "shared")
+GROUP_THREADS, ROLL_MAX = 128, 1024
+# The shipped G and eh_only's plan (rows a thread, lanes a thread,
+# threads a block, lane groups a block), chosen by
+# tools/torch_row_variants.py on the card (PERF.md §6).
+GROUP = 32
+EH_PLAN = (2, 4, 128, 128)
 # int32 operations a cell of each variant's function, counted from its
 # minimum: eh_only 5 (compare, select, != 0, add, select); noscan 13 (+
 # t_ins's sub and max, A's add, h's max, eh_e's two subs and two maxes;
@@ -54,13 +80,26 @@ LANE_BLOCK, WARP_BLOCK = 32, 4   # lanes a block (a thread a lane), warps
 OPS_PER_CELL = {"eh_only": 5, "noscan": 13, "noreduce": 16, "full": 23,
                 "roll": 23}
 
-# (qT, tT, out, aux, L1p, rows, B, LQ, variant, lanes a block, shared
-# bytes)
+# (qT, tT, out, aux, L1p, rows, B, LQ, variant, the plan's four ints)
 LIB = Library("pl_probe_kernel.cu",
-              {"plp_row": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7})
+              {"plp_row": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9},
+              flags=["-Xptxas", "-v"])
 SRC = LIB.src
 
 launches = dict.fromkeys(VARIANTS, 0)   # kernel launches (CUDA tensors)
+
+
+class Plan(NamedTuple):
+    """The C entry's four plan ints (csrc/pl_probe_kernel.cu, plp_row):
+    noscan, noreduce, full: (G, rows a thread in registers or 0 for
+    shared memory, lanes a block, shared bytes a block); roll: (threads a
+    lane, rows a thread in registers or 0 for shared memory, lanes a
+    block, shared bytes); eh_only: (rows a thread, lanes a thread, threads
+    a block, lane groups a block)."""
+    p0: int
+    p1: int
+    p2: int
+    p3: int
 
 
 def l1p_of(LQ: int) -> int:
@@ -68,19 +107,103 @@ def l1p_of(LQ: int) -> int:
     return (LQ + 1 + 7) // 8 * 8
 
 
-def lanes_per_block(variant: str, L1p: int) -> tuple[int, int]:
-    """(n, shared bytes) of a block: n lanes of a thread each (eh_h and
-    eh_e, 2 x L1p words a lane), or for roll n warps of a lane each (qT,
-    eh_h and eh_e, 3 x L1p words); as many as fit, up to LANE_BLOCK or
-    WARP_BLOCK.  Raises ValueError when one lane's state does not fit."""
-    words, top = (3, WARP_BLOCK) if variant == "roll" else (2, LANE_BLOCK)
-    per = words * L1p * 4
-    n = min(top, SMEM_MAX // per) if L1p > 0 else top
-    if n < 1:
+def plan(variant: str, L1p: int, B: int, G: int | None = None,
+         storage: str | None = None, aligned: bool = True) -> Plan:
+    """The kernel's plan for a variant at L1p query rows and B lanes.
+
+    noscan, noreduce, full: a group of G threads a lane (default GROUP),
+    ceil(L1p / G) rows a thread rounded up to one of CHUNKS in registers,
+    or, past the largest (or with storage "shared"), ceil(L1p / G) rows a
+    thread in shared memory, two words a row, as many lanes a block as fit
+    (up to GROUP_THREADS / G threads).  roll: a warp a lane, ceil(L1p / 32)
+    rows a thread rounded up to one of SLOTS in registers; past the largest
+    (or with storage "shared") a block of up to ROLL_MAX threads a lane,
+    row r on thread r % T, h and e in shared memory, and 7 words a warp.
+    eh_only: EH_PLAN, one
+    lane a thread where B % 4 != 0 or a table is not 16-byte aligned.
+    ValueError where the state does not fit or the storage cannot hold
+    it."""
+    if storage not in (None, *STORAGE):
+        raise ValueError(f"plp_row: storage {storage!r}: need one of "
+                         f"{STORAGE}")
+    if variant == "eh_only":
+        rpt, lpt, threads, lgb = EH_PLAN
+        return Plan(rpt, lpt if B % lpt == 0 and aligned else 1, threads,
+                    lgb)
+    if variant == "roll":
+        k = next((k for k in SLOTS if 32 * k >= L1p), None)
+        if storage != "shared" and k is not None:
+            return Plan(32, k, GROUP_THREADS // 32, 0)
+        if storage == "registers":
+            raise ValueError(f"plp_row: roll holds {SLOTS[-1]} rows a thread "
+                             f"in registers, up to {32 * SLOTS[-1]} rows, "
+                             f"not {L1p}")
+        T = min(ROLL_MAX, -(-L1p // 32) * 32)
+        smem = 4 * (7 * T // 32 + 2 * L1p)
+        if smem > SMEM_MAX:
+            raise ValueError(f"plp_row: roll's state of {smem} bytes at L1p "
+                             f"{L1p} does not fit in {SMEM_MAX} bytes of "
+                             f"shared memory")
+        return Plan(T, 0, 0, smem)
+    G = GROUP if G is None else G
+    if G not in GROUPS:
+        raise ValueError(f"plp_row: G {G}: need one of {GROUPS}")
+    need = -(-L1p // G)
+    ch = next((c for c in CHUNKS if c >= need), None)
+    lanes = GROUP_THREADS // G
+    if storage != "shared" and ch is not None:
+        return Plan(G, ch, lanes, 0)
+    if storage == "registers":
+        raise ValueError(f"plp_row: {need} rows a thread at L1p {L1p}, G {G} "
+                         f"pass the {CHUNKS[-1]} a thread holds in "
+                         f"registers")
+    per = 2 * L1p * 4
+    lanes = min(lanes, SMEM_MAX // per)
+    if lanes < 1:
         raise ValueError(f"plp_row: a lane's state of {per} bytes at L1p "
                          f"{L1p} does not fit in {SMEM_MAX} bytes of shared "
                          f"memory ({variant})")
-    return n, n * per
+    return Plan(G, 0, lanes, lanes * per)
+
+
+def check_plan(variant: str, p: Plan, L1p: int, B: int,
+               aligned: bool = True) -> None:
+    """ValueError unless the kernel takes plan p for the variant at L1p
+    query rows and B lanes: the sizes plan() gives its layouts (rows a
+    thread in CHUNKS or SLOTS covering L1p, the shared bytes a block at
+    least what the layout puts there and at most SMEM_MAX), and eh_only's
+    plan as dispatch_probe.check_plan takes it (4 lanes a thread only on
+    16-byte aligned tables with B % 4 == 0)."""
+    if variant == "eh_only":
+        dispatch_probe.check_plan(
+            dispatch_probe.Plan(p.p0, p.p1, 32, p.p2, p.p3), 0, B, aligned,
+            "plp_row (eh_only)")
+        return
+    G, ch, lanes, smem = p
+    if variant == "roll":
+        if ch:
+            ok = G == 32 and ch in SLOTS and 32 * ch >= L1p
+        else:
+            ok = 32 <= G <= ROLL_MAX and G % 32 == 0 \
+                and 4 * (7 * G // 32 + 2 * L1p) <= smem <= SMEM_MAX
+        if not ok:
+            raise ValueError(f"plp_row: roll's plan {p} at L1p {L1p}: need "
+                             f"(32, one of {SLOTS} covering L1p, ..) or "
+                             f"(32 to {ROLL_MAX} threads in warps, 0, .., "
+                             f"shared bytes for 7 words a warp and 2 a row "
+                             f"up to {SMEM_MAX})")
+        return
+    ok = G in GROUPS and lanes >= 1 and lanes * G <= GROUP_THREADS
+    if ch:
+        ok = ok and ch in CHUNKS and ch * G >= L1p
+    else:
+        ok = ok and 2 * L1p * 4 * lanes <= smem <= SMEM_MAX
+    if not ok:
+        raise ValueError(f"plp_row: {variant}'s plan {p} at L1p {L1p}: need "
+                         f"G in {GROUPS}, 1 to {GROUP_THREADS} // G lanes a "
+                         f"block, and one of {CHUNKS} rows a thread covering "
+                         f"L1p, or 0 with shared bytes for 2 words a row a "
+                         f"lane up to {SMEM_MAX}")
 
 
 def work(variant: str, L1p: int, rows: int, B: int) -> tuple[int, int]:
@@ -136,26 +259,31 @@ def plp_plain(qT: torch.Tensor, tT: torch.Tensor, variant: str,
     return h.contiguous(), aux
 
 
-def _prep(qT, tT, variant, LQ):
-    """Checks a call's tensors (ValueError on anything the kernel does not
-    take) and returns the outputs and the C entry's arguments."""
+def _prep(qT, tT, variant, LQ, p: Plan | None = None):
+    """Checks a call's tensors and plan (ValueError on anything the kernel
+    does not take) and returns the outputs and the C entry's arguments; p
+    None takes plan()."""
     _check_args(qT, tT, variant, LQ)
     L1p, B = qT.shape
-    n, smem = lanes_per_block(variant, L1p)
     out = torch.empty_like(qT)
     aux = torch.empty((3, B), dtype=torch.int32, device=qT.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (qT, tT, out))
+    if p is None:
+        p = plan(variant, L1p, B, aligned=aligned)
+    check_plan(variant, Plan(*p), L1p, B, aligned)
     return (out, aux), (qT.data_ptr(), tT.data_ptr(), out.data_ptr(),
                         aux.data_ptr(), L1p, tT.shape[0], B, int(LQ),
-                        VARIANTS.index(variant), n, smem)
+                        VARIANTS.index(variant), *p)
 
 
-def plp_row(qT: torch.Tensor, tT: torch.Tensor, variant: str,
-            LQ: int) -> tuple[torch.Tensor, torch.Tensor]:
+def plp_row(qT: torch.Tensor, tT: torch.Tensor, variant: str, LQ: int,
+            p: Plan | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """qT int32 [L1p, B], tT int32 [ROWS, B], 0 < LQ <= L1p -> (out int32
-    [L1p, B], aux int32 [3, B]) of the variant (see plp_plain)."""
+    [L1p, B], aux int32 [3, B]) of the variant (see plp_plain), by the
+    kernel at plan p (None: plan()) on a CUDA tensor."""
     if not qT.is_cuda:
         return plp_plain(qT, tT, variant, LQ)
-    outs, args = _prep(qT, tT, variant, LQ)
+    outs, args = _prep(qT, tT, variant, LQ, p)
     LIB.launch("plp_row", qT.get_device(), args, f"plp_row ({variant})")
     launches[variant] += 1
     return outs

@@ -11,7 +11,13 @@ Three phases; any failure exits non-zero without printing a result.
    kernels with nvcc for sm_90a, the host kernels and the suffix-array code
    with cc), all compilers started together; then the registers, spills
    and shared memory that ptxas reported for each instantiation of the
-   extension kernels (G = 8, 16, 32; shared or global storage).
+   extension kernels (G = 8, 16, 32; shared or global storage).  Then
+   the card's int32 rate (tools/torch_int_rate.py: five mixes, each held
+   against its plain version, timed on every SM, with ptxas's lines and
+   the SASS mnemonics of each): the run fails if the card beats
+   PEAK_INT32_OPS or PEAK_INT16X2_OPS, the peaks every bound by
+   operations divides by.  Last, ptxas's registers and spills of the
+   shipped plans of kernels #4 and #8; a spill fails the run.
 1b. The launch path (bwamem_tpu_torch/ops/launch.py, through which every
    kernel launches): its raw stream handle equals
    torch.cuda.current_stream().cuda_stream on the default stream and
@@ -78,12 +84,23 @@ Three phases; any failure exits non-zero without printing a result.
    and pinned memory; plp_row's five variants at B = 2048, LQ = ROWS = 128.
    Both launched by the probes (counts from 0), then held against their
    plain versions (max_abs_err 0, plp_row's aux too) on the probes'
-   inputs, and plp_row once more on a shape of its own (B = 1000, LQ =
-   101, ROWS = 96: neither a multiple of the TPU's tiles).  The probe's
+   inputs (dp_eh at its shipped plan and with 32-bit and 16x2 cells),
+   and plp_row once more on a shape of its own (B = 1000, LQ = 101,
+   ROWS = 96: neither a multiple of the TPU's tiles).  The probe's
    inputs decay to state 0, so plp_row is also held at both shapes on a
    "match" input (target rows copied from the query along a diagonal)
    whose states grow, with out's max over 20 and aux varying across
-   lanes required, and at L1p = 21 (past the last whole tile of 8 rows).
+   lanes required, and at L1p = 21 (no multiple of G); on the second
+   shape and at L1p 21 the group design also runs at each G with its
+   chunk in registers and in shared memory, and roll in shared memory;
+   every variant also at B = 1001 (no multiple of 4 lanes a thread).
+   dp_eh is held again on its own "match" input (each lane's bases
+   mostly one base, so eh climbs and out depends on every target row,
+   through every chunk a tile stages) at its shipped plans, 32 and 16x2
+   bits, at the probe's shape at each ROWS, B = 1000 with L1p 104 and
+   21, and B = 1001 (tools/torch_dispatch_probe.MATCH_SHAPES).
+   No device time may be under its bound.  The other designs and the
+   replaced ones are timed by tools/torch_row_variants.py, not here.
 3. Main paths at full size on a 5 Mbp genome (tools/se_smoke_data.py:
    simdata.py with fixed seeds, indexed with the port's build_index and
    cached under build/):
@@ -191,11 +208,19 @@ OVER_LANES, OVER_LQ, OVER_T_MAX = 256, 5000, 5376
 RING_LANES, RING_LQ = 1024, 3000
 # the FM probe's shape
 FM_LANES, FM_STEPS = 8192, 64
-# H100 SXM peaks: HBM bytes/s (data sheet), and the int32 rate outside the
-# tensor cores, half the 67 TFLOP/s float32 rate (an SM issues 64 int32
-# against 128 float32 operations per clock)
+# H100 SXM peaks: HBM bytes/s (data sheet), and int32 operations a second
+# outside the tensor cores as phase 1 measures them (tools/torch_int_rate.py
+# on an NVIDIA H100 80GB HBM3 at 700 W): dp_eh's cell written
+# plainly ran at 32.32-33.04 T/s (VIADD, ISETP, VIMNMX: one instruction a
+# clock a scheduler, the issue limit, 33.45 T/s at 1.98 GHz), the 32-bit
+# DPX add-max alone at 31.8-31.9 (two operations an instruction at half
+# that rate), IADD3 with a max at 24.1-24.7; the highest, rounded up.  A
+# kernel that packs two cells in 16 bits takes PEAK_INT16X2_OPS:
+# __viaddmax_s16x2_relu ran at 59.5-60.6 T/s, rounded up to the rate of
+# its four operations an instruction at half the issue limit (66.9 T/s).
 PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 33.5e12
+PEAK_INT16X2_OPS = 67e12
 OPS_PER_CELL = 16      # int32 operations of ksw's recurrence per DP cell
 # steps of the FM probe's one-block chain, which measures what one serial
 # step of a lane costs when nothing overlaps it
@@ -257,7 +282,7 @@ def phase_env():
     from bwamem_tpu_torch.index import native as sais
     from bwamem_tpu_torch.ops import (dispatch_probe, ext_kernel, fm_probe,
                                       gather_probe, gather_probe2,
-                                      gather_probe3, pl_probe)
+                                      gather_probe3, int_rate, pl_probe)
     errors = []
 
     def build(name, fn):
@@ -283,6 +308,7 @@ def phase_env():
          gather_probe3.LIB.load),
         ("dispatch_probe_kernel.cu (nvcc sm_90a)", dispatch_probe.LIB.load),
         ("pl_probe_kernel.cu, five variants (nvcc sm_90a)", pl_probe.LIB.load),
+        ("int_rate_kernel.cu, five mixes (nvcc sm_90a)", int_rate.LIB.load),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -294,39 +320,91 @@ def phase_env():
         raise RuntimeError("build failed: " + "; ".join(errors))
     log(f"build total: {time.perf_counter() - t0:.1f} s")
     log_ptxas(ext_kernel.LIB)
+    phase_int_rate()
+    log_shipped_ptxas()
     return smi.stdout.strip().splitlines()[0]
 
 
-def log_ptxas(lib):
+def log_ptxas(lib, keep=None, bools=("global", "shared")):
     """The registers, spills and shared memory that ptxas reported for
     each kernel of `lib` (built with -Xptxas -v; the build's output is
-    kept in build/<library>.log)."""
+    kept in build/<library>.log), or for those whose (name, template
+    arguments) `keep` takes; a bool template argument is printed as
+    bools[0] or bools[1].  Returns [(kernel, registers, spill store bytes,
+    spill load bytes)] of the kernels printed."""
     from bwamem_tpu_torch._build import BUILD_DIR
     path = os.path.join(BUILD_DIR, lib.so_name + ".log")
     if not os.path.exists(path):
         raise RuntimeError(f"no build log {path}")
-    name, spill = None, ""
-    n = 0
+    name, spill, out = None, (0, 0), []
     for line in open(path):
         m = re.search(r"Compiling entry function '_Z\d+(\w+?)I"
-                      r"((?:Li\d+E)*)(?:Lb([01])E)?", line)
+                      r"((?:L[ib]\d+E)+)E", line)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(2))
-            name = (f"{m.group(1)}<{', '.join(args)}, "
-                    f"{'shared' if m.group(3) == '1' else 'global'}>")
+            pairs = re.findall(r"L([ib])(\d+)E", m.group(2))
+            args = [int(v) for _, v in pairs]
+            shown = ", ".join(bools[int(v)] if k == "b" else v
+                              for k, v in pairs)
+            name = (f"{m.group(1)}<{shown}>"
+                    if keep is None or keep(m.group(1), args) else None)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            spill = f"{m.group(1)} bytes spill stores, {m.group(2)} loads"
+            spill = (int(m.group(1)), int(m.group(2)))
             continue
         m = re.search(r"Used (\d+) registers(.*)", line)
         if m and name:
-            log(f"ptxas {name}: {m.group(1)} registers, {spill}"
-                f"{m.group(2)}")
-            name, n = None, n + 1
-    if n == 0:
-        raise RuntimeError(f"{path} reports no kernel's registers")
+            log(f"ptxas {name}: {m.group(1)} registers, {spill[0]} bytes "
+                f"spill stores, {spill[1]} loads{m.group(2)}")
+            out.append((name, int(m.group(1)), *spill))
+        if m:
+            name, spill = None, (0, 0)
+    if not out:
+        raise RuntimeError(f"{path} reports no kept kernel's registers")
+    return out
+
+
+def phase_int_rate():
+    """The card's int32 rate (tools/torch_int_rate.measure: five mixes
+    held against their plain version, then timed on every SM), which
+    PEAK_INT32_OPS and PEAK_INT16X2_OPS must not be under: a bound by
+    operations taken at a lower peak would not be a bound."""
+    import torch_int_rate
+    res = torch_int_rate.measure(log)
+    top = max(res[m]["rate"] for m in torch_int_rate.MIXES_32)
+    log(f"int32 rate: measured {top / 1e12:.3f} T/s (32-bit), "
+        f"{res['s16x2']['rate'] / 1e12:.3f} T/s (16x2); the bounds take "
+        f"{PEAK_INT32_OPS / 1e12:.1f} and {PEAK_INT16X2_OPS / 1e12:.1f}")
+    if top > PEAK_INT32_OPS or res["s16x2"]["rate"] > PEAK_INT16X2_OPS:
+        raise RuntimeError("the card ran int32 operations faster than "
+                           "PEAK_INT32_OPS or PEAK_INT16X2_OPS: raise them")
+
+
+def log_shipped_ptxas():
+    """ptxas's registers and spills of the shipped plans of kernels #4
+    (plp_row at the probe's L1p 136, B 2048) and #8 (dp_eh); RuntimeError
+    if one spills."""
+    from bwamem_tpu_torch.ops import dispatch_probe as dp
+    from bwamem_tpu_torch.ops import pl_probe as plp
+    L1p, B = 136, 2048
+    g = plp.plan("full", L1p, B)
+    roll = plp.plan("roll", L1p, B)
+    eh = plp.plan("eh_only", L1p, B)
+    dps = [dp.plan(L1p, r, B) for r in (8, 128)]
+
+    def rows_kernel(rpt, lpt, threads, lgb):  # rows.cuh's kernel of a plan
+        return "rows_kernel" if lgb == threads else "rows_tile_kernel"
+    rows = log_ptxas(plp.LIB, lambda n, a: (
+        (n == "plp_group_kernel" and a[:2] == [g.p0, g.p1])
+        or (n == "plp_roll_warp_kernel" and a == [roll.p1])
+        or (n == rows_kernel(*eh) and a == [eh.p0, eh.p1, 2])))
+    rows += log_ptxas(dp.LIB, lambda n, a: any(
+        n == rows_kernel(p.rpt, p.lpt, p.threads, p.lgb)
+        and a == [p.rpt, p.lpt, 1 if p.bits == 16 else 0] for p in dps))
+    bad = [r for r in rows if r[2] or r[3]]
+    if bad:
+        raise RuntimeError(f"a shipped kernel of #4 or #8 spills: {bad}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -1259,7 +1337,9 @@ def phase_dispatch_pl_probe():
     at the TPU scripts' defaults and inputs, seed 0; launch counts from
     0), then each kernel held against its plain version once more on the
     probes' inputs, and plp_row on a second shape (B = 1000, LQ = 101,
-    ROWS = 96) and at both shapes on the match input.  Returns the two kernels-line entries: dp_eh at ROWS 128
+    ROWS = 96) and at both shapes on the match input, dp_eh on its own
+    match input at dprobe.MATCH_SHAPES.  Returns the two kernels-line
+    entries: dp_eh at ROWS 128
     with *_rows8, *_rows512 and *_rows2048 keys, plp_row at `full` with a
     key set for each other variant."""
     import torch
@@ -1280,9 +1360,21 @@ def phase_dispatch_pl_probe():
         raise RuntimeError("a probe never launched dp_eh or a plp_row "
                            "variant")
 
+    # the shipped plans on the probe's inputs, then the short-run plan and
+    # each width of the cell (32 and 16x2 bits) at every ROWS
     dp_err = dprobe.check(dres["inputs"])
+    for p in (dp.PLAN_SHORT, *(dp.PLAN._replace(bits=b) for b in dp.BITS)):
+        dp_err = max(dp_err, dprobe.check(dres["inputs"], p))
     log(f"dp_eh vs plain on the probe's {len(dres['inputs']['rows']) + 1} "
-        f"inputs: max_abs_err {dp_err}")
+        f"inputs (ROWS {tuple(dres['rows'])}), the shipped plans {dp.PLAN} "
+        f"and {dp.PLAN_SHORT}, and bits {dp.BITS}: max_abs_err {dp_err}")
+    # On those eh falls to 0 within a few steps and out hangs on the last
+    # few target rows only, whatever a tile did with the chunks of tT it
+    # staged before: every plan again on the match input, where eh climbs
+    dp_err_m, n_m = dprobe.check_match(0, log)
+    log(f"dp_eh vs plain on the match input, {n_m} calls at (L1p, B, ROWS) "
+        f"{dprobe.MATCH_SHAPES}: max_abs_err {dp_err_m}")
+    dp_err = max(dp_err, dp_err_m)
     qT, tT = pres["inputs"]
     errs = {v: pprobe.max_err(qT, tT, v, pres["LQ"]) for v in plp.VARIANTS}
     q2, t2 = pprobe.make_inputs(1, 1000, 101, 96, torch.device("cuda"))
@@ -1315,22 +1407,50 @@ def phase_dispatch_pl_probe():
             raise RuntimeError(f"the match input at B={B} did not make the "
                                f"states grow (out max {top}, distinct aux "
                                f"{distinct})")
-    # and query rows past the thread-a-lane loop's last whole tile of 8
-    # rows (the probes' L1p are multiples of 8)
+    # and query rows that are no multiple of G or of the rows a thread
+    # (the probes' L1p are multiples of 8)
     qr, tr = (torch.from_numpy(a).cuda()
               for a in pprobe.draw(2, 21, 1000, 12, "match"))
     errs_m.update({f"{v}_L1p21": pprobe.max_err(qr, tr, v, 17)
                    for v in plp.VARIANTS})
-    log(f"plp_row vs plain on the match input, out and aux, max_abs_err: "
-        f"{errs_m}")
+    # and lanes that are no multiple of eh_only's 4 a thread (it takes 1)
+    qo, to = (torch.from_numpy(a).cuda()
+              for a in pprobe.draw(3, 104, 1001, 96, "match"))
+    errs_m.update({f"{v}_B1001": pprobe.max_err(qo, to, v, 101)
+                   for v in plp.VARIANTS})
+    # and the group design at each G, its chunk in registers and in shared
+    # memory, on the second shape's match input and at L1p 21
+    qm, tm = pprobe.make_inputs(1, 1000, 101, 96, torch.device("cuda"),
+                                "match")
+    for label, (q, t, LQ) in (("B1000", (qm, tm, 101)),
+                              ("L1p21", (qr, tr, 17))):
+        for G in plp.GROUPS:
+            for st in plp.STORAGE:
+                for v in ("noscan", "noreduce", "full"):
+                    p = plp.plan(v, q.shape[0], q.shape[1], G=G, storage=st)
+                    errs_m[f"{v}_{label}_G{G}_{st}"] = pprobe.max_err(
+                        q, t, v, LQ, p)
+        errs_m[f"roll_{label}_shared"] = pprobe.max_err(
+            q, t, "roll", LQ, plp.plan("roll", q.shape[0], q.shape[1],
+                                       storage="shared"))
+    log(f"plp_row vs plain on the match input, out and aux, max_abs_err "
+        f"{max(errs_m.values())} over {len(errs_m)} calls: {errs_m}")
     if any(errs_m.values()):
         raise RuntimeError("plp_row disagrees with its plain version on "
                            "the match input")
+    # no time may read under its bound
+    under = [f"dp_eh ROWS {r}" for r, e in dres["rows"].items()
+             if e["device_ms"] < e["bound_ms"]]
+    under += [f"plp_row {v}" for v, e in pres["results"].items()
+              if e["device_ms"] < e["bound_ms"]]
+    if under:
+        raise RuntimeError(f"device times under their bound: {under}")
 
     e_dp = dict(name="dp_eh", route="cuda",
                 source="bwamem_tpu_torch/csrc/dispatch_probe_kernel.cu",
                 replaces="tools/dispatch_probe.py:32", launches=dp_launches,
-                max_abs_err=dp_err, library_ms=None)
+                max_abs_err=dp_err, library_ms=None, plan=dp.PLAN._asdict(),
+                plan_short=dp.PLAN_SHORT._asdict())
     for r, res in dres["rows"].items():
         sfx = "" if r == dprobe.PIPE_ROWS else f"_rows{r}"
         e_dp.update({f"{k}{sfx}": res[k] for k in (
@@ -1346,6 +1466,8 @@ def phase_dispatch_pl_probe():
                 replaces="tools/pl_probe.py:36",
                 launches=sum(plp_launches.values()),
                 launches_by_variant=plp_launches,
+                plan={v: list(plp.plan(v, qT.shape[0], qT.shape[1]))
+                      for v in plp.VARIANTS},
                 max_abs_err=max([*errs.values(), *errs2.values(),
                                  *errs_m.values(),
                                  *(r["max_abs_err"] for r in res.values())]),

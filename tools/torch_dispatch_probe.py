@@ -83,11 +83,14 @@ def issue_us(fn, calls: int = ISSUE_CALLS) -> float:
     return dt / calls * 1e6
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int,
+          packed16: bool = False) -> tuple[float, str]:
     """(bound_ms, bound_by) of a call that moves nbytes and does ops int32
-    operations, at chip_smoke.py's H100 peaks."""
-    from chip_smoke import PEAK_BYTES, PEAK_INT32_OPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT32_OPS * 1e3
+    operations, at chip_smoke.py's H100 peaks (PEAK_INT16X2_OPS for a
+    kernel that packs two cells in 16 bits, else PEAK_INT32_OPS)."""
+    from chip_smoke import PEAK_BYTES, PEAK_INT16X2_OPS, PEAK_INT32_OPS
+    peak = PEAK_INT16X2_OPS if packed16 else PEAK_INT32_OPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -107,19 +110,96 @@ def make_inputs(seed: int, device) -> dict:
     return x
 
 
-def check(x: dict) -> int:
-    """The largest |dp_eh - plain| over the inputs (make_inputs), which is
-    0: raises when the kernel differs from its plain version."""
+def draw(seed: int, L1p: int, B: int, rows: int, kind: str = "probe"):
+    """(qT int32 [L1p, B], tT int32 [rows, B]) as numpy arrays of bases in
+    [0, 4).  "probe" draws them uniformly, as the TPU script does: a cell
+    matches one step in four, so eh falls to 0 within a few steps and out
+    depends on the last few target rows only.  "match" gives each lane
+    one base, which each of its query and target bases takes with
+    probability 0.95 (else a uniform draw): a cell whose query base is
+    the lane's (24 in 25) matches about 24 steps in 25, so eh climbs from
+    its start by about 0.8 a step and seldom returns to 0, and out depends
+    on every target row."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    qT = rng.integers(0, 4, (L1p, B))
+    tT = rng.integers(0, 4, (rows, B))
+    if kind == "match":
+        base = rng.integers(0, 4, B)
+        qT = np.where(rng.random((L1p, B)) < 0.95, base, qT)
+        tT = np.where(rng.random((rows, B)) < 0.95, base, tT)
+    return qT.astype(np.int32), tT.astype(np.int32)
+
+
+# (L1p, B, ROWS) of check_match: the probe's shape at every ROWS, a tile
+# of lanes cut short (B 1000), L1p 21 (no multiple of the rows a thread),
+# and B 1001 (no multiple of 4 lanes a thread)
+MATCH_SHAPES = (*((L1P, B, r) for r in ROWS_SWEEP), (104, 1000, 96),
+                (21, 1000, 12), (21, 1000, 96), (L1P, 1001, 8),
+                (104, 1001, 512))
+
+
+def match_plans(B: int) -> list:
+    """The plans check_match runs at B lanes: the shipped choice (None),
+    PLAN and PLAN_SHORT at 32 bits and at 16 (two rows a thread at
+    least), one lane a thread where B % 4 != 0, as plan() does."""
+    from bwamem_tpu_torch.ops import dispatch_probe as dp
+    plans = [None]
+    for p in (dp.PLAN, dp.PLAN_SHORT):
+        plans += [p._replace(bits=32),
+                  p._replace(bits=16, rpt=max(p.rpt, 2))]
+    return [p if p is None or B % 4 == 0 else p._replace(lpt=1)
+            for p in plans]
+
+
+def check_match(seed: int = 0, log=print) -> tuple[int, int]:
+    """(largest |dp_eh - plain|, calls) over match_plans at MATCH_SHAPES
+    on the match input (draw), which is (0, calls): raises when the
+    kernel differs from its plain version, or when the input did not make
+    eh climb (its mean over cells not above 8 + ROWS / 4)."""
     import torch
     from bwamem_tpu_torch.ops import dispatch_probe as dp
-    for label, (qT, tT) in [*((f"ROWS={r}", p) for r, p in x["rows"].items()),
+    n = 0
+    for i, (L1p, b, rows) in enumerate(MATCH_SHAPES):
+        qT, tT = (torch.from_numpy(a).cuda()
+                  for a in draw(seed + i, L1p, b, rows, "match"))
+        want = dp.dp_eh_plain(qT, tT)
+        mean = float(want.double().mean())
+        log(f"dp_eh match input L1p={L1p} B={b} ROWS={rows}: out mean "
+            f"{mean:.2f}, max {int(want.max())}, zero "
+            f"{int((want == 0).sum())} of {want.numel()}")
+        if mean <= 8 + rows / 4:
+            raise RuntimeError(f"the match input at L1p={L1p} B={b} "
+                               f"ROWS={rows} did not make eh climb (out "
+                               f"mean {mean:.2f})")
+        for p in match_plans(b):
+            got = dp.dp_eh(qT, tT, p)
+            torch.cuda.synchronize()
+            n_bad = int((got != want).sum())
+            n += 1
+            if n_bad:
+                raise RuntimeError(f"dp_eh match input L1p={L1p} B={b} "
+                                   f"ROWS={rows} (plan {p}): the kernel "
+                                   f"differs from the plain version on "
+                                   f"{n_bad} of {want.numel()}")
+    return 0, n
+
+
+def check(x: dict, p=None) -> int:
+    """The largest |dp_eh - plain| over the inputs (make_inputs) at plan p
+    (ops/dispatch_probe.Plan; None: the shipped plan), which is 0: raises
+    when the kernel differs from its plain version."""
+    import torch
+    from bwamem_tpu_torch.ops import dispatch_probe as dp
+    for label, (qT, tT) in [*((f"ROWS={r}", q) for r, q in x["rows"].items()),
                             ("pipe", x["pipe"])]:
-        got, want = dp.dp_eh(qT, tT), dp.dp_eh_plain(qT, tT)
+        got, want = dp.dp_eh(qT, tT, p), dp.dp_eh_plain(qT, tT)
         torch.cuda.synchronize()
         n_bad = int((got != want).sum())
         if n_bad:
-            raise RuntimeError(f"dp_eh {label}: the kernel differs from the "
-                               f"plain version on {n_bad} of {want.numel()}")
+            raise RuntimeError(f"dp_eh {label} (plan {p}): the kernel "
+                               f"differs from the plain version on {n_bad} "
+                               f"of {want.numel()}")
     return 0
 
 
@@ -153,7 +233,8 @@ def probe(seed: int = 0, log=print) -> dict:
     rows = {}
     for r, (qT, tT) in x["rows"].items():
         call = lambda qT=qT, tT=tT: dp.dp_eh(qT, tT)          # noqa: E731
-        b_ms, b_by = bound(*dp.work(L1P, r, B))
+        b_ms, b_by = bound(*dp.work(L1P, r, B),
+                           packed16=dp.plan(L1P, r, B).bits == 16)
         rows[r] = dict(fetch_ms=host_ms(lambda: call().cpu()),
                        ms=median_ms(call), device_ms=device_ms(call),
                        plain_ms=median_ms(lambda qT=qT, tT=tT:

@@ -6,11 +6,13 @@
 The counterpart of tools/pl_probe.py (the TPU probe), with its defaults
 B = 2048 lanes, LQ = 128 query bases (L1p = 136 rows) and ROWS = 128
 target rows: the hand-written CUDA kernel plp_row of ops/pl_probe for each
-of the five variants (eh_only, noscan, noreduce, full: a thread a lane;
-roll: a warp a lane), on qT and tT drawn with numpy as the TPU script
-draws them (with seed 0 they are its inputs).  For each variant the
-kernel's out and aux must equal its plain version's before anything is
-timed (a difference exits non-zero); then it prints the time of a call
+of the five variants at its shipped plan (noscan, noreduce, full: a group
+of threads a lane, the rows in registers; roll: a warp a lane, several
+rows a thread; eh_only: rows of lanes a thread), on qT and tT drawn with
+numpy as the TPU script draws them (with seed 0 they are its inputs).
+For each variant the kernel's out and aux must equal its plain version's
+before anything is timed (a difference exits non-zero); then it prints
+the time of a call
 with its fetch (the script's number), between CUDA events and on the
 device alone (`device_ms`: the events and the launch are queued behind a
 1 ms spin of the card), the script's columns from the device time (us a
@@ -64,11 +66,12 @@ def make_inputs(seed: int, B: int, LQ: int, ROWS: int, device,
                  for a in draw(seed, plp.l1p_of(LQ), B, ROWS, kind))
 
 
-def max_err(qT, tT, variant: str, LQ: int) -> int:
-    """Largest |kernel - plain| over out and aux of one call."""
+def max_err(qT, tT, variant: str, LQ: int, p=None) -> int:
+    """Largest |kernel - plain| over out and aux of one call, at plan p
+    (ops/pl_probe.Plan; None: the shipped plan)."""
     import torch
     from bwamem_tpu_torch.ops import pl_probe as plp
-    got = plp.plp_row(qT, tT, variant, LQ)
+    got = plp.plp_row(qT, tT, variant, LQ, p)
     want = plp.plp_plain(qT, tT, variant, LQ)
     torch.cuda.synchronize()
     return max(int((g.long() - w.long()).abs().max()) for g, w in
