@@ -16,12 +16,34 @@
 //             and a second take at the same kk: per step g2[i, j] =
 //             tab[m, kk[m, i]] with m = kk[i, j], then kk = clip(kk + g2,
 //             0, N - 1), on [N, N].  Element (i, j) reads kk of row m, so
-//             every lane must finish step t before any starts t + 1: one
-//             block of 1024 threads holds tab and two kk buffers in shared
-//             memory (3 x 64 KB at N = 128), reads one buffer and writes
-//             the other, and swaps them after a __syncthreads().  With one
-//             buffer a lane could read a row another lane has already moved
-//             to step t + 1.
+//             every element must finish step t before any starts t + 1:
+//             the state is double-buffered in shared memory, each step
+//             reads one buffer and writes the other, and a barrier ends
+//             it.  The clip is taken out of the steps: T[m, c] =
+//             clip(m + tab[m, c], 0, N - 1) once a launch (the same
+//             function, the wrap included), so a step is kk[i, j] <-
+//             T[m, kk[m, i]].  A thread keeps its elements' states in
+//             registers (no load of its own kk) and handles a fixed count
+//             of them (a compile-time loop, their loads in flight
+//             together).  Element e of a run of rows sits at column
+//             j = e % N and row i = (e / N + j) % rows (ct_place): a
+//             warp's 32 consecutive e take 32 consecutive j and, where
+//             the run has 32 rows or more, 32 distinct i, so at N = 128
+//             the store kk[i, j] and the read kk[m, i] hit 32 banks
+//             whatever m is; only the read of T[m, c] is a random gather.
+//             At N = 128 a cluster of 16 blocks of 512 threads on
+//             neighbouring SMs, each with its own copy of T and 8 rows of
+//             the state, reading kk[m, i] from the block that owns row m
+//             (ld.shared::cluster), a step ended by a block barrier, one
+//             cluster-scope fence a block and the cluster barrier; at any
+//             other N up to 139 one block of 1024 threads holding T and
+//             both buffers, a block barrier a step.  One SM is held by
+//             its shared memory (three accesses an element a step, 16384
+//             elements, one 32-word wavefront a clock, and about 3.5
+//             wavefronts a warp for the T gather on moving chains); the
+//             cluster splits that over 16 SMs and pays a remote load an
+//             element and the cluster barrier.  tools/torch_ct_variants.py
+//             times these against the other designs weighed.
 //   gp3_col0  (kernel in probe_d2, :103)  out[q] = tab[k[q], 0] for a few
 //             lanes (8 in the probe) of a [R, W] table: col0_kernel of
 //             csrc/col0.cuh, which gp2_col0 launches too (one warp here).
@@ -40,7 +62,9 @@
 // What bounds them on an H100 (3.35 TB/s; 67 TFLOP/s float32 outside the
 // tensor cores, at 700 W): the chains move kk in and out and the table
 // words they touch (kilobytes to 260 KB), a fraction of a microsecond, so
-// the launch and the dependent steps are what one sees; gp3_col0 moves
+// the launch and the dependent steps are what one sees (for gp3_ct on one
+// SM, its shared memory: three accesses an element a step, 16384 elements,
+// at most 32 words a clock); gp3_col0 moves
 // under 100 bytes; gp3_mm's function moves a[:8], b and out (352 KB, 0.1 us)
 // and does 1.4 MFLOP.  The TPU kernel computed 64 whole [1024, 640] x
 // [640, 128] products (10.7 GFLOP); this one computes the function.
@@ -64,6 +88,11 @@
 #define GP_LDG(p) (*(p))
 #endif
 
+#define CT_N 128       // gp3_ct's N in the probe, where it runs as a cluster
+#define CT_CS 16       // ... of CT_CS blocks
+#define CT_P 512       // ... of CT_P threads
+#define CT_N_MAX 139   // the largest N whose T and two states fit a block
+
 // clip(k + g, 0, hi - 1), the add wrapping in 32 bits
 static GP_HD inline int clip_step(int k, int g, int hi) {
   const int v = (int)((uint32_t)k + (uint32_t)g);
@@ -77,11 +106,22 @@ static GP_HD inline int dg_chain(const int* line, long long stride, int k,
   return k;
 }
 
-// one gp3_ct step of element (i, j) of the N x N state kk
-static GP_HD inline int ct_next(const int* tab, const int* kk, int i, int j,
-                                int N) {
-  const int m = kk[i * N + j];
-  return clip_step(m, tab[m * N + kk[m * N + i]], N);
+// element e of the rows [row0, row0 + rows) of an N-column state: column
+// e % N, row row0 + (e / N + e % N) % rows (for each column, the rows in
+// a rotated order: a bijection of [0, rows * N))
+static GP_HD inline void ct_place(int e, int row0, int rows, int N, int& i,
+                                  int& j) {
+  j = e % N;
+  i = row0 + (e / N + j) % rows;
+}
+
+// where a gather reads kk[m, i] when blocks of rb rows each hold their
+// rows: in the block of rank m / rb, at word (m % rb) * N + i of its
+// buffer
+static GP_HD inline unsigned ct_src(unsigned m, unsigned i, unsigned rb,
+                                    unsigned N, unsigned& rank) {
+  rank = m / rb;
+  return (m % rb) * N + i;
 }
 
 // gp3_mm's element (r, c): m by FMA in k order, then `reps` adds
@@ -115,33 +155,181 @@ gp3_dg_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
   }
 }
 
+// ---- gp3_ct ----
+// A thread's K elements: v[k] the state, at[k] = i << 16 | the element's
+// word in its block's buffer (i: the row, the column its gather reads).
+
+// one step of the block's elements: cur the state of the step before, nxt
+// this step's.  The gathers of CH elements are in flight together: all K
+// up to 16, past that (the 19 of N at run time, in the 64 registers a
+// thread of 1024 has) chunks of 8, so that nothing spills.
+template <int K>
+static __device__ __forceinline__ void ct_block_step(
+    const int* __restrict__ t, const int* __restrict__ cur,
+    int* __restrict__ nxt, int (&v)[K], const int (&at)[K], int N) {
+  constexpr int CH = K > 16 ? 8 : K;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += CH) {
+    int c[CH];
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      if (k0 + k < K) c[k] = cur[v[k0 + k] * N + (at[k0 + k] >> 16)];
+    }
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      if (k0 + k < K) {
+        v[k0 + k] = t[v[k0 + k] * N + c[k]];
+        nxt[at[k0 + k] & 0xffff] = v[k0 + k];
+      }
+    }
+  }
+}
+
+// One block of P threads at any N up to CT_N_MAX, K elements a thread (an
+// element past N^2 works on a sink word past each buffer, a row N column 0
+// whose reads stay inside the buffers).  Shared memory: T, then two
+// buffers of N^2 + 1 words.
 __global__ void __launch_bounds__(1024)
-gp3_ct_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
-              int* __restrict__ out, int N, int steps) {
+ct_block_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
+                int* __restrict__ out, int n_rt, int steps) {
+  constexpr int P = 1024, K = (CT_N_MAX * CT_N_MAX + P - 1) / P;
   extern __shared__ int sm[];
-  const int n2 = N * N;
+  const int N = n_rt, n2 = N * N;
   int* t = sm;
-  int* cur = sm + n2;
-  int* nxt = sm + 2 * n2;
-  for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-    t[e] = tab[e];
-    cur[e] = kk0[e];
+  int* buf0 = t + n2;
+  int* buf1 = buf0 + n2 + 1;
+  for (int e = threadIdx.x; e < n2; e += P) {
+    t[e] = clip_step(e / N, __ldg(tab + e), N);
+    buf0[e] = __ldg(kk0 + e);
+  }
+  if (threadIdx.x == 0) buf0[n2] = buf1[n2] = 0;
+  int v[K], at[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = threadIdx.x + k * P;
+    int i = N, j = 0;
+    if (e < n2) ct_place(e, 0, N, N, i, j);
+    const int w = e < n2 ? i * N + j : n2;
+    at[k] = i << 16 | w;
+    v[k] = e < n2 ? __ldg(kk0 + w) : 0;
   }
   __syncthreads();
-  // a thread keeps one column j and walks the rows i0, i0 + di, ... (no
-  // division by the runtime N inside the steps; N <= 139, the wrapper's
-  // shared-memory check, so di >= 7)
-  const int j = threadIdx.x % N, i0 = threadIdx.x / N, di = blockDim.x / N;
   for (int s = 0; s < steps; ++s) {
-    if (i0 < di)
-      for (int i = i0; i < N; i += di)
-        nxt[i * N + j] = ct_next(t, cur, i, j, N);
+    if (s & 1)
+      ct_block_step<K>(t, buf1, buf0, v, at, N);
+    else
+      ct_block_step<K>(t, buf0, buf1, v, at, N);
     __syncthreads();
-    int* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
   }
-  for (int e = threadIdx.x; e < n2; e += blockDim.x) out[e] = cur[e];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if ((at[k] & 0xffff) < n2) out[at[k] & 0xffff] = v[k];
+}
+
+static __device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the word at shared-memory address addr (of this block's window) in the
+// block of rank `rank` of the cluster
+static __device__ __forceinline__ int ld_cluster(unsigned addr,
+                                                 unsigned rank) {
+  unsigned remote;
+  int v;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.b32 %0, [%1];"
+               : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// every block's memory operations before it ordered before every block's
+// after it (the default arrive releases, the wait acquires)
+static __device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the same with one release a block in place of one a warp: the block
+// barrier orders every thread's stores before warp 0's fence, the fence
+// and warp 0's arrive after it release them at cluster scope, and every
+// wait acquires them (a fence followed by a relaxed arrive, the pattern
+// the PTX memory model gives for a release).  A relaxed arrive with no
+// fence is cheaper, but the model then orders nothing across blocks.
+static __device__ __forceinline__ void cluster_sync_shared() {
+  __syncthreads();
+  if (threadIdx.x < 32) asm volatile("fence.acq_rel.cluster;" ::: "memory");
+  asm volatile(
+      "barrier.cluster.arrive.relaxed.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// one step of a cluster block's elements: src the shared-memory address
+// of the buffer of the step before (the same offset in every block),
+// nxt this block's buffer of this step
+template <int RB, int K>
+static __device__ __forceinline__ void ct_cluster_step(
+    const int* __restrict__ t, unsigned src, int* __restrict__ nxt,
+    int (&v)[K], const int (&at)[K]) {
+  constexpr int N = CT_N;
+  int c[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    unsigned rank;
+    const unsigned w = ct_src(v[k], at[k] >> 16, RB, N, rank);
+    c[k] = ld_cluster(src + 4u * w, rank);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = t[v[k] * N + c[k]];
+    nxt[at[k] & 0xffff] = v[k];
+  }
+}
+
+// A cluster of CS blocks of P threads at N = CT_N (shipped at CT_CS x
+// CT_P; tools/torch_ct_variants.py instantiates other sizes): block r owns
+// the RB = N / CS rows from r * RB, K elements a thread, and reads kk[m, i]
+// from the block that owns row m.  Shared memory: T (each block its own),
+// then two buffers of the block's rows.  A step ends with
+// cluster_sync_shared.
+template <int CS, int P>
+__global__ void __launch_bounds__(P)
+ct_cluster_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
+                  int* __restrict__ out, int steps) {
+  constexpr int N = CT_N, RB = N / CS, K = RB * N / P;
+  extern __shared__ int sm[];
+  int* t = sm;
+  int* buf0 = t + N * N;
+  int* buf1 = buf0 + RB * N;
+  const int row0 = (int)cluster_rank() * RB;
+  for (int e = threadIdx.x; e < N * N; e += P)
+    t[e] = clip_step(e / N, __ldg(tab + e), N);
+  for (int e = threadIdx.x; e < RB * N; e += P)
+    buf0[e] = __ldg(kk0 + row0 * N + e);
+  int v[K], at[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int i, j;
+    ct_place(threadIdx.x + k * P, row0, RB, N, i, j);
+    at[k] = i << 16 | ((i - row0) * N + j);
+    v[k] = __ldg(kk0 + i * N + j);
+  }
+  cluster_sync();            // every block's rows in place before any read
+  const unsigned a0 = (unsigned)__cvta_generic_to_shared(buf0);
+  const unsigned a1 = (unsigned)__cvta_generic_to_shared(buf1);
+  for (int s = 0; s < steps; ++s) {
+    if (s & 1)
+      ct_cluster_step<RB, K>(t, a1, buf0, v, at);
+    else
+      ct_cluster_step<RB, K>(t, a0, buf1, v, at);
+    cluster_sync_shared();
+  }
+  cluster_sync();            // no block leaves while others read it
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[row0 * N + (at[k] & 0xffff)] = v[k];
 }
 
 __global__ void __launch_bounds__(1024)
@@ -181,15 +369,60 @@ extern "C" int gp3_dg(const int* tab, const int* kk0, int* out, int S, int L,
   return (int)cudaGetLastError();
 }
 
+static int ct_block_launch(const int* tab, const int* kk0, int* out, int N,
+                           int steps, cudaStream_t st) {
+  const size_t smem = ((size_t)3 * N * N + 2) * sizeof(int);
+  const int rc = smem_opt_in((const void*)ct_block_kernel, smem);
+  if (rc) return rc;
+  ct_block_kernel<<<1, 1024, smem, st>>>(tab, kk0, out, N, steps);
+  return (int)cudaGetLastError();
+}
+
+// kern as one cluster of `blocks` blocks of `threads`, each with `smem`
+// bytes of dynamic shared memory (a cluster of more than 8 blocks is
+// non-portable: allowed explicitly)
+static int ct_cluster_launch(void (*kern)(const int*, const int*, int*, int),
+                             int blocks, int threads, size_t smem,
+                             const int* tab, const int* kk0, int* out,
+                             int steps, cudaStream_t st) {
+  const void* fn = (const void*)kern;
+  int rc = smem_opt_in(fn, smem);
+  if (!rc && blocks > 8)
+    rc = (int)cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (rc) return rc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, tab, kk0, out, steps);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// shared memory of ct_cluster_kernel's blocks: T and two buffers of rows
+static size_t ct_cluster_smem(int blocks) {
+  return ((size_t)CT_N * CT_N + 2 * CT_N * CT_N / blocks) * sizeof(int);
+}
+
+// at N = CT_N the cluster of CT_CS blocks of CT_P, at any other N one
+// block of 1024
 extern "C" int gp3_ct(const int* tab, const int* kk0, int* out, int N,
                       int steps, void* stream) {
-  const size_t smem = (size_t)3 * N * N * sizeof(int);
-  const int rc = smem_opt_in((const void*)gp3_ct_kernel, smem);
-  if (rc) return rc;
-  if (N > 0)
-    gp3_ct_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(tab, kk0, out, N,
-                                                           steps);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N < 1) return (int)cudaGetLastError();
+  if (N == CT_N)
+    return ct_cluster_launch(ct_cluster_kernel<CT_CS, CT_P>, CT_CS, CT_P,
+                             ct_cluster_smem(CT_CS), tab, kk0, out, steps,
+                             st);
+  return ct_block_launch(tab, kk0, out, N, steps, st);
 }
 
 extern "C" int gp3_col0(const int* tab, const int* k, int* out, int N, int W,
@@ -219,30 +452,52 @@ extern "C" int gp3_dg_host(const int* tab, const int* kk0, int* out, int S,
   return 0;
 }
 
-// the same two-buffer step as the block: every element of step t reads
-// the state of step t - 1
+// gp3_ct as `blocks` blocks that split the rows (1: the one block; CT_CS
+// at N = CT_N: the cluster), T taken once, then each step every block's
+// elements in the card's order (ct_place), each reading the state of the
+// step before, kk[m, i] where the card reads it (ct_src: the buffer of
+// the block that owns row m; the blocks' buffers lie one after another).
+// Returns 1 on a split that does not divide N, 2 when the blocks'
+// elements do not cover the state once each.
 extern "C" int gp3_ct_host(const int* tab, const int* kk0, int* out, int N,
-                           int steps) {
+                           int steps, int blocks) {
+  const int rows = blocks > 0 ? N / blocks : 0;
   const size_t n2 = (size_t)N * N;
+  int* t = (int*)malloc(n2 * sizeof(int));
   int* cur = (int*)malloc(n2 * sizeof(int));
-  int* nxt = (int*)malloc(n2 * sizeof(int));
-  if (!cur || !nxt) {
-    free(cur);
-    free(nxt);
-    return 1;
+  int* nxt = (int*)calloc(n2, sizeof(int));
+  int rc = !t || !cur || !nxt || blocks < 1 || rows * blocks != N;
+  for (size_t e = 0; !rc && e < n2; ++e) {
+    t[e] = clip_step((int)(e / N), tab[e], N);
+    cur[e] = kk0[e];
   }
-  memcpy(cur, kk0, n2 * sizeof(int));
-  for (int s = 0; s < steps; ++s) {
-    for (size_t e = 0; e < n2; ++e)
-      nxt[e] = ct_next(tab, cur, (int)(e / N), (int)(e % N), N);
+  for (int b = 0; !rc && b < blocks; ++b)       // each element once
+    for (int e = 0; e < rows * N; ++e) {
+      int i, j;
+      ct_place(e, b * rows, rows, N, i, j);
+      nxt[i * N + j] += 1;
+    }
+  for (size_t e = 0; !rc && e < n2; ++e)
+    if (nxt[e] != 1) rc = 2;
+  for (int s = 0; !rc && s < steps; ++s) {
+    for (int b = 0; b < blocks; ++b)
+      for (int e = 0; e < rows * N; ++e) {
+        int i, j;
+        unsigned rank;
+        ct_place(e, b * rows, rows, N, i, j);
+        const int m = cur[i * N + j];
+        const unsigned w = ct_src(m, i, rows, N, rank);
+        nxt[i * N + j] = t[m * N + cur[(size_t)rank * rows * N + w]];
+      }
     int* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
-  memcpy(out, cur, n2 * sizeof(int));
+  if (!rc) memcpy(out, cur, n2 * sizeof(int));
+  free(t);
   free(cur);
   free(nxt);
-  return 0;
+  return rc;
 }
 
 extern "C" int gp3_col0_host(const int* tab, const int* k, int* out, int N,

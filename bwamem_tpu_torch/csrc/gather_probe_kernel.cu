@@ -10,9 +10,13 @@
 //                coalesced, one 4-byte read-only load of the table a lane
 //                (uncoalesced: each lane its own row), a coalesced store.
 //   gp_scalar2   (kernel_scalarw, :93)  out = tab[k,0] + tab[k,1], the add
-//                wrapping in 32 bits; tab [R,W].  A short row read: one
-//                8-byte load per lane, the pass repeated `steps` times as
-//                the TPU kernel's loop does.
+//                wrapping in 32 bits; tab [R,W], W >= 2.  The TPU kernel,
+//                too, repeats its pass `STEPS` times only to price one, so
+//                this kernel makes one pass, as gp_scalar does: a thread a
+//                lane, k read coalesced, the row's two words in one 8-byte
+//                read-only load where the row start is 8-byte aligned (W
+//                even, tab 8-byte aligned) and in two 4-byte ones
+//                otherwise, a coalesced store.
 //   gp_onehot    (kernel_mm, :120)      out = int(bf16(tab3[k>>7, k&127])),
 //                0 where k>>7 is outside [0, A); tab3 [A,128].  The TPU
 //                kernel prices its matrix unit: a one-hot [N, A] times the
@@ -40,10 +44,7 @@
 // words: 0.000029 ms), so a launch's own latency is all one sees;
 // gp_take_ax0 moves 120 MB (table, kk in, kk out), ~0.036 ms.
 //
-// gp_scalar2 must issue every pass's loads, as the TPU kernel's loop
-// does: it loads through volatile PTX (ld.volatile) with a memory clobber,
-// which nvcc may neither hoist out of the loop nor merge.  gp_scalar has
-// no loop and loads through the read-only path (__ldg).
+// gp_scalar and gp_scalar2 load through the read-only path (__ldg).
 //
 // The same source compiles as host C++ (no __CUDACC__), exposing the lane
 // loops of all four as *_host entries, so the CPU tests check their
@@ -58,17 +59,12 @@
 #define GP_F2U(f) __float_as_uint(f)
 #define GP_U2F(u) __uint_as_float(u)
 
-static __device__ __forceinline__ int ld_volatile(const int* p) {
-  int v;
-  asm volatile("ld.volatile.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-static __device__ __forceinline__ void ld_volatile2(const int* p, int& a,
-                                                    int& b) {
-  asm volatile("ld.volatile.global.v2.s32 {%0, %1}, [%2];"
-               : "=r"(a), "=r"(b) : "l"(p) : "memory");
+// words 0 and 1 at p, 8-byte aligned: one 8-byte read-only load
+static __device__ __forceinline__ void ldg_pair(const int* p, int& a,
+                                                int& b) {
+  const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+  a = v.x;
+  b = v.y;
 }
 #else
 #define GP_HD
@@ -86,13 +82,9 @@ static inline float GP_U2F(uint32_t u) {
   return f;
 }
 
-static inline int ld_volatile(const int* p) {
-  return *(const volatile int*)p;
-}
-
-static inline void ld_volatile2(const int* p, int& a, int& b) {
-  a = ((const volatile int*)p)[0];
-  b = ((const volatile int*)p)[1];
+static inline void ldg_pair(const int* p, int& a, int& b) {
+  a = p[0];
+  b = p[1];
 }
 #endif
 
@@ -102,15 +94,22 @@ static GP_HD inline int scalar_lane(const int* __restrict__ tab,
   return GP_LDG(tab + (long long)GP_LDG(k + q) * 128 + (q & 127));
 }
 
-// lane q of gp_scalar2: words 0 and 1 of row k[q] of the W-word table
-static GP_HD inline void scalar2_lane(const int* tab, const int* k, int* out,
-                                      int q, int W, int steps) {
-  for (int s = 0; s < steps; ++s) {
-    const int r = ld_volatile(k + q);
-    int a, b;
-    ld_volatile2(tab + (long long)r * W, a, b);
-    out[q] = (int)((uint32_t)a + (uint32_t)b);
+// lane q of gp_scalar2: words 0 and 1 of row k[q] of the W-word table,
+// added with the 32-bit wrap; PAIR: the row start is 8-byte aligned, so
+// one 8-byte load reads both
+template <bool PAIR>
+static GP_HD inline int scalar2_lane(const int* __restrict__ tab,
+                                     const int* __restrict__ k, int q,
+                                     int W) {
+  const int* row = tab + (long long)GP_LDG(k + q) * W;
+  int a, b;
+  if (PAIR) {
+    ldg_pair(row, a, b);
+  } else {
+    a = GP_LDG(row);
+    b = GP_LDG(row + 1);
   }
+  return (int)((uint32_t)a + (uint32_t)b);
 }
 
 // (k + g) mod R with the add wrapping in 32 bits and the result in [0, R):
@@ -161,11 +160,12 @@ gp_scalar_kernel(const int* __restrict__ tab, const int* __restrict__ k,
   if (q < N) out[q] = scalar_lane(tab, k, q);
 }
 
+template <bool PAIR>
 __global__ void __launch_bounds__(128)
-gp_scalar2_kernel(const int* tab, const int* k, int* out, int N, int W,
-                  int steps) {
+gp_scalar2_kernel(const int* __restrict__ tab, const int* __restrict__ k,
+                  int* __restrict__ out, int N, int W) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q < N) scalar2_lane(tab, k, out, q, W, steps);
+  if (q < N) out[q] = scalar2_lane<PAIR>(tab, k, q, W);
 }
 
 __global__ void __launch_bounds__(128)
@@ -194,10 +194,15 @@ extern "C" int gp_scalar(const int* tab, const int* k, int* out, int N,
 }
 
 extern "C" int gp_scalar2(const int* tab, const int* k, int* out, int N,
-                          int W, int steps, void* stream) {
-  if (N > 0)
-    gp_scalar2_kernel<<<(N + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        tab, k, out, N, W, steps);
+                          int W, void* stream) {
+  const dim3 grid((N + 127) / 128);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0) {
+    if (W % 2 == 0 && (uintptr_t)tab % 8 == 0)
+      gp_scalar2_kernel<true><<<grid, 128, 0, st>>>(tab, k, out, N, W);
+    else
+      gp_scalar2_kernel<false><<<grid, 128, 0, st>>>(tab, k, out, N, W);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -227,9 +232,13 @@ extern "C" int gp_scalar_host(const int* tab, const int* k, int* out,
   return 0;
 }
 
+// the lane with both loads (pair != 0: the 8-byte one, as the card takes
+// it for even W at an 8-byte aligned table)
 extern "C" int gp_scalar2_host(const int* tab, const int* k, int* out, int N,
-                               int W, int steps) {
-  for (int q = 0; q < N; ++q) scalar2_lane(tab, k, out, q, W, steps);
+                               int W, int pair) {
+  for (int q = 0; q < N; ++q)
+    out[q] = pair ? scalar2_lane<true>(tab, k, q, W)
+                  : scalar2_lane<false>(tab, k, q, W);
   return 0;
 }
 

@@ -17,10 +17,11 @@ the reference package's tools/pl_gather_probe.py:
                                      times, over a table-shaped kk [R, 128]
 
 k is int32 [N/128, 128] (N lanes, lane q at row q // 128, column q % 128);
-every table is int32.  gp_scalar computes one pass: the TPU kernel repeats
-its pass STEPS times only to price one, and the output does not depend on
-it.  Only gp_scalar2 repeats its pass `steps` times, as its TPU kernel
-does (steps >= 1).
+every table is int32.  gp_scalar and gp_scalar2 compute one pass: their
+TPU kernels repeat the pass STEPS times only to price one, and the output
+does not depend on it.  gp_scalar2 reads a row's two words in one 8-byte
+load where the row start is 8-byte aligned (W even, the table 8-byte
+aligned), in two 4-byte loads otherwise.
 Preconditions the kernels do not check (a plain version raises on the
 first): k in [0, R) for gp_scalar and gp_scalar2, kk in [0, R) for
 gp_take_ax0, and |tab3| < 2^24 for gp_onehot — there int32 -> float ->
@@ -41,11 +42,11 @@ import torch
 from bwamem_tpu_torch.ops.launch import Library
 
 COLS = 128                  # columns of k, tab and tab3; lanes per k row
-# (in, in, out, ints): (N) for gp_scalar, (N, W, steps) for gp_scalar2,
-# (N, A) for gp_onehot, (R, steps) for gp_take_ax0
+# (in, in, out, ints): (N) for gp_scalar, (N, W) for gp_scalar2, (N, A)
+# for gp_onehot, (R, steps) for gp_take_ax0
 LIB = Library("gather_probe_kernel.cu", {
     name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int
-    for name, n_int in (("gp_scalar", 1), ("gp_scalar2", 3),
+    for name, n_int in (("gp_scalar", 1), ("gp_scalar2", 2),
                         ("gp_onehot", 2), ("gp_take_ax0", 2))})
 SRC = LIB.src
 
@@ -156,15 +157,12 @@ def _prep_scalar(tab, k):
     return _prep_lanes("gp_scalar", tab, k)
 
 
-def _prep_scalar2(tab, k, steps):
-    if steps < 1:
-        raise ValueError(f"gp_scalar2: steps {steps} < 1")
+def _prep_scalar2(tab, k):
     out, args = _prep_lanes("gp_scalar2", tab, k, tab_cols=None)
     W = tab.shape[1]
-    if W < 2 or W % 2 or tab.data_ptr() % 8:
-        raise ValueError(f"gp_scalar2: rows of {W} words at "
-                         f"{tab.data_ptr():#x} are not 8-byte aligned pairs")
-    return out, args + (W, int(steps))
+    if W < 2:
+        raise ValueError(f"gp_scalar2: rows of {W} words hold no two words")
+    return out, args + (W,)
 
 
 def _prep_onehot(tab3, k):
@@ -200,14 +198,13 @@ def gp_scalar(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gp_scalar2(tab: torch.Tensor, k: torch.Tensor,
-               steps: int) -> torch.Tensor:
-    """tab int32 [R, W] (W even), k int32 [N/128, 128] -> tab[k, 0] +
-    tab[k, 1]; the two words are one 8-byte load."""
+def gp_scalar2(tab: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """tab int32 [R, W] (W >= 2), k int32 [N/128, 128] -> tab[k, 0] +
+    tab[k, 1], wrapping int32, one pass."""
     if not tab.is_cuda:
         return scalar2_plain(tab, k)
     global launches_scalar2
-    out = _launch("gp_scalar2", *_prep_scalar2(tab, k, steps))
+    out = _launch("gp_scalar2", *_prep_scalar2(tab, k))
     launches_scalar2 += 1
     return out
 

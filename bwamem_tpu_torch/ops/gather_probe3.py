@@ -10,7 +10,9 @@ tools/pl_gather_probe3.py, which maps what a gather costs in a kernel:
   gp3_ct    (probe_ct, :79)   per step g = take_along_axis(tab, kk, 1),
                               g2 = take_along_axis(g.T, kk, 1), kk =
                               clip(kk + g2, 0, N - 1); tab and kk int32
-                              [N, N]
+                              [N, N], 1 <= N <= 139; at N = CT_N a
+                              cluster of CT_CLUSTER blocks, at any other N
+                              one block
   gp3_col0  (probe_d2, :103)  out[q] = tab[k[q], 0]; tab int32 [R, W], k
                               int32 [n]: ops/col0's call of col0_kernel
                               (csrc/col0.cuh)
@@ -48,6 +50,10 @@ from bwamem_tpu_torch.ops.launch import Library
 
 SMEM_MAX = 232448           # bytes of shared memory a block may opt into
 MM_REPS, MM_ROWS = 64, 8    # probe_e2's iterations and output rows
+
+# gp3_ct runs at N = CT_N as a cluster of CT_CLUSTER blocks, each holding
+# N / CT_CLUSTER rows of the state (the kernel's CT_N and CT_CS)
+CT_N, CT_CLUSTER = 128, 16
 
 # (in, in, out, ints)
 LIB = Library("gather_probe3_kernel.cu", {
@@ -135,6 +141,27 @@ def mm_tolerance(a: torch.Tensor, b: torch.Tensor, reps: int = MM_REPS,
     return 2 * reps * (K * u * S + reps * u * S)
 
 
+CT_KINDS = ("probe", "spread", "wrap")
+
+
+def ct_inputs(kind: str, N: int, seed: int, device="cpu"):
+    """(tab, kk) int32 [N, N] for gp3_ct: "probe", tab in [0, 2^20) as
+    the TPU script draws it (every chain at N - 1 after a step); "spread",
+    spread_inputs; "wrap", tab within 64 of +-2^31 (even rows negative),
+    so that every add wraps in int32.  kk in [0, N)."""
+    import numpy as np
+    if kind == "spread":
+        return spread_inputs(seed, N, N, 1, device)
+    rng = np.random.default_rng(seed)
+    lo, hi = {"probe": (0, 1 << 20), "wrap": ((1 << 31) - 64, 1 << 31)}[kind]
+    tab = rng.integers(lo, hi, (N, N), dtype=np.int64).astype(np.int32)
+    if kind == "wrap":
+        tab[::2] = -tab[::2]
+    kk = rng.integers(0, N, (N, N), dtype=np.int32)
+    return (torch.from_numpy(tab).to(device),
+            torch.from_numpy(kk).to(device))
+
+
 def spread_inputs(seed: int, S: int, L: int, axis: int, device="cpu"):
     """A table drawn from [-hi, hi] and a start kk in [0, hi) for gp3_dg
     (or gp3_ct with S = L, axis 1): chains move every step and meet both
@@ -168,7 +195,9 @@ def _prep_dg(tab, kk, steps, axis):
                  tab.shape[0], tab.shape[1], int(steps), int(axis))
 
 
-def _prep_ct(tab, kk, steps):
+def check_ct(tab, kk, steps) -> int:
+    """N of a gp3_ct call's square tab and kk; ValueError on anything the
+    kernel does not take."""
     _check("gp3_ct", tab, "tab")
     _check("gp3_ct", kk, "kk", dev=tab.get_device())
     N = tab.shape[0]
@@ -176,9 +205,14 @@ def _prep_ct(tab, kk, steps):
         raise ValueError(f"gp3_ct: square tab and kk expected, got "
                          f"{tuple(tab.shape)} and {tuple(kk.shape)}, steps "
                          f"{steps}")
-    if 3 * N * N * 4 > SMEM_MAX:
+    if (3 * N * N + 2) * 4 > SMEM_MAX:
         raise ValueError(f"gp3_ct: the table and two states of [{N},{N}] "
                          f"do not fit in {SMEM_MAX} bytes of shared memory")
+    return N
+
+
+def _prep_ct(tab, kk, steps):
+    N = check_ct(tab, kk, steps)
     out = torch.empty_like(kk)
     return out, (tab.data_ptr(), kk.data_ptr(), out.data_ptr(), N,
                  int(steps))

@@ -41,16 +41,19 @@ Three phases; any failure exits non-zero without printing a result.
    area, dynamic shared memory a block), its time, band cells/s and
    times its bound.
 2b. The gather-strategy probe (tools/torch_pl_gather_probe.py) at the TPU
-   script's defaults (8192 lanes, 16 passes for gp_scalar2 and the take,
-   a table of 78208 rows; tables from numpy with the smoke seed):
-   gp_scalar (one pass: the TPU kernel's passes only price one), gp_scalar2,
-   gp_onehot and gp_take_ax0, each launched by the probe (counts from 0),
+   script's defaults (8192 lanes, 16 steps of the take, a table of 78208
+   rows; tables from numpy with the smoke seed): gp_scalar and gp_scalar2
+   (one pass each: the TPU kernels' passes only price one), gp_onehot and
+   gp_take_ax0, each launched by the probe (counts from 0),
    then held against its plain version (max_abs_err 0) and reported with
    the probe's CUDA-event times (and on the device alone), its plain and
    library times (5b's library call two ops) and its bound; gp_onehot is
    also held on the CPU tests' inputs, where bf16 rounds and k lies
    outside the table and at both ends of int32
-   (ops/gather_probe.onehot_inputs), at their size and at the probe's.
+   (ops/gather_probe.onehot_inputs), at their size and at the probe's,
+   and gp_scalar2 at row widths 2, 3, 7 and 8, at a table off an 8-byte
+   boundary and on sums that wrap (check_scalar2: its 8-byte and its two
+   4-byte loads).
 2c. Round 2 of the gather probe (tools/torch_pl_gather_probe2.py) at the
    TPU script's defaults (32 steps; B on [512,128], C on [128,128] and
    [8,128], D on 1024 lanes of a [78208,8] table, E with Q = 1024 and
@@ -68,7 +71,12 @@ Three phases; any failure exits non-zero without printing a result.
    gp3_col0 and gp3_mm, the same way, and the chains also on spread
    tables (values in [-hi, hi]: the probe's saturate after one step),
    gp3_mm exact on integer-valued inputs and within its rounding bound on
-   the probe's normal ones.
+   the probe's normal ones.  gp3_ct is timed on its spread input too
+   (the chains keep moving there), held at N = 128, 139, 33 and 1 on the
+   probe's, spread and wrapping tables after 0, 1 and 512 steps (at 128
+   the cluster of 16 blocks, at the other N the one block), and timed
+   on the device alone in turns with the design it replaced
+   (tools/torch_ct_variants.py, which alone times the other designs).
    The column-0 gathers of 2c and 2d (D, gp2_col0, and gp3_col0: one
    kernel, csrc/col0.cuh) are timed as 200 back-to-back calls, on the
    device alone and on the host clock, in turns with tab[k, 0]; then
@@ -835,9 +843,9 @@ def gp_bound(name, x, steps):
         words = torch.unique(k * 128 + torch.arange(n, device=k.device) % 128)
         nbytes = 4 * (2 * n + words.numel())
         t_ops = n * 2 / PEAK_INT32_OPS * 1e3
-    elif name == "gp_scalar2":
+    elif name == "gp_scalar2":             # one pass
         nbytes = 4 * 2 * n + 8 * torch.unique(k).numel()
-        t_ops = n * steps * 3 / PEAK_INT32_OPS * 1e3
+        t_ops = n * 3 / PEAK_INT32_OPS * 1e3
     elif name == "gp_onehot":
         nbytes = 4 * (2 * n + torch.unique(
             k[(k >= 0) & (k < x["tab3"].numel())]).numel())
@@ -884,8 +892,7 @@ def phase_gather_probe():
     x = res["inputs"]
     held = {"gp_scalar": (lambda: gp.gp_scalar(x["tab"], x["k"]),
                           lambda: gp.scalar_plain(x["tab"], x["k"]), 65),
-            "gp_scalar2": (lambda: gp.gp_scalar2(x["tabw"], x["k"],
-                                                 GP_STEPS),
+            "gp_scalar2": (lambda: gp.gp_scalar2(x["tabw"], x["k"]),
                            lambda: gp.scalar2_plain(x["tabw"], x["k"]), 93),
             "gp_onehot": (lambda: gp.gp_onehot(x["tab3"], x["k"]),
                           lambda: gp.onehot_plain(x["tab3"], x["k"]), 120),
@@ -922,6 +929,8 @@ def phase_gather_probe():
             # inputs where it rounds, and k outside the table, count too
             e["max_abs_err"] = max(err, *res["onehot"].values())
             e["max_abs_err_by_input"] = res["onehot"]
+        if name == "gp_scalar2":           # odd widths, unaligned, wrapping
+            e["max_abs_err"] = max(err, *res["scalar2"].values())
         entries.append(e)
     return entries
 
@@ -1255,8 +1264,86 @@ def phase_gather_probe3():
                      normal_inputs_tolerance=r["tolerance"],
                      library="torch.matmul(a[:8], b) with TF32 off, then "
                              "the 64 additions")
+        if name == "gp3_ct":                # also where the chains move
+            sl = label + "_spread"
+            rs = res["results"][sl]
+            b_s, by_s, nb_s = gp3_bound(name, dict(tab=x["ct_tab_spread"],
+                                                   kk=x["ct_kk_spread"]))
+            e.update(ms_spread=rs["ms"], device_ms_spread=rs["device_ms"],
+                     plain_ms_spread=rs["plain_ms"],
+                     library_ms_spread=rs["library_ms"],
+                     bound_ms_spread=b_s, bound_by_spread=by_s,
+                     max_abs_err=max(err, res["checks"][sl][0]))
+            log(f"{sl}: kernel {rs['ms']:.4f} ms (device alone "
+                f"{rs['device_ms']:.4f}), plain {rs['plain_ms']:.4f} ms, "
+                f"library {rs['library_ms']:.4f} ms, bytes {nb_s}, bound "
+                f"{b_s:.6f} ms ({by_s}), device time / bound "
+                f"{rs['device_ms'] / b_s:.1f}")
         entries[name] = e
     return list(entries.values())
+
+
+# gp3_ct is also held at these N (each kind of gather_probe3.CT_KINDS)
+# after these steps
+CT_HELD_N, CT_HELD_STEPS = (128, 139, 33, 1), (0, 1, 512)
+
+
+def phase_ct(kerns_gp3):
+    """Kernel 7B (gp3_ct) held against ct_plain through its wrapper at
+    CT_HELD_N x gather_probe3.CT_KINDS x CT_HELD_STEPS (at N = 128 the
+    cluster, at the other N the one block), then timed in turns with the
+    design it replaced on the probe's and the spread input
+    (tools/torch_ct_variants: its inputs, rounds and timing on the device
+    alone and between events; the replaced design is held against
+    ct_plain first).  The numbers join 7B's kernels-line
+    entry: replaced_device_ms, replaced_device_ms_spread and `variants`
+    ({input: {shipped | replaced: dict(device_ms, ms)}})."""
+    import torch
+    import torch_ct_variants as ctv
+    from bwamem_tpu_torch.ops import gather_probe3 as gp3
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    errs = {}
+    for n in CT_HELD_N:
+        for kind in gp3.CT_KINDS:
+            tab, kk = gp3.ct_inputs(kind, n, ctv.SEEDS[kind], dev)
+            for steps in CT_HELD_STEPS:
+                want = gp3.ct_plain(tab, kk, steps).to(torch.int64)
+                got = gp3.gp3_ct(tab, kk, steps).to(torch.int64)
+                torch.cuda.synchronize()
+                errs[f"N={n} {kind} steps={steps}"] = int(
+                    (got - want).abs().max().item())
+    log(f"gp3_ct: {len(errs)} calls at N {CT_HELD_N}, inputs "
+        f"{gp3.CT_KINDS}, steps {CT_HELD_STEPS} vs plain: max_abs_err "
+        f"{max(errs.values())}")
+    bad = {k: v for k, v in errs.items() if v}
+    if bad:
+        raise RuntimeError(f"gp3_ct disagrees with its plain version: {bad}")
+    lib = ctv.libraries(("replaced",))["replaced"]
+    x = ctv.make_inputs(dev)
+    times = {}
+    for kind in ("probe", "spread"):
+        tab, kk = x[kind]
+        got = ctv.replaced_call(lib, tab, kk)
+        if not torch.equal(got, gp3.ct_plain(tab, kk, ctv.STEPS)):
+            raise RuntimeError(f"the replaced gp3_ct differs from the plain "
+                               f"version on the {kind} input")
+        times[kind] = ctv.in_turns({
+            "shipped": lambda t=tab, k=kk: gp3.gp3_ct(t, k, ctv.STEPS),
+            "replaced": lambda t=tab, k=kk: ctv.replaced_call(lib, t, k)})
+        sh, rp = times[kind]["shipped"], times[kind]["replaced"]
+        log(f"gp3_ct {kind} input, in turns ({ctv.ROUNDS} rounds): shipped "
+            f"(a cluster of {gp3.CT_CLUSTER}) device {sh['device_ms']:.5f} "
+            f"ms, "
+            f"between events {sh['ms']:.5f}; replaced design device "
+            f"{rp['device_ms']:.5f}, between events {rp['ms']:.5f}")
+    e = next(e for e in kerns_gp3 if e["name"] == "gp3_ct")
+    e.update(max_abs_err=max(e["max_abs_err"], max(errs.values())),
+             replaced_device_ms=times["probe"]["replaced"]["device_ms"],
+             replaced_device_ms_spread=times["spread"]["replaced"][
+                 "device_ms"],
+             variants=times)
+    log(f"gp3_ct phase: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_col0(kerns_gp2, kerns_gp3):
@@ -2412,6 +2499,7 @@ def main() -> int:
     kerns_gp = phase_gather_probe()
     kerns_gp2, kernel_d = phase_gather_probe2()
     kerns_gp3 = phase_gather_probe3()
+    phase_ct(kerns_gp3)
     phase_col0(kerns_gp2, kerns_gp3)
     kerns_dp_pl = phase_dispatch_pl_probe()
     from bwamem_tpu_torch.index import load_index

@@ -3,10 +3,12 @@ CPU.  The four Pallas kernel bodies of the reference's
 tools/pl_gather_probe.py (:65-157), copied here with N, STEPS and R as
 parameters, run under pl.pallas_call(..., interpret=True) at a small size,
 and each plain version must equal its kernel exactly; so must the lane
-loops of csrc/gather_probe_kernel.cu, built for the host (gp_scalar's one
-pass, held against kernel_scalar's STEPS passes in interpret mode,
-gp_scalar2, gp_take_ax0, and gp_onehot's gather with its bf16 rounding in
-integer arithmetic, held against the one-hot product in interpret mode).
+loops of csrc/gather_probe_kernel.cu, built for the host (gp_scalar's and
+gp_scalar2's one pass, held against kernel_scalar's and kernel_scalarw's
+STEPS passes in interpret mode, gp_scalar2 at even and odd row widths with
+its 8-byte and its two 4-byte loads, gp_take_ax0, and gp_onehot's gather
+with its bf16 rounding in integer arithmetic, held against the one-hot
+product in interpret mode).
 The edge cases: table values near 2^31 (the int32 wrap, and the sign of
 the remainder of the take), values up to 2^23 for the bf16 rounding of the
 one-hot product, and k outside [0, A * 128) there (ops/gather_probe
@@ -153,6 +155,19 @@ def test_scalar2_plain_matches_pallas(lo, hi):
     assert_same(want, gp.scalar2_plain(T(tabw), T(k)), "scalar2")
 
 
+@pytest.mark.parametrize("w", [2, 3, 7, 8])
+def test_scalar2_one_pass_lanes_match_pallas(w):
+    """gp_scalar2's one pass, built for the host, against kernel_scalarw's
+    STEPS passes at an odd and an even row width (odd: two 4-byte loads;
+    even: the 8-byte load too), with sums that wrap."""
+    _, tabw, k, _ = _inputs(9, (1 << 31) - 64, 1 << 31, w=w)
+    want = pl_scalarw(jnp.asarray(tabw), jnp.asarray(k), N, STEPS)
+    assert (np.asarray(want) < 0).all()             # every sum wraps
+    for pair in ((0, 1) if w % 2 == 0 else (0,)):
+        assert_same(want, _host("gp_scalar2_host", tabw, k, np.zeros_like(k),
+                                N, w, pair), f"gp_scalar2 lanes W={w}")
+
+
 @pytest.mark.parametrize("case", ["probe", "bf16_rounding", "k_outside"])
 def test_onehot_plain_matches_pallas(case):
     A = R // 128
@@ -195,7 +210,7 @@ def test_kernel_source_scalar_lanes_match_plain(lo, hi):
                 _host("gp_scalar_host", tab, k, np.zeros_like(k), N),
                 "gp_scalar lanes")
     assert_same(gp.scalar2_plain(T(tabw), T(k)),
-                _host("gp_scalar2_host", tabw, k, np.zeros_like(k), N, 8, 2),
+                _host("gp_scalar2_host", tabw, k, np.zeros_like(k), N, 8, 1),
                 "gp_scalar2 lanes")
 
 
@@ -219,8 +234,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
              "launches_take")
     before = [getattr(gp, n) for n in names]
     assert torch.equal(gp.gp_scalar(tab, k), gp.scalar_plain(tab, k))
-    assert torch.equal(gp.gp_scalar2(tabw, k, STEPS),
-                       gp.scalar2_plain(tabw, k))
+    assert torch.equal(gp.gp_scalar2(tabw, k), gp.scalar2_plain(tabw, k))
     assert torch.equal(gp.gp_onehot(tab3, k), gp.onehot_plain(tab3, k))
     assert torch.equal(gp.gp_take_ax0(tab, kfull, STEPS),
                        gp.take_ax0_plain(tab, kfull, STEPS))
@@ -230,21 +244,26 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
 def test_wrappers_reject_what_the_kernels_do_not_take():
     tab, tabw, k, kfull = (T(a) for a in _inputs(8))
     good = {"scalar": (gp._prep_scalar, dict(tab=tab, k=k)),
-            "scalar2": (gp._prep_scalar2, dict(tab=tabw, k=k, steps=2)),
+            "scalar2": (gp._prep_scalar2, dict(tab=tabw, k=k)),
             "onehot": (gp._prep_onehot, dict(tab3=tab[:8], k=k)),
             "take": (gp._prep_take, dict(tab=tab, kk=kfull, steps=2))}
     for fn, kw in good.values():
         out, args = fn(**kw)
         assert out.shape == next(v for n, v in kw.items()
                                  if n in ("k", "kk")).shape
+    # gp_scalar2 takes odd widths and a table off an 8-byte boundary (its
+    # kernel then loads the two words apart)
+    for tw in (tabw[:, :3].contiguous(),
+               tabw.reshape(-1)[1:9 * 8 + 1].reshape(9, 8)):
+        assert gp._prep_scalar2(tw, k)[1][-1] == tw.shape[1]
     bad = [("scalar", dict(tab=tab.to(torch.int64))),
            ("scalar", dict(tab=tab[:, :64])),
            ("scalar", dict(k=k[:, :64].contiguous())),
            ("scalar", dict(k=k.t())),
            ("scalar", dict(k=k.reshape(-1))),
-           ("scalar2", dict(steps=0)),
-           ("scalar2", dict(tab=tabw[:, :3].contiguous())),
-           ("scalar2", dict(tab=tabw.reshape(-1)[1:9 * 8 + 1].reshape(9, 8))),
+           ("scalar2", dict(tab=tabw[:, :1].contiguous())),
+           ("scalar2", dict(tab=tabw[:, :1])),
+           ("scalar2", dict(k=k.to(torch.int64))),
            ("onehot", dict(tab3=tab[:0])),
            ("onehot", dict(k=k.to(torch.float32))),
            ("take", dict(kk=kfull[:-1])),

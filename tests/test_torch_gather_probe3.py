@@ -187,7 +187,7 @@ def test_ct_plain_and_lanes_match_pallas(kind):
     want = np.asarray(pl_ct(jnp.asarray(tab), jnp.asarray(kk), STEPS))
     assert_same(want, gp3.ct_plain(T(tab), T(kk), STEPS), "ct")
     assert_same(want, _host("gp3_ct_host", tab, kk, np.zeros_like(kk), N,
-                            STEPS), "ct lanes")
+                            STEPS, 1), "ct lanes")
     if kind == "spread":
         mixed = _ct_one_buffer(tab, kk, STEPS)
         assert (mixed != want).any(), "the input shows no cross-row read"
@@ -200,8 +200,8 @@ def test_chains_with_no_steps_return_their_input():
         assert_same(kk, _host("gp3_dg_host", tab, kk, np.zeros_like(kk), 16,
                               16, 0, axis), "dg lanes 0")
     assert_same(kk, gp3.ct_plain(T(tab), T(kk), 0), "ct 0")
-    assert_same(kk, _host("gp3_ct_host", tab, kk, np.zeros_like(kk), 16, 0),
-                "ct lanes 0")
+    assert_same(kk, _host("gp3_ct_host", tab, kk, np.zeros_like(kk), 16, 0,
+                          1), "ct lanes 0")
 
 
 @pytest.mark.parametrize("W,n", [(8, 8), (3, 13)])
@@ -316,6 +316,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
            ("dg", dict(tab=wide, kk=wide.clone())),
            ("ct", dict(tab=tab[:8].contiguous(), kk=kk[:8].contiguous())),
            ("ct", dict(tab=big, kk=big.clone())),
+           ("ct", dict(steps=-1)),
            ("col0", dict(k=k.reshape(2, 4))),
            ("col0", dict(k=k.to(torch.int64))),
            *(("col0", c) for c in col0_bad_inputs(

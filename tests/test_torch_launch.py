@@ -89,7 +89,7 @@ def _cases():
         ("gp_scalar", gp, "gp_scalar", "launches_scalar",
          lambda: gp.gp_scalar(tab, k)),
         ("gp_scalar2", gp, "gp_scalar2", "launches_scalar2",
-         lambda: gp.gp_scalar2(tabw, k, 2)),
+         lambda: gp.gp_scalar2(tabw, k)),
         ("gp_onehot", gp, "gp_onehot", "launches_onehot",
          lambda: gp.gp_onehot(tab[:8], k)),
         ("gp_take_ax0", gp, "gp_take_ax0", "launches_take",

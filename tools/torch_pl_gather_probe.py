@@ -4,8 +4,8 @@
     python3 tools/torch_pl_gather_probe.py [n_lanes] [steps]
 
 The counterpart of tools/pl_gather_probe.py (the TPU probe) with its
-shapes: n_lanes lanes (8192, a multiple of 128), `steps` passes (16) for
-the two kernels that repeat one, a table of R = 78208 rows (the combined
+shapes: n_lanes lanes (8192, a multiple of 128), `steps` dependent steps
+(16) for the take, a table of R = 78208 rows (the combined
 rows of a 5 Mbp index, padded to a multiple of 128), W = 8 words a row for
 the two-word read, and A = R / 128 = 611 rows for the one-hot product.
 The four hand-written CUDA kernels of ops/gather_probe run on the same
@@ -13,7 +13,8 @@ seeded numpy tables:
 
   gp_scalar    a per-lane 4-byte load, one pass (the TPU kernel's passes
                price one; its output does not depend on them)
-  gp_scalar2   a per-lane 8-byte row read (two words, added), `steps` passes
+  gp_scalar2   a per-lane 8-byte row read (two words, added), one pass
+               (as gp_scalar)
   gp_onehot    the gather the TPU probe's one-hot product computes: one
                load of the [611, 128] table a lane, rounded to bf16
   gp_take_ax0  a chained take along axis 0 over the whole [R, 128] table,
@@ -123,13 +124,51 @@ def check_onehot(n_lanes: int, device, log=print) -> dict:
     return errs
 
 
+SCALAR2_WIDTHS = (2, 3, 7, 8)   # gp_scalar2 also held at these row widths
+
+
+def check_scalar2(n_lanes: int, device, seed: int = 5, log=print) -> dict:
+    """gp_scalar2 against scalar2_plain on tables of SCALAR2_WIDTHS words a
+    row (odd widths take two 4-byte loads a lane, even ones one 8-byte
+    load), on the same even width at a table start 4 bytes past an 8-byte
+    boundary (two loads), and with values within 64 of 2^31, where every
+    sum wraps.  Returns {label: max_abs_err}; raises on a difference."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch.ops import gather_probe as gp
+    rng = np.random.default_rng(seed)
+    k = torch.from_numpy(rng.integers(0, 1000, (n_lanes // 128, 128),
+                                      dtype=np.int32)).to(device)
+    errs = {}
+    for w in SCALAR2_WIDTHS:
+        for lo, hi in ((0, 1 << 20), ((1 << 31) - 64, 1 << 31)):
+            flat = torch.from_numpy(rng.integers(
+                lo, hi, 1000 * w + 1, dtype=np.int64).astype(np.int32)
+            ).to(device)
+            for off in (0, 1):
+                tab = flat[off:off + 1000 * w].view(1000, w)
+                got = gp.gp_scalar2(tab, k).to(torch.int64)
+                want = gp.scalar2_plain(tab, k).to(torch.int64)
+                torch.cuda.synchronize()
+                label = (f"W={w} at {tab.data_ptr() % 8} past 8 bytes, "
+                         f"values from {lo}")
+                errs[label] = int((got - want).abs().max().item())
+                if errs[label]:
+                    raise RuntimeError(f"gp_scalar2 differs from its plain "
+                                       f"version on {label}")
+    log(f"gp_scalar2 vs plain at widths {SCALAR2_WIDTHS}, aligned and not, "
+        f"sums that wrap: max_abs_err {max(errs.values())}")
+    return errs
+
+
 def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
           log=print) -> dict:
     """Runs the probe on the current CUDA device.  Returns dict(inputs=...
     (make_inputs), results={kernel: dict(ms, device_ms, plain_ms,
     library_ms, max_abs_err, and but for gp_take_ax0 issue_us,
-    library_issue_us)}, onehot=check_onehot's errors); raises when a
-    kernel differs from its plain version."""
+    library_issue_us)}, onehot=check_onehot's errors, scalar2=
+    check_scalar2's); raises when a kernel differs from its plain
+    version."""
     import torch
     sys.path.insert(0, REPO)
     from bwamem_tpu_torch.ops import gather_probe as gp
@@ -169,7 +208,7 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
         ("gp_scalar", lambda: gp.gp_scalar(tab, k),
          lambda: gp.scalar_plain(tab, k),
          lambda: torch.gather(tab, 0, k64)),
-        ("gp_scalar2", lambda: gp.gp_scalar2(tabw, k, steps),
+        ("gp_scalar2", lambda: gp.gp_scalar2(tabw, k),
          lambda: gp.scalar2_plain(tabw, k), scalar2_sum),
         ("gp_onehot", lambda: gp.gp_onehot(tab3, k),
          lambda: gp.onehot_plain(tab3, k), onehot_gather),
@@ -188,13 +227,14 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
     log("every kernel and library call equals its plain version on every "
         "output")
     onehot = check_onehot(n_lanes, dev, log)
+    scalar2 = check_scalar2(n_lanes, dev, log=log)
 
     results = {}
     for name, kern, plain, lib in cases:
         r = dict(max_abs_err=0, ms=median_ms(kern), device_ms=device_ms(kern),
                  plain_ms=median_ms(plain), library_ms=median_ms(lib))
         results[name] = r
-        per = steps if name in ("gp_scalar2", "gp_take_ax0") else 1
+        per = steps if name == "gp_take_ax0" else 1
         log(f"{name:12s} kernel {r['ms']:9.4f} ms ({r['ms'] / per * 1e3:9.3f}"
             f" us/step), on the device alone {r['device_ms']:9.4f} ms, plain "
             f"{r['plain_ms']:9.4f} ms, library {r['library_ms']:.4f} ms")
@@ -202,7 +242,7 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
             r.update(issue_us=issue_us(kern), library_issue_us=issue_us(lib))
             log(f"{name:12s} host issue {r['issue_us']:.2f} us a call, "
                 f"library {r['library_issue_us']:.2f} us")
-    return dict(inputs=x, results=results, onehot=onehot)
+    return dict(inputs=x, results=results, onehot=onehot, scalar2=scalar2)
 
 
 def main() -> int:

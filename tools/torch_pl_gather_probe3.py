@@ -18,9 +18,10 @@ Tables of the chains are drawn from [0, 2^20), as the TPU probe's: on them
 nearly every chain sits at hi - 1 after its first step.  So each chain
 kernel is also held on a spread input (ops/gather_probe3.spread_inputs:
 values in [-hi, hi], chains that keep moving and meet both ends of the
-clip), and gp3_mm on integer-valued a, b in [-8, 8], where every sum is
-exact.  Each kernel's output must equal its plain PyTorch version exactly
-(gp3_mm on the normal inputs: within ops/gather_probe3.mm_tolerance)
+clip), and 7B also timed there (its gathers then spread over the banks
+of shared memory); gp3_mm on integer-valued a, b in [-8, 8], where every
+sum is exact.  Each kernel's output must equal its plain PyTorch version
+exactly (gp3_mm on the normal inputs: within ops/gather_probe3.mm_tolerance)
 before anything is timed, and so must each library call's; a difference
 exits non-zero.  Times are the median of 5 runs between CUDA events after
 a warm-up, beside the plain version and a PyTorch call computing the same
@@ -134,8 +135,7 @@ def cases(x: dict, steps: int) -> list:
         out.append((f"7B ct [{CT_N},{CT_N}]{sfx}", "gp3_ct",
                     lambda t=tab, k=kk: gp3.gp3_ct(t, k, steps),
                     lambda t=tab, k=kk: gp3.ct_plain(t, k, steps),
-                    lambda t=tab, k=kk: torch_ct(t, k, steps), 0.0,
-                    not sfx))
+                    lambda t=tab, k=kk: torch_ct(t, k, steps), 0.0, True))
     k64 = x["d_k"].long()
     out.append((f"7C col0 x{D_LANES} [{D_ROWS},{D_W}]", "gp3_col0",
                 lambda: gp3.gp3_col0(x["d_tab"], x["d_k"]),
@@ -160,7 +160,7 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
     than the case's tolerance; 7C's result has col0_times' keys.  Each
     kernel launches 12 times a timed case (1 check, 1 warm-up and 5 timed
     calls, then 5 on the device alone; 7C 13255, as probe 2's D), and
-    once an untimed case."""
+    once an untimed case: 7B 24 times (both inputs timed)."""
     import torch
     from torch_pl_gather_probe2 import (col0_times, device_ms, log_col0,
                                         median_ms)
