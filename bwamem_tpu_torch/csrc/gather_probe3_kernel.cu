@@ -6,12 +6,21 @@
 //             kk = clip(kk + take_along_axis(tab, kk, axis), 0, hi - 1),
 //             `steps` times, on tab and kk [S, L], hi = the gathered
 //             axis's size.  An element reads only its column (axis 0) or
-//             its row (axis 1), so a block takes one such line: it stages
-//             the line's hi words in shared memory (32 B for B8, 128 B for
-//             B32, 2 KB a row for C512, whose whole 256 KB table would not
-//             fit in the 227 KB a block may have) and runs the line's
-//             chains, one thread each, every step a dependent shared-memory
-//             load.
+//             its row (axis 1), and its step is a fixed map of its own
+//             state within that line, T(k) = clip(k + line[k], 0, hi - 1)
+//             (the wrap and the clip inside the map).  A fixed map
+//             composes, so the kernel computes the same function in
+//             fewer dependent steps: the powers T^(2^b) by squaring
+//             (T^2(r) = T(T(r))), the state taking T^(2^b) for each set
+//             bit b of `steps`, lowest first (the powers of one map
+//             commute): 512 steps are nine squarings and one lookup.  At
+//             hi up to 32 (B8, B32) a line is a segment of a warp, a lane
+//             a row, T and the state in registers and each lookup a
+//             shuffle within the segment (dg_warp_kernel: 32 / hi lines a
+//             warp rounded up to a power of two, no shared memory and no
+//             barrier); past 32 (C512) a block a line, the powers 16-bit
+//             in two shared-memory buffers in turns, a block barrier a
+//             round (dg_block_kernel).
 //   gp3_ct    (kernel in probe_ct, :79)  a take along axis 1, a transpose
 //             and a second take at the same kk: per step g2[i, j] =
 //             tab[m, kk[m, i]] with m = kk[i, j], then kk = clip(kk + g2,
@@ -62,9 +71,12 @@
 // What bounds them on an H100 (3.35 TB/s; 67 TFLOP/s float32 outside the
 // tensor cores, at 700 W): the chains move kk in and out and the table
 // words they touch (kilobytes to 260 KB), a fraction of a microsecond, so
-// the launch and the dependent steps are what one sees (for gp3_ct on one
-// SM, its shared memory: three accesses an element a step, 16384 elements,
-// at most 32 words a clock); gp3_col0 moves
+// the launch and the dependent steps are what one sees (gp3_dg's 512
+// steps as a chain: 512 dependent loads, 34 cycles each in shared memory
+// by tools/torch_dg_variants.py's chase; doubled: ten rounds of two
+// dependent lookups, so one launch's latency is what is left; for gp3_ct
+// on one SM, its shared memory: three accesses an element a step, 16384
+// elements, at most 32 words a clock); gp3_col0 moves
 // under 100 bytes; gp3_mm's function moves a[:8], b and out (352 KB, 0.1 us)
 // and does 1.4 MFLOP.  The TPU kernel computed 64 whole [1024, 640] x
 // [640, 128] products (10.7 GFLOP); this one computes the function.
@@ -81,6 +93,8 @@
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include "smem.cuh"
 #define GP_HD __device__
 #define GP_LDG(p) __ldg(p)
 #else
@@ -104,6 +118,12 @@ static GP_HD inline int dg_chain(const int* line, long long stride, int k,
                                  int steps, int hi) {
   for (int s = 0; s < steps; ++s) k = clip_step(k, line[k * stride], hi);
   return k;
+}
+
+// gp3_dg's element r of line x (the column at axis 0, the row at axis
+// 1): its flat index in [S, L]
+static GP_HD inline long long dg_elem(int axis, int x, int r, int L) {
+  return axis == 0 ? (long long)r * L + x : (long long)x * L + r;
 }
 
 // element e of the rows [row0, row0 + rows) of an N-column state: column
@@ -139,20 +159,63 @@ static GP_HD inline float mm_elem(const float* __restrict__ a,
 
 #ifdef __CUDACC__
 
+// hi <= 32: a lane a row of a line, a segment of W lanes (a power of two
+// >= hi) a line, 32 / W lines a warp; lanes past hi or past the last line
+// take part in every shuffle and store nothing
 template <int AX>
-__global__ void __launch_bounds__(512)
-gp3_dg_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
-              int* __restrict__ out, int S, int L, int steps) {
-  extern __shared__ int line[];
-  const int hi = AX == 0 ? S : L;
-  const long long x = blockIdx.x;              // the column or the row
-  for (int r = threadIdx.x; r < hi; r += blockDim.x)
-    line[r] = AX == 0 ? tab[r * (long long)L + x] : tab[x * L + r];
-  __syncthreads();
-  for (int r = threadIdx.x; r < hi; r += blockDim.x) {
-    const long long e = AX == 0 ? r * (long long)L + x : x * L + r;
-    out[e] = dg_chain(line, 1, kk0[e], steps, hi);
+__global__ void __launch_bounds__(128)
+dg_warp_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
+               int* __restrict__ out, int S, int L, int steps, int W) {
+  const int hi = AX == 0 ? S : L, lines = AX == 0 ? L : S;
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int x = warp * (32 / W) + lane / W, r = lane & (W - 1);
+  const bool on = x < lines && r < hi;
+  const long long e = on ? dg_elem(AX, x, r, L) : 0;
+  int p = on ? clip_step(r, __ldg(tab + e), hi) : 0;
+  int k = on ? __ldg(kk0 + e) : 0;
+  for (int s = steps; s; s >>= 1) {
+    if (s & 1) k = __shfl_sync(0xffffffffu, p, k, W);
+    if (s >> 1) p = __shfl_sync(0xffffffffu, p, p, W);
   }
+  if (on) out[e] = k;
+}
+
+// hi > 32: a block a line; the power in use and the next one 16-bit in
+// shared memory (2 x hi entries), the states in out (each touched only by
+// its thread, once a set bit)
+template <int AX>
+__global__ void __launch_bounds__(1024)
+dg_block_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
+                int* __restrict__ out, int S, int L, int steps) {
+  extern __shared__ uint16_t dg_sm[];
+  const int hi = AX == 0 ? S : L;
+  const int x = blockIdx.x;
+  uint16_t* cur = dg_sm;
+  uint16_t* nxt = dg_sm + hi;
+  for (int r = threadIdx.x; r < hi; r += blockDim.x)
+    cur[r] = (uint16_t)clip_step(r, __ldg(tab + dg_elem(AX, x, r, L)), hi);
+  __syncthreads();
+  bool first = true;                     // the states are still kk0's
+  for (int s = steps; s; s >>= 1) {
+    for (int r = threadIdx.x; r < hi; r += blockDim.x) {
+      if (s & 1) {
+        const long long e = dg_elem(AX, x, r, L);
+        out[e] = cur[first ? __ldg(kk0 + e) : out[e]];
+      }
+      if (s >> 1) nxt[r] = cur[cur[r]];
+    }
+    first = first && !(s & 1);
+    __syncthreads();
+    uint16_t* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  if (first)
+    for (int r = threadIdx.x; r < hi; r += blockDim.x) {
+      const long long e = dg_elem(AX, x, r, L);
+      out[e] = __ldg(kk0 + e);
+    }
 }
 
 // ---- gp3_ct ----
@@ -340,32 +403,40 @@ gp3_mm_kernel(const float* __restrict__ a, const float* __restrict__ b,
     out[(long long)r * N + c] = mm_elem(a, b, r, c, K, N, reps);
 }
 
-static int smem_opt_in(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // C entries for ctypes: device pointers; each returns cudaGetLastError()
 // after the launch on the caller's stream.  The wrappers in
 // ops/gather_probe3.py check shapes and the shared memory each needs.
+// hi up to 32 the warp design (blocks of 4 warps), past that a block a line
+// with two 16-bit powers of hi entries in shared memory (hi <= 58112, the
+// wrapper's limit, fits: 4 x hi bytes)
 extern "C" int gp3_dg(const int* tab, const int* kk0, int* out, int S, int L,
                       int steps, int axis, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   const int hi = axis == 0 ? S : L, lines = axis == 0 ? L : S;
-  const size_t smem = (size_t)hi * sizeof(int);
-  const int threads = hi < 512 ? (hi + 31) / 32 * 32 : 512;
-  const void* fn = axis == 0 ? (const void*)gp3_dg_kernel<0>
-                             : (const void*)gp3_dg_kernel<1>;
+  if (lines < 1 || hi < 1) return (int)cudaGetLastError();
+  if (hi <= 32) {
+    int W = 1;
+    while (W < hi) W *= 2;
+    const int warps = (lines + 32 / W - 1) / (32 / W);
+    const int blocks = (warps + 3) / 4;
+    if (axis == 0)
+      dg_warp_kernel<0><<<blocks, 128, 0, st>>>(tab, kk0, out, S, L, steps, W);
+    else
+      dg_warp_kernel<1><<<blocks, 128, 0, st>>>(tab, kk0, out, S, L, steps, W);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)2 * hi * sizeof(uint16_t);
+  const int threads = hi < 1024 ? (hi + 31) / 32 * 32 : 1024;
+  const void* fn = axis == 0 ? (const void*)dg_block_kernel<0>
+                             : (const void*)dg_block_kernel<1>;
   const int rc = smem_opt_in(fn, smem);
   if (rc) return rc;
-  if (lines > 0 && hi > 0) {
-    if (axis == 0)
-      gp3_dg_kernel<0><<<lines, threads, smem, (cudaStream_t)stream>>>(
-          tab, kk0, out, S, L, steps);
-    else
-      gp3_dg_kernel<1><<<lines, threads, smem, (cudaStream_t)stream>>>(
-          tab, kk0, out, S, L, steps);
-  }
+  if (axis == 0)
+    dg_block_kernel<0><<<lines, threads, smem, st>>>(tab, kk0, out, S, L,
+                                                     steps);
+  else
+    dg_block_kernel<1><<<lines, threads, smem, st>>>(tab, kk0, out, S, L,
+                                                     steps);
   return (int)cudaGetLastError();
 }
 
@@ -449,6 +520,39 @@ extern "C" int gp3_dg_host(const int* tab, const int* kk0, int* out, int S,
     out[e] = axis == 0 ? dg_chain(tab + j, L, kk0[e], steps, S)
                        : dg_chain(tab + i * L, 1, kk0[e], steps, L);
   }
+  return 0;
+}
+
+// gp3_dg as the card computes it: each line's map T, its powers by
+// squaring and the state taking T^(2^b) for each set bit b of `steps`,
+// lowest first, as dg_warp_kernel (a shuffle at the state: the segment's
+// lane) and dg_block_kernel (a 16-bit power in shared memory) both do
+extern "C" int gp3_dg_double_host(const int* tab, const int* kk0, int* out,
+                                  int S, int L, int steps, int axis) {
+  const int hi = axis == 0 ? S : L, lines = axis == 0 ? L : S;
+  uint16_t* cur = (uint16_t*)malloc((size_t)2 * hi * sizeof(uint16_t));
+  if (!cur) return 2;
+  uint16_t* nxt = cur + hi;
+  for (int x = 0; x < lines; ++x) {
+    uint16_t* p = cur;
+    uint16_t* q = nxt;
+    for (int r = 0; r < hi; ++r) {
+      const long long e = dg_elem(axis, x, r, L);
+      p[r] = (uint16_t)clip_step(r, tab[e], hi);
+      out[e] = kk0[e];
+    }
+    for (int s = steps; s; s >>= 1) {
+      for (int r = 0; r < hi; ++r) {
+        const long long e = dg_elem(axis, x, r, L);
+        if (s & 1) out[e] = p[out[e]];
+        if (s >> 1) q[r] = p[p[r]];
+      }
+      uint16_t* t = p;
+      p = q;
+      q = t;
+    }
+  }
+  free(cur);
   return 0;
 }
 

@@ -33,16 +33,38 @@
 //   gp_take_ax0  (kernel_dg, :151)      a chained take_along_axis along axis
 //                0 over the whole table: kk = (kk + tab[kk, j]) mod R,
 //                `steps` times, on [R,128] (the probe seeds the first N/128
-//                rows with k and the rest with 0).  One thread per element,
-//                j the fast index, so a warp's first loads read 32 adjacent
-//                words of a row; the add wraps in 32 bits and the remainder
-//                is never negative (jnp's %).
+//                rows with k and the rest with 0); the add wraps in 32 bits
+//                and the remainder is never negative (jnp's %).  A step of
+//                column j is a fixed map of the state, T_j(k) = (k +
+//                tab[k, j]) mod R, so the kernel takes the map once a
+//                launch and a step is one dependent load: the same
+//                function, the wrap and the sign of the remainder inside
+//                the map.  Where column j's map fits in shared memory (R up
+//                to 109376, take_col_smem: 16 low bits a row and a bitmap
+//                of bit 16) the column design, three launches through a
+//                scratch from the wrapper: take_in_kernel writes each
+//                column's map and kk0 by columns (a tile of 32 x 32
+//                transposed in shared memory, so both sides stay
+//                coalesced); take_col_kernel, a block of 1024 threads a
+//                column, copies the column's map into shared memory and
+//                runs every chain of the column there, each step a 16-bit
+//                and a 1-bit shared load at the state; take_out_kernel
+//                writes the ends back by rows.  Past that R the design it
+//                replaced (gp_take_ax0_kernel): a thread an element, j the
+//                fast index, each step a load of tab and next_k.
 //
 // What bounds them on an H100 (3.35 TB/s at 700 W): bytes.  gp_scalar and
 // gp_scalar2 move ~100 KB (k, the touched words, out), a fraction of a
 // microsecond, and gp_onehot ~97 KB at N = 8192 (k, out and the touched
 // words: 0.000029 ms), so a launch's own latency is all one sees;
-// gp_take_ax0 moves 120 MB (table, kk in, kk out), ~0.036 ms.
+// gp_take_ax0 moves 80.6 MB on the probe's input (kk in, kk out and the
+// table words the chains touch), 0.024 ms.  Its chains are what hold it:
+// each step's load depends on the step before, and on an input whose
+// chains do not share a state (every row its own start) each load in
+// device memory is a scattered 32-byte sector from a 40 MB table, 160 M of
+// them at R = 78208 and 16 steps.  The column design keeps every load of
+// a chain in its SM's shared memory and moves tab, kk and out in
+// coalesced passes (about 320 MB in all, the scratch included).
 //
 // gp_scalar and gp_scalar2 load through the read-only path (__ldg).
 //
@@ -50,10 +72,13 @@
 // loops of all four as *_host entries, so the CPU tests check their
 // arithmetic without a card.
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include "smem.cuh"
 #define GP_HD __device__
 #define GP_LDG(p) __ldg(p)
 #define GP_F2U(f) __float_as_uint(f)
@@ -120,12 +145,64 @@ static GP_HD inline int next_k(int k, int g, int R) {
   return r < 0 ? r + R : r;
 }
 
-// element e = r * 128 + j of gp_take_ax0
+// element e = r * 128 + j of gp_take_ax0, step by step
 static GP_HD inline int take_lane(const int* __restrict__ tab, int kk, int j,
                                   int steps, int R) {
   for (int s = 0; s < steps; ++s)
     kk = next_k(kk, GP_LDG(tab + (long long)kk * 128 + j), R);
   return kk;
+}
+
+// ---- gp_take_ax0's designs ----
+
+#define TAKE_SMEM_MAX 232448  // bytes of shared memory a block may opt into
+#define TAKE_COL_P 1024       // take_col_kernel: threads of a column's block
+#define TAKE_COL_E 4          // ... chains a thread has in flight
+
+// The column design's scratch (from the wrapper), at Rp = R rounded up to
+// 32: kk0 by columns (kkt, [128, Rp] words), the chains' ends by columns
+// (outt, [128, Rp]), each column's map as its 16 low bits (lo, [128, Rp]
+// 16-bit) and a bitmap of its bit 16 (hib, [128, Rp / 32] words): 324 Rp
+// words in all.
+struct TakeScratch {
+  int* kkt;
+  int* outt;
+  uint16_t* lo;
+  uint32_t* hib;
+  int Rp;
+};
+
+static GP_HD inline TakeScratch take_scratch(int* base, int R) {
+  TakeScratch t;
+  t.Rp = (R + 31) / 32 * 32;
+  t.kkt = base;
+  t.outt = base + (long long)128 * t.Rp;
+  t.lo = reinterpret_cast<uint16_t*>(base + (long long)256 * t.Rp);
+  t.hib = reinterpret_cast<uint32_t*>(base + (long long)320 * t.Rp);
+  return t;
+}
+
+// shared memory of take_col_kernel: the column's lo (2 Rp bytes), then its
+// hib (Rp / 8 bytes)
+static inline size_t take_col_smem(int R) {
+  const size_t rp = (size_t)(R + 31) / 32 * 32;
+  return 2 * rp + rp / 8;
+}
+
+// The int32 words of gp_take_ax0's scratch at R rows, which the wrapper
+// allocates: take_scratch's where the column's map fits a block's shared
+// memory (R from 1 to 109376), else 0 (the C entry then takes the design
+// the column design replaced, which needs none).  Both builds export it,
+// so the design is chosen here alone.
+extern "C" long long gp_take_ax0_scratch_words(int R) {
+  if (R < 1 || take_col_smem(R) > TAKE_SMEM_MAX) return 0;
+  return (long long)324 * ((R + 31) / 32 * 32);
+}
+
+// the column's map at state k: its 16 low bits and bit 16 (R <= 2^17)
+static GP_HD inline int take_col_map(const uint16_t* lo, const uint32_t* hib,
+                                     int k) {
+  return (int)lo[k] | (int)((hib[k >> 5] >> (k & 31)) & 1u) << 16;
 }
 
 // f rounded to bfloat16, to nearest even, returned as a float: add 0x7fff,
@@ -168,6 +245,88 @@ gp_scalar2_kernel(const int* __restrict__ tab, const int* __restrict__ k,
   if (q < N) out[q] = scalar2_lane<PAIR>(tab, k, q, W);
 }
 
+// Pass 1, a block a tile of 32 rows x 32 columns (eight warps, a lane a
+// column on the way in and a row on the way out): T = (r + tab[r, c]) mod
+// R into lo and hib (bit 16 of 32 rows by one ballot), kk0 into kkt, both
+// by columns; rows past R give 0.
+__global__ void __launch_bounds__(256)
+take_in_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
+               int* __restrict__ scratch, int R) {
+  __shared__ int tt[32][33], tk[32][33];
+  const TakeScratch sc = take_scratch(scratch, R);
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int i = w; i < 32; i += 8) {
+    const int r = r0 + i, e = r * 128 + c0 + lane;
+    tt[i][lane] = r < R ? next_k(r, __ldg(tab + e), R) : 0;
+    tk[i][lane] = r < R ? __ldg(kk0 + e) : 0;
+  }
+  __syncthreads();
+  for (int i = w; i < 32; i += 8) {
+    const long long at = (long long)(c0 + i) * sc.Rp + r0 + lane;
+    const int v = tt[lane][i];
+    sc.lo[at] = (uint16_t)v;
+    const uint32_t b = __ballot_sync(0xffffffffu, (v >> 16) & 1);
+    if (lane == 0) sc.hib[(long long)(c0 + i) * (sc.Rp / 32) + r0 / 32] = b;
+    sc.kkt[at] = tk[lane][i];
+  }
+}
+
+// Pass 2, one block a column j: its lo and hib copied into shared memory
+// (16 bytes a thread), then every chain of the column from kkt, TAKE_COL_E
+// a thread in flight, each step take_col_map, the ends into outt.
+__global__ void __launch_bounds__(TAKE_COL_P, 1)
+take_col_kernel(int* __restrict__ scratch, int R, int steps) {
+  extern __shared__ uint4 take_sm[];
+  const TakeScratch sc = take_scratch(scratch, R);
+  const int j = blockIdx.x, Rp = sc.Rp;
+  uint16_t* lo = reinterpret_cast<uint16_t*>(take_sm);
+  uint32_t* hib = reinterpret_cast<uint32_t*>(lo + Rp);
+  const uint4* lo_g = reinterpret_cast<const uint4*>(sc.lo + (long long)j * Rp);
+  for (int i = threadIdx.x; i < Rp / 8; i += TAKE_COL_P) take_sm[i] = lo_g[i];
+  const uint32_t* hib_g = sc.hib + (long long)j * (Rp / 32);
+  for (int i = threadIdx.x; i < Rp / 32; i += TAKE_COL_P) hib[i] = hib_g[i];
+  __syncthreads();
+  const int* kkt = sc.kkt + (long long)j * Rp;
+  int* outt = sc.outt + (long long)j * Rp;
+  for (int r0 = threadIdx.x; r0 < Rp; r0 += TAKE_COL_P * TAKE_COL_E) {
+    int k[TAKE_COL_E];
+#pragma unroll
+    for (int c = 0; c < TAKE_COL_E; ++c) {
+      const int r = r0 + c * TAKE_COL_P;
+      k[c] = r < Rp ? kkt[r] : 0;
+    }
+    for (int s = 0; s < steps; ++s) {
+#pragma unroll
+      for (int c = 0; c < TAKE_COL_E; ++c) k[c] = take_col_map(lo, hib, k[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < TAKE_COL_E; ++c) {
+      const int r = r0 + c * TAKE_COL_P;
+      if (r < Rp) outt[r] = k[c];
+    }
+  }
+}
+
+// Pass 3, a block a tile of 32 rows x 32 columns: outt back by rows.
+__global__ void __launch_bounds__(256)
+take_out_kernel(const int* __restrict__ scratch, int* __restrict__ out,
+                int R) {
+  __shared__ int t[32][33];
+  const TakeScratch sc = take_scratch(const_cast<int*>(scratch), R);
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int i = w; i < 32; i += 8)
+    t[i][lane] = sc.outt[(long long)(c0 + i) * sc.Rp + r0 + lane];
+  __syncthreads();
+  for (int i = w; i < 32; i += 8) {
+    const int r = r0 + i;
+    if (r < R) out[r * 128 + c0 + lane] = t[lane][i];
+  }
+}
+
+// Past the column design's R: a thread an element, j the fast index (the
+// design the column design replaced).
 __global__ void __launch_bounds__(128)
 gp_take_ax0_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
                    int* __restrict__ out, long long n, int steps, int R) {
@@ -214,12 +373,27 @@ extern "C" int gp_onehot(const int* tab3, const int* k, int* out, int N,
   return (int)cudaGetLastError();
 }
 
-extern "C" int gp_take_ax0(const int* tab, const int* kk0, int* out, int R,
-                           int steps, void* stream) {
-  const long long n = (long long)R * 128;
-  if (n > 0)
-    gp_take_ax0_kernel<<<(unsigned)((n + 127) / 128), 128, 0,
-                         (cudaStream_t)stream>>>(tab, kk0, out, n, steps, R);
+// where gp_take_ax0_scratch_words(R) is not 0 the column design, its three
+// passes through `scratch` (that many words; a null scratch there is
+// refused), else gp_take_ax0_kernel (scratch unused)
+extern "C" int gp_take_ax0(const int* tab, const int* kk0, int* out,
+                           int* scratch, int R, int steps, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (R < 1) return (int)cudaGetLastError();
+  if (gp_take_ax0_scratch_words(R)) {
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    const size_t smem = take_col_smem(R);
+    const int rc = smem_opt_in((const void*)take_col_kernel, smem);
+    if (rc) return rc;
+    const dim3 tiles((R + 31) / 32, 4);
+    take_in_kernel<<<tiles, 256, 0, st>>>(tab, kk0, scratch, R);
+    take_col_kernel<<<128, TAKE_COL_P, smem, st>>>(scratch, R, steps);
+    take_out_kernel<<<tiles, 256, 0, st>>>(scratch, out, R);
+  } else {
+    const long long n = (long long)R * 128;
+    gp_take_ax0_kernel<<<(unsigned)((n + 127) / 128), 128, 0, st>>>(
+        tab, kk0, out, n, steps, R);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -254,6 +428,45 @@ extern "C" int gp_take_ax0_host(const int* tab, const int* kk0, int* out,
   const long long n = (long long)R * 128;
   for (long long e = 0; e < n; ++e)
     out[e] = take_lane(tab, kk0[e], (int)(e & 127), steps, R);
+  return 0;
+}
+
+// gp_take_ax0's column design as the card runs it: its three passes
+// through a scratch laid out as the card's, each element written as the
+// card's kernels write it (the map and kk0 by columns, every chain of a
+// column through take_col_map, the ends back by rows).  Returns 1 at an R
+// where gp_take_ax0_scratch_words is 0 (the C entry then takes
+// gp_take_ax0_kernel, whose lane gp_take_ax0_host runs), 2 when the
+// scratch cannot be allocated.
+extern "C" int gp_take_ax0_lanes_host(const int* tab, const int* kk0, int* out,
+                                      int R, int steps) {
+  const long long words = gp_take_ax0_scratch_words(R);
+  if (!words) return 1;
+  int* base = (int*)calloc((size_t)words, 4);
+  if (!base) return 2;
+  const TakeScratch sc = take_scratch(base, R);
+  for (int c = 0; c < 128; ++c)                       // pass 1
+    for (int r = 0; r < sc.Rp; ++r) {
+      const long long at = (long long)c * sc.Rp + r;
+      const int v = r < R ? next_k(r, tab[r * 128 + c], R) : 0;
+      sc.lo[at] = (uint16_t)v;
+      sc.hib[(long long)c * (sc.Rp / 32) + r / 32] |=
+          (uint32_t)((v >> 16) & 1) << (r & 31);
+      sc.kkt[at] = r < R ? kk0[r * 128 + c] : 0;
+    }
+  for (int j = 0; j < 128; ++j) {                     // pass 2
+    const uint16_t* lo = sc.lo + (long long)j * sc.Rp;
+    const uint32_t* hib = sc.hib + (long long)j * (sc.Rp / 32);
+    for (int r = 0; r < sc.Rp; ++r) {
+      int k = sc.kkt[(long long)j * sc.Rp + r];
+      for (int s = 0; s < steps; ++s) k = take_col_map(lo, hib, k);
+      sc.outt[(long long)j * sc.Rp + r] = k;
+    }
+  }
+  for (int r = 0; r < R; ++r)                         // pass 3
+    for (int c = 0; c < 128; ++c)
+      out[r * 128 + c] = sc.outt[(long long)c * sc.Rp + r];
+  free(base);
   return 0;
 }
 

@@ -14,7 +14,14 @@ the reference package's tools/pl_gather_probe.py:
                                      this gather, and so does the kernel,
                                      one load a lane
   gp_take_ax0  (kernel_dg, :151)     kk = (kk + tab[kk, j]) mod R, `steps`
-                                     times, over a table-shaped kk [R, 128]
+                                     times, over a table-shaped kk [R, 128];
+                                     the kernel takes each column's step as
+                                     a map once a launch, in shared memory
+                                     where the map fits (a block a column,
+                                     three launches through a scratch the
+                                     wrapper allocates at the size the
+                                     library gives), past that a thread an
+                                     element
 
 k is int32 [N/128, 128] (N lanes, lane q at row q // 128, column q % 128);
 every table is int32.  gp_scalar and gp_scalar2 compute one pass: their
@@ -42,18 +49,23 @@ import torch
 from bwamem_tpu_torch.ops.launch import Library
 
 COLS = 128                  # columns of k, tab and tab3; lanes per k row
-# (in, in, out, ints): (N) for gp_scalar, (N, W) for gp_scalar2, (N, A)
-# for gp_onehot, (R, steps) for gp_take_ax0
+# kernels one gp_take_ax0 call launches where it takes the column design
+# (take_in_kernel, take_col_kernel, take_out_kernel: a scratch is needed);
+# one elsewhere.  launches_take counts calls.
+TAKE_COL_KERNELS = 3
+# (pointers, ints): (tab, k, out; N) for gp_scalar, (...; N, W) for
+# gp_scalar2, (...; N, A) for gp_onehot, (tab, kk, out, scratch; R, steps)
+# for gp_take_ax0
 LIB = Library("gather_probe_kernel.cu", {
-    name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int
-    for name, n_int in (("gp_scalar", 1), ("gp_scalar2", 2),
-                        ("gp_onehot", 2), ("gp_take_ax0", 2))})
+    name: [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+    for name, n_ptr, n_int in (("gp_scalar", 3, 1), ("gp_scalar2", 3, 2),
+                               ("gp_onehot", 3, 2), ("gp_take_ax0", 4, 2))})
 SRC = LIB.src
 
 launches_scalar = 0     # kernel launches by gp_scalar (CUDA tensors)
 launches_scalar2 = 0    # ... by gp_scalar2
 launches_onehot = 0     # ... by gp_onehot
-launches_take = 0       # ... by gp_take_ax0
+launches_take = 0       # ... by gp_take_ax0 (calls: see TAKE_COL_KERNELS)
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -113,6 +125,36 @@ def onehot_inputs(case: str, A: int = 8, n: int = 256, seed: int = 3):
         k[0, 16:22] = (0, A * 128 - 1, A * 128, -1, -(1 << 31),
                        (1 << 31) - 1)
     return tab3, k
+
+
+TAKE_KINDS = ("probe", "spread", "wrap")
+
+
+def take_inputs(kind: str, R: int = 78208, n_lanes: int = 8192,
+                seed: int = 0, device="cpu"):
+    """(tab, kk) int32 [R, 128] for gp_take_ax0, drawn from `seed`:
+    "probe", tab in [0, 2^20) and kk zero past its first n_lanes / 128
+    rows, which hold lanes in [0, R), as the TPU script seeds its
+    table-shaped indices (so the chains of rows past them share one state
+    a column); "spread", the same table and every row of kk drawn from
+    [0, R) (chains that share no state); "wrap", tab within 4096 of
+    +-2^31 (even rows negative) and kk as "spread", so that adds wrap in
+    int32 and remainders go negative before the sign fix."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = (((1 << 31) - 4096, 1 << 31) if kind == "wrap"
+              else (0, 1 << 20))
+    tab = rng.integers(lo, hi, (R, 128), dtype=np.int64).astype(np.int32)
+    if kind == "wrap":
+        tab[::2] = -tab[::2]
+    if kind == "probe":
+        kk = np.zeros((R, 128), np.int32)
+        kk[:n_lanes // 128] = rng.integers(0, R, (n_lanes // 128, 128),
+                                           dtype=np.int32)
+    else:
+        kk = rng.integers(0, R, (R, 128), dtype=np.int32)
+    return (torch.from_numpy(tab).to(device),
+            torch.from_numpy(kk).to(device))
 
 
 def take_ax0_plain(tab: torch.Tensor, kk: torch.Tensor,
@@ -182,6 +224,14 @@ def _prep_take(tab, kk, steps):
                  int(steps))
 
 
+def take_scratch_words(R: int) -> int:
+    """int32 words of the scratch gp_take_ax0 needs at R rows, as the CUDA
+    library gives them (gp_take_ax0_scratch_words: the column design's
+    where its map fits a block's shared memory, else 0, and the C entry
+    then takes a design that needs none)."""
+    return LIB.value("gp_take_ax0_scratch_words", R)
+
+
 def _launch(name: str, out: torch.Tensor, args: tuple) -> torch.Tensor:
     LIB.launch(name, out.get_device(), args)
     return out
@@ -228,6 +278,10 @@ def gp_take_ax0(tab: torch.Tensor, kk: torch.Tensor,
     if not tab.is_cuda:
         return take_ax0_plain(tab, kk, steps)
     global launches_take
-    out = _launch("gp_take_ax0", *_prep_take(tab, kk, steps))
+    out, (t, k, o, R, n) = _prep_take(tab, kk, steps)
+    words = take_scratch_words(R)
+    scratch = kk.new_empty(words) if words else None
+    _launch("gp_take_ax0", out, (t, k, o, scratch.data_ptr() if words else 0,
+                                 R, n))
     launches_take += 1
     return out

@@ -6,7 +6,11 @@ tools/pl_gather_probe3.py, which maps what a gather costs in a kernel:
 
   gp3_dg    (dg_probe, :56)   kk = clip(kk + take_along_axis(tab, kk, axis),
                               0, hi - 1), `steps` times; tab and kk int32
-                              [S, L], hi = tab.shape[axis]
+                              [S, L], hi = tab.shape[axis]; the kernel
+                              takes a line's step as a map and composes it
+                              (the powers by squaring: 512 steps in ten
+                              rounds), a line a segment of a warp at hi up
+                              to 32, a block past that
   gp3_ct    (probe_ct, :79)   per step g = take_along_axis(tab, kk, 1),
                               g2 = take_along_axis(g.T, kk, 1), kk =
                               clip(kk + g2, 0, N - 1); tab and kk int32
@@ -141,25 +145,33 @@ def mm_tolerance(a: torch.Tensor, b: torch.Tensor, reps: int = MM_REPS,
     return 2 * reps * (K * u * S + reps * u * S)
 
 
-CT_KINDS = ("probe", "spread", "wrap")
+CT_KINDS = ("probe", "spread", "wrap")       # of dg_inputs and ct_inputs
+
+
+def dg_inputs(kind: str, S: int, L: int, axis: int, seed: int,
+              device="cpu"):
+    """(tab, kk) int32 [S, L] for gp3_dg along `axis` (hi = (S, L)[axis]):
+    "probe", tab in [0, 2^20) as the TPU script draws it (every chain at
+    hi - 1 after a step); "spread", spread_inputs; "wrap", tab within 64
+    of +-2^31 (even rows negative), so that every add wraps in int32.  kk
+    in [0, hi)."""
+    import numpy as np
+    if kind == "spread":
+        return spread_inputs(seed, S, L, axis, device)
+    rng = np.random.default_rng(seed)
+    lo, hi = {"probe": (0, 1 << 20), "wrap": ((1 << 31) - 64, 1 << 31)}[kind]
+    tab = rng.integers(lo, hi, (S, L), dtype=np.int64).astype(np.int32)
+    if kind == "wrap":
+        tab[::2] = -tab[::2]
+    kk = rng.integers(0, (S, L)[axis], (S, L), dtype=np.int32)
+    return (torch.from_numpy(tab).to(device),
+            torch.from_numpy(kk).to(device))
 
 
 def ct_inputs(kind: str, N: int, seed: int, device="cpu"):
-    """(tab, kk) int32 [N, N] for gp3_ct: "probe", tab in [0, 2^20) as
-    the TPU script draws it (every chain at N - 1 after a step); "spread",
-    spread_inputs; "wrap", tab within 64 of +-2^31 (even rows negative),
-    so that every add wraps in int32.  kk in [0, N)."""
-    import numpy as np
-    if kind == "spread":
-        return spread_inputs(seed, N, N, 1, device)
-    rng = np.random.default_rng(seed)
-    lo, hi = {"probe": (0, 1 << 20), "wrap": ((1 << 31) - 64, 1 << 31)}[kind]
-    tab = rng.integers(lo, hi, (N, N), dtype=np.int64).astype(np.int32)
-    if kind == "wrap":
-        tab[::2] = -tab[::2]
-    kk = rng.integers(0, N, (N, N), dtype=np.int32)
-    return (torch.from_numpy(tab).to(device),
-            torch.from_numpy(kk).to(device))
+    """(tab, kk) int32 [N, N] for gp3_ct: dg_inputs at [N, N] along axis
+    1 (the probe's table, spread_inputs, or adds that wrap)."""
+    return dg_inputs(kind, N, N, 1, seed, device)
 
 
 def spread_inputs(seed: int, S: int, L: int, axis: int, device="cpu"):

@@ -79,6 +79,8 @@ class Library:
         self.entries = entries
         self.flags = list(flags)
         self._fns = None
+        self._cdll = None
+        self._values = {}
         self._lock = threading.Lock()
 
     def load(self) -> dict:
@@ -97,8 +99,22 @@ class Library:
                         fn.restype = ctypes.c_int
                         fn.argtypes = [*argtypes, ctypes.c_void_p]
                         fns[name] = fn
+                    self._cdll = lib
                     self._fns = fns
         return self._fns
+
+    def value(self, entry: str, *ints: int) -> int:
+        """entry(*ints) of a C entry that launches nothing and returns a
+        long long the library computes (a size), building the library at
+        the first call."""
+        fn = self._values.get(entry)
+        if fn is None:
+            self.load()
+            fn = getattr(self._cdll, entry)
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = [ctypes.c_int] * len(ints)
+            self._values[entry] = fn
+        return int(fn(*ints))
 
     def launch(self, entry: str, index: int, args: tuple,
                name: str | None = None) -> None:

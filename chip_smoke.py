@@ -53,7 +53,10 @@ Three phases; any failure exits non-zero without printing a result.
    (ops/gather_probe.onehot_inputs), at their size and at the probe's,
    and gp_scalar2 at row widths 2, 3, 7 and 8, at a table off an 8-byte
    boundary and on sums that wrap (check_scalar2: its 8-byte and its two
-   4-byte loads).
+   4-byte loads).  gp_take_ax0 is also timed on a spread input (every row
+   of kk its own start: its chains share no state; the probe's share one
+   a column past the lanes' rows) and held on a table whose adds wrap
+   (ops/gather_probe.take_inputs).
 2c. Round 2 of the gather probe (tools/torch_pl_gather_probe2.py) at the
    TPU script's defaults (32 steps; B on [512,128], C on [128,128] and
    [8,128], D on 1024 lanes of a [78208,8] table, E with Q = 1024 and
@@ -69,7 +72,8 @@ Three phases; any failure exits non-zero without printing a result.
    chain on [128,128], 8 lanes of a [78208,8] table, 64 additions of
    rows :8 of a [1024,640] x [640,128] float32 product): gp3_dg, gp3_ct,
    gp3_col0 and gp3_mm, the same way, and the chains also on spread
-   tables (values in [-hi, hi]: the probe's saturate after one step),
+   tables (values in [-hi, hi]: the probe's saturate after one step;
+   gp3_dg timed there too) and gp3_dg on tables whose adds wrap,
    gp3_mm exact on integer-valued inputs and within its rounding bound on
    the probe's normal ones.  gp3_ct is timed on its spread input too
    (the chains keep moving there), held at N = 128, 139, 33 and 1 on the
@@ -77,6 +81,16 @@ Three phases; any failure exits non-zero without printing a result.
    the cluster of 16 blocks, at the other N the one block), and timed
    on the device alone in turns with the design it replaced
    (tools/torch_ct_variants.py, which alone times the other designs).
+   gp_take_ax0 and gp3_dg are held on the probe's, spread and wrapping
+   inputs after 0, 1, 5 and 16 steps (5d, at the probe's R, where it
+   takes its column design, and at R 1, 33, 1000, 109376 and 109377, the
+   first R where it takes a thread an element) and 0, 1, 37, 511 and 512
+   (7A, its three shapes and lines of 1, 5, 40, 1000 and 2000 words: the
+   warp design and the block design), ptxas's registers and spills of
+   both shipped designs printed (a spill fails the run), then each timed
+   on the device alone in turns with the design it replaced on the
+   probe's and the spread input (tools/torch_dg_variants.py, which alone times the
+   other designs).
    The column-0 gathers of 2c and 2d (D, gp2_col0, and gp3_col0: one
    kernel, csrc/col0.cuh) are timed as 200 back-to-back calls, on the
    device alone and on the host clock, in turns with tab[k, 0]; then
@@ -291,6 +305,7 @@ def phase_env():
     from bwamem_tpu_torch.ops import (dispatch_probe, ext_kernel, fm_probe,
                                       gather_probe, gather_probe2,
                                       gather_probe3, int_rate, pl_probe)
+    import torch_dg_variants
     errors = []
 
     def build(name, fn):
@@ -317,6 +332,8 @@ def phase_env():
         ("dispatch_probe_kernel.cu (nvcc sm_90a)", dispatch_probe.LIB.load),
         ("pl_probe_kernel.cu, five variants (nvcc sm_90a)", pl_probe.LIB.load),
         ("int_rate_kernel.cu, five mixes (nvcc sm_90a)", int_rate.LIB.load),
+        ("tools/dg_variants.cu, the 5d and 7A designs weighed (nvcc "
+         "sm_90a)", torch_dg_variants.library),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -826,16 +843,33 @@ def phase_launch_path():
                            "with its plain version")
 
 
-def gp_bound(name, x, steps):
+def chain_ops(words, elems, steps):
+    """The int32 operations of `steps` steps of a chain whose step is a
+    fixed map of the element's state within its line (5d and 7A), for
+    elems chains over tables of `words` words in all: the fewer of the
+    step-by-step chain's (gather, add, remainder or clip: 3 a step an
+    element) and the composed map's (the map taken once, 3 a word; a
+    squaring, T^2 = T[T], 2 a word a round, bit_length(steps) - 1 rounds;
+    one lookup an element for each set bit of steps)."""
+    if steps == 0:
+        return 0
+    composed = (3 * words + 2 * words * (steps.bit_length() - 1)
+                + elems * bin(steps).count("1"))
+    return min(3 * elems * steps, composed)
+
+
+def gp_bound(name, x, steps, sfx=""):
     """Least time the card could take for one gather-probe kernel on the
-    probe's inputs x: (bound_ms, bound_by, bytes, operations).  Bytes: k
+    probe's inputs x (gp_take_ax0 on tab<sfx> and kfull<sfx>: "" the
+    probe's, "_spread" the spread input): (bound_ms, bound_by, bytes).  Bytes: k
     (or the take's kk) read once, the output written once, and of each
     table only the words these indices touch (computed from the data: a
     word read again, in a later pass or by another lane, is not counted).
     gp_onehot's function is the gather out[q] = bf16(tab3[k >> 7,
     k & 127]) (0 outside the table), so it is priced as that gather, not
-    as the one-hot product.  Operations: the int32 work (address, add,
-    remainder) at the int32 rate."""
+    as the one-hot product.  Operations: the int32 work at the int32
+    rate (gp_take_ax0: chain_ops, the fewer of the step-by-step chain's
+    and the composed map's)."""
     import torch
     k = x["k"].reshape(-1).to(torch.int64)
     n = k.numel()
@@ -851,7 +885,7 @@ def gp_bound(name, x, steps):
             k[(k >= 0) & (k < x["tab3"].numel())]).numel())
         t_ops = n * 2 / PEAK_INT32_OPS * 1e3
     else:
-        tab, kk = x["tab"], x["kfull"].to(torch.int64)
+        tab, kk = x["tab" + sfx], x["kfull" + sfx].to(torch.int64)
         R = tab.shape[0]
         touched = torch.zeros(tab.shape, dtype=torch.bool, device=tab.device)
         col = torch.arange(128, device=tab.device)[None, :].expand_as(kk)
@@ -859,7 +893,8 @@ def gp_bound(name, x, steps):
             touched[kk, col] = True
             kk = torch.remainder(kk + tab.gather(0, kk).to(torch.int64), R)
         nbytes = 4 * (2 * kk.numel() + int(touched.sum()))
-        t_ops = kk.numel() * steps * 3 / PEAK_INT32_OPS * 1e3
+        t_ops = chain_ops(tab.numel(), kk.numel(), steps) \
+            / PEAK_INT32_OPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else
             "bytes", int(nbytes))
@@ -931,6 +966,25 @@ def phase_gather_probe():
             e["max_abs_err_by_input"] = res["onehot"]
         if name == "gp_scalar2":           # odd widths, unaligned, wrapping
             e["max_abs_err"] = max(err, *res["scalar2"].values())
+        if name == "gp_take_ax0":          # chains that share no state
+            # launches counts calls; a call at the probe's R launches the
+            # column design's three kernels
+            e["kernels_a_call"] = (
+                gp.TAKE_COL_KERNELS
+                if gp.take_scratch_words(x["tab"].shape[0]) else 1)
+            rs = res["results"]["gp_take_ax0_spread"]
+            b_s, by_s, nb_s = gp_bound(name, x, GP_STEPS, "_spread")
+            e.update(ms_spread=rs["ms"], device_ms_spread=rs["device_ms"],
+                     plain_ms_spread=rs["plain_ms"],
+                     library_ms_spread=rs["library_ms"],
+                     bound_ms_spread=b_s, bound_by_spread=by_s)
+            log(f"gp_take_ax0: {launches[name]} calls, "
+                f"{e['kernels_a_call']} kernels a call")
+            log(f"gp_take_ax0 spread input: kernel {rs['ms']:.4f} ms "
+                f"(device alone {rs['device_ms']:.4f}), plain "
+                f"{rs['plain_ms']:.4f} ms, library {rs['library_ms']:.4f} "
+                f"ms, bytes {nb_s}, bound {b_s:.6f} ms ({by_s}), device "
+                f"time / bound {rs['device_ms'] / b_s:.1f}")
         entries.append(e)
     return entries
 
@@ -1124,8 +1178,12 @@ def gp3_bound(name, x):
     kernel on the inputs x (a dict of tab, kk | k | a, b): (bound_ms,
     bound_by, bytes), as gp2_bound counts it.  The chains: kk read once
     and written once, and the table words the chain touches over its
-    steps (computed from the data, each counted once); 3 int32
-    operations a step (gather, add, clip) and 4 for gp3_ct (two loads).
+    steps (computed from the data, each counted once); gp3_dg's int32
+    operations chain_ops (its step is a fixed map of the line, so the
+    composed map's count where that is fewer: 22 an element at 512
+    steps, against 3 a step for the step-by-step chain), gp3_ct's 4 a
+    step (two loads: its step reads the whole state, so it does not
+    compose).
     gp3_col0: k, out and the touched words.  gp3_mm: the function's
     bytes, a[:8], b and out, and its float32 operations, 2 x 8 x K x N
     for the product's 8 rows and 64 x 8 x N adds."""
@@ -1153,16 +1211,16 @@ def gp3_bound(name, x):
                 else:
                     touched[other, kk] = True
                 kk = (kk + tab.gather(axis, kk)).clamp(0, hi - 1)
-            per_step = 3
+            ops = chain_ops(tab.numel(), kk.numel(), GP3_STEPS)
         else:
             N = tab.shape[0]
             for _ in range(GP3_STEPS):
                 col = kk.t().gather(1, kk)          # kk[m, i], m = kk[i, j]
                 touched[kk, col] = True
                 kk = (kk + tab[kk, col]).clamp(0, N - 1)
-            per_step = 4
+            ops = kk.numel() * GP3_STEPS * 4
         nbytes = 4 * (2 * kk.numel() + int(touched.sum()))
-        t_ops = kk.numel() * GP3_STEPS * per_step / PEAK_INT32_OPS * 1e3
+        t_ops = ops / PEAK_INT32_OPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else
             "bytes", int(nbytes))
@@ -1216,8 +1274,9 @@ def phase_gather_probe3():
         lambda d: gp3.mm_plain(d["a"], d["b"]), 125)
     extra = {lab: err for lab, (err, _) in res["checks"].items()
              if lab not in res["results"]}
-    log(f"gather probe 3, the extra inputs (spread tables; integer-valued "
-        f"a, b for 7D), kernel vs plain max_abs_err: {extra}")
+    log(f"gather probe 3, the extra inputs (7A's wrapping tables; "
+        f"integer-valued a, b for 7D), kernel vs plain max_abs_err: "
+        f"{extra}")
     if any(extra.values()):
         raise RuntimeError("a round-3 kernel disagrees with its plain "
                            "version on an extra input")
@@ -1237,13 +1296,32 @@ def phase_gather_probe3():
             f"time / bound {r['device_ms'] / bound_ms:.1f}")
         if err > r["tolerance"]:
             raise RuntimeError(f"{label} disagrees with its plain version")
+        if name == "gp3_dg":                      # also where chains move
+            tag = label.split()[2]
+            sfx = "" if tag == "B8" else "_" + tag.lower()
+            rs = res["results"][label + "_spread"]
+            b_s, by_s, nb_s = gp3_bound(name, dict(
+                tab=x[f"{tag}_tab_spread"], kk=x[f"{tag}_kk_spread"],
+                axis=d["axis"]))
+            spread = {f"ms_spread{sfx}": rs["ms"],
+                      f"device_ms_spread{sfx}": rs["device_ms"],
+                      f"plain_ms_spread{sfx}": rs["plain_ms"],
+                      f"library_ms_spread{sfx}": rs["library_ms"],
+                      f"bound_ms_spread{sfx}": b_s,
+                      f"bound_by_spread{sfx}": by_s}
+            log(f"{label}_spread: kernel {rs['ms']:.4f} ms (device alone "
+                f"{rs['device_ms']:.4f}), plain {rs['plain_ms']:.4f} ms, "
+                f"library {rs['library_ms']:.4f} ms, bytes {nb_s}, bound "
+                f"{b_s:.6f} ms ({by_s}), device time / bound "
+                f"{rs['device_ms'] / b_s:.1f}")
+            err = max(err, res["checks"][label + "_spread"][0])
         if name in entries:                       # 7A's B32 and C512
-            sfx = "_" + label.split()[2].lower()
             e = entries[name]
             e.update({f"ms{sfx}": r["ms"], f"device_ms{sfx}": r["device_ms"],
                       f"plain_ms{sfx}": r["plain_ms"],
                       f"library_ms{sfx}": r["library_ms"],
-                      f"bound_ms{sfx}": bound_ms, f"bound_by{sfx}": bound_by})
+                      f"bound_ms{sfx}": bound_ms, f"bound_by{sfx}": bound_by},
+                     **spread)
             e["max_abs_err"] = max(e["max_abs_err"], err)
             continue
         e = dict(name=name, route="cuda",
@@ -1255,6 +1333,8 @@ def phase_gather_probe3():
                  bound_by=bound_by, library_ms=r["library_ms"],
                  device_ms=r["device_ms"])
         e.update({k: r[k] for k in COL0_KEYS if k in r})
+        if name == "gp3_dg":
+            e.update(spread)
         if name == "gp3_mm":
             # max_abs_err is the exact check on integer-valued inputs; the
             # probe's normal inputs are held within their rounding bound
@@ -1344,6 +1424,69 @@ def phase_ct(kerns_gp3):
                  "device_ms"],
              variants=times)
     log(f"gp3_ct phase: {time.perf_counter() - t0:.1f} s")
+
+
+# the shipped kernels of 5d and 7A (tools/dg_variants.cu's library holds
+# them too, built with -Xptxas -v)
+DG_SHIPPED = ("take_in_kernel", "take_col_kernel", "take_out_kernel",
+              "gp_take_ax0_kernel", "dg_warp_kernel", "dg_block_kernel")
+
+
+def phase_take_dg(kerns_gp, kerns_gp3):
+    """Kernels 5d (gp_take_ax0) and 7A (gp3_dg) held against their plain
+    versions through their wrappers (tools/torch_dg_variants.check: 5d at
+    the probe's R, where it takes the column design, on the probe's,
+    spread and wrapping inputs after 0, 1, 5 and 16 steps, and at R 1, 33,
+    1000, 109376 and 109377, the first R that takes a thread an element; 7A at
+    its three shapes on the same kinds after 0, 1, 37, 511 and 512 steps,
+    and at shapes of hi 1, 5, 40, 1000 and 2000, the warp design and the
+    block design; the replaced designs the same way at the timed shapes),
+    then ptxas's registers and spills of the shipped kernels (a spill
+    fails), then each timed in turns with the design it replaced on the
+    probe's and the spread input (the tool's rounds, on the device alone
+    and between events).  The numbers join the kernels-line entries:
+    replaced_device_ms, replaced_device_ms_spread (7A's B32 and C512 with
+    _b32 and _c512) and `variants` ({input: {shipped | replaced:
+    dict(device_ms, ms)}}, 7A's by shape)."""
+    import torch
+    import torch_dg_variants as dgv
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = dgv.library()
+    tx, dx = dgv.take_inputs(dev), dgv.dg_inputs(dev)
+    errs, calls = dgv.check(lib, tx, dx, log, take_designs=("replaced",),
+                            dg_designs=("replaced",))
+    regs = {k: v for k, v in dgv.ptxas(lib).items()
+            if any(n in k for n in DG_SHIPPED)}
+    for kern, (r, ss, sl) in sorted(regs.items()):
+        log(f"ptxas {kern}: {r} registers, {ss} bytes spill stores, {sl} "
+            f"loads")
+    if len(regs) < len(DG_SHIPPED) + 2 or any(ss or sl for _, ss, sl in
+                                               regs.values()):
+        raise RuntimeError(f"a shipped 5d or 7A kernel spills or was not "
+                           f"found: {regs}")
+    times = dgv.times(lib, tx, dx, log, take_designs=("replaced",),
+                      dg_designs=("replaced",), extras=False)
+    e = next(e for e in kerns_gp if e["name"] == "gp_take_ax0")
+    e.update(max_abs_err=max(e["max_abs_err"], *(v for k, v in errs.items()
+                                                 if k.startswith("5d"))),
+             replaced_device_ms=times["5d"]["probe"]["replaced"]["device_ms"],
+             replaced_device_ms_spread=times["5d"]["spread"]["replaced"][
+                 "device_ms"],
+             variants=times["5d"])
+    e = next(e for e in kerns_gp3 if e["name"] == "gp3_dg")
+    e["max_abs_err"] = max(e["max_abs_err"], *(v for k, v in errs.items()
+                                               if k.startswith("7A")))
+    e["variants"] = {}
+    for tag, *_ in dgv.DG_SHAPES:
+        sfx = "" if tag == "B8" else "_" + tag.lower()
+        t = times[f"7A {tag}"]
+        e[f"replaced_device_ms{sfx}"] = t["probe"]["replaced"]["device_ms"]
+        e[f"replaced_device_ms_spread{sfx}"] = \
+            t["spread"]["replaced"]["device_ms"]
+        e["variants"][tag] = t
+    log(f"5d and 7A phase: {calls} calls held, "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_col0(kerns_gp2, kerns_gp3):
@@ -2500,6 +2643,7 @@ def main() -> int:
     kerns_gp2, kernel_d = phase_gather_probe2()
     kerns_gp3 = phase_gather_probe3()
     phase_ct(kerns_gp3)
+    phase_take_dg(kerns_gp, kerns_gp3)
     phase_col0(kerns_gp2, kerns_gp3)
     kerns_dp_pl = phase_dispatch_pl_probe()
     from bwamem_tpu_torch.index import load_index

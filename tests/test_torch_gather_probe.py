@@ -6,7 +6,10 @@ and each plain version must equal its kernel exactly; so must the lane
 loops of csrc/gather_probe_kernel.cu, built for the host (gp_scalar's and
 gp_scalar2's one pass, held against kernel_scalar's and kernel_scalarw's
 STEPS passes in interpret mode, gp_scalar2 at even and odd row widths with
-its 8-byte and its two 4-byte loads, gp_take_ax0, and gp_onehot's gather
+its 8-byte and its two 4-byte loads, gp_take_ax0's two designs (a thread
+an element, step by step, and the column's map taken once as 16 + 1 bits
+a row) on every kind of ops/gather_probe.take_inputs, and gp_onehot's
+gather
 with its bf16 rounding in integer arithmetic, held against the one-hot
 product in interpret mode).
 The edge cases: table values near 2^31 (the int32 wrap, and the sign of
@@ -112,9 +115,10 @@ def _inputs(seed, lo=0, hi=1 << 20, r=R, n=N, w=8):
     return tab, tabw, k, kfull
 
 
-def _host(entry, *arrays_and_ints):
+def _host(entry, *arrays_and_ints, rc=0):
     """csrc/gather_probe_kernel.cu's lane loops built as host C++ (the card
-    runs the same code per thread); returns the filled output array."""
+    runs the same code per thread); returns the filled output array after
+    checking that the entry returned `rc`."""
     lib = ctypes.CDLL(shared_lib(
         gp.SRC, "libgather_probe_kernel_host.so",
         ["c++", "-x", "c++", "-O2", "-shared", "-fPIC"]))
@@ -128,7 +132,7 @@ def _host(entry, *arrays_and_ints):
             args.append(ctypes.c_void_p(a.ctypes.data))
         else:
             args.append(ctypes.c_int(a))
-    assert fn(*args) == 0
+    assert fn(*args) == rc
     return keep[2]
 
 
@@ -223,6 +227,73 @@ def test_kernel_source_take_lanes_match_plain(lo, hi, steps):
     want = gp.take_ax0_plain(T(tab), T(kfull), steps)
     assert_same(want, _host("gp_take_ax0_host", tab, kfull,
                             np.zeros_like(kfull), R, steps), "take lanes")
+
+
+# ---- gp_take_ax0 as the card runs it ----
+
+# the last R whose column map fits a block's shared memory (the kernel's
+# take_col_smem: 16 bits a row and a bitmap of bit 16, R rounded up to 32)
+TAKE_COL_R_MAX = 109376
+
+
+@pytest.mark.parametrize("steps", [0, 1, 5, 16])
+@pytest.mark.parametrize("kind", gp.TAKE_KINDS)
+def test_take_ax0_lanes_match_pallas(kind, steps):
+    """The two designs the C entry takes, built for the host: the column
+    design (gp_take_ax0_lanes_host: the column's map in shared memory, 16
+    low bits and a bitmap of bit 16, through a scratch laid out as the
+    card's) and, past its R, a thread an element (gp_take_ax0_host),
+    against kernel_dg in interpret mode and the plain version, on every
+    input kind after 0, 1, 5 and the probe's 16 steps."""
+    tab, kk = (a.numpy() for a in gp.take_inputs(kind, R, N, seed=10))
+    want = np.asarray(pl_dg(jnp.asarray(tab), jnp.asarray(kk), R, steps))
+    assert_same(want, gp.take_ax0_plain(T(tab), T(kk), steps),
+                f"take_ax0 {kind}")
+    assert_same(want, _host("gp_take_ax0_lanes_host", tab, kk,
+                            np.zeros_like(kk), R, steps),
+                f"take lanes, the column design, {kind}")
+    assert_same(want, _host("gp_take_ax0_host", tab, kk, np.zeros_like(kk),
+                            R, steps),
+                f"take lanes, a thread an element, {kind}")
+
+
+def test_take_ax0_column_map_keeps_bit_16():
+    """Past R = 2^16 the column design's map needs its bitmap of bit 16:
+    R = 65600 on the spread input, against kernel_dg in interpret mode and
+    the plain version."""
+    r2, steps = 65600, 2
+    tab, kk = (a.numpy() for a in gp.take_inputs("spread", r2, N, seed=12))
+    want = np.asarray(pl_dg(jnp.asarray(tab), jnp.asarray(kk), r2, steps))
+    assert (want >= 1 << 16).sum() > 1000        # states past 16 bits
+    assert_same(want, gp.take_ax0_plain(T(tab), T(kk), steps), "take_ax0")
+    assert_same(want, _host("gp_take_ax0_lanes_host", tab, kk,
+                            np.zeros_like(kk), r2, steps),
+                "take lanes, the column design")
+
+
+def test_take_ax0_column_design_ends_where_its_map_stops_fitting():
+    """The library alone sizes the scratch and so picks the design:
+    gp_take_ax0_scratch_words gives the column design's 324 words a row (R
+    rounded up to 32) up to TAKE_COL_R_MAX and 0 past it (and at R 0),
+    where the C entry takes a thread an element and the host build
+    refuses the column design."""
+    lib = ctypes.CDLL(shared_lib(
+        gp.SRC, "libgather_probe_kernel_host.so",
+        ["c++", "-x", "c++", "-O2", "-shared", "-fPIC"]))
+    words = lib.gp_take_ax0_scratch_words
+    words.restype = ctypes.c_longlong
+    for r in (1, 31, 32, 33, 1000, 78208, TAKE_COL_R_MAX):
+        assert words(r) == 324 * ((r + 31) // 32 * 32)
+    assert words(TAKE_COL_R_MAX + 1) == 0 and words(0) == 0
+    one = np.zeros((1, 128), np.int32)
+    _host("gp_take_ax0_lanes_host", one, one, one.copy(),
+          TAKE_COL_R_MAX + 1, 0, rc=1)
+    r = TAKE_COL_R_MAX
+    big = np.zeros((r, 128), np.int32)
+    big[:, 0] = np.arange(r)
+    assert_same(big, _host("gp_take_ax0_lanes_host", one.repeat(r, 0), big,
+                           np.zeros_like(big), r, 0),
+                "the column design at its last R, 0 steps")
 
 
 # ---- the wrappers ----

@@ -5,7 +5,10 @@ and the product's iterations as parameters, run under
 pl.pallas_call(..., interpret=True) at a small size, and each plain
 version must equal its kernel (gp3_mm: exactly on integer-valued inputs,
 within mm_tolerance on normal ones); so must the lane loops of
-csrc/gather_probe3_kernel.cu built for the host.  Besides the probe's own
+csrc/gather_probe3_kernel.cu built for the host (gp3_dg step by step, and
+as the card computes it: the line's map, its powers by squaring and the
+state taking one power for each set bit of the steps, after 0, 1, 37 and
+512 steps).  Besides the probe's own
 tables (values in [0, 2^20), where every chain saturates at hi - 1 after
 one step), the chains run on spread tables (values in [-hi, hi]: chains
 keep moving and meet both ends of the clip) and near +-2^31 (the int32
@@ -117,18 +120,9 @@ def _host(entry, *arrays_and_ints):
 
 
 def _dg_inputs(kind, S, L, axis, seed):
-    hi = (S, L)[axis]
-    rng = np.random.default_rng(seed)
-    if kind == "spread":
-        tab, kk = gp3.spread_inputs(seed, S, L, axis)
-        return tab.numpy(), kk.numpy()
-    lo, top = {"probe": (0, 1 << 20),
-               "wrap": ((1 << 31) - 64, 1 << 31)}[kind]
-    tab = rng.integers(lo, top, (S, L), dtype=np.int64).astype(np.int32)
-    if kind == "wrap":
-        tab[::2] = -tab[::2]          # adds that wrap both ways in int32
-    kk = rng.integers(0, hi, (S, L), dtype=np.int32)
-    return tab, kk
+    """gather_probe3.dg_inputs as numpy: the probe's table, a spread one,
+    or adds that wrap both ways in int32."""
+    return tuple(a.numpy() for a in gp3.dg_inputs(kind, S, L, axis, seed))
 
 
 SHAPES = [(8, 16, 0), (32, 16, 0), (8, 64, 1)]     # B8, B32, C512, cut
@@ -142,6 +136,21 @@ def test_dg_plain_and_lanes_match_pallas(S, L, axis, kind):
     assert_same(want, gp3.dg_plain(T(tab), T(kk), STEPS, axis), "dg")
     assert_same(want, _host("gp3_dg_host", tab, kk, np.zeros_like(kk), S, L,
                             STEPS, axis), "dg lanes")
+
+
+@pytest.mark.parametrize("steps", [0, 1, 37, 512])
+@pytest.mark.parametrize("kind", gp3.CT_KINDS)
+@pytest.mark.parametrize("S,L,axis", SHAPES)
+def test_dg_doubling_lanes_match_pallas(S, L, axis, kind, steps):
+    """gp3_dg as the card computes it (gp3_dg_double_host: the line's map
+    T, T^(2^b) by squaring, the state taking it for each set bit of steps,
+    as the warp design at hi 8 and 32 and the block design at hi 64 do)
+    against dg_probe's kernel in interpret mode and the plain version."""
+    tab, kk = _dg_inputs(kind, S, L, axis, seed=S * L + steps)
+    want = np.asarray(pl_dg(jnp.asarray(tab), jnp.asarray(kk), axis, steps))
+    assert_same(want, gp3.dg_plain(T(tab), T(kk), steps, axis), "dg")
+    assert_same(want, _host("gp3_dg_double_host", tab, kk, np.zeros_like(kk),
+                            S, L, steps, axis), "dg doubling lanes")
 
 
 @pytest.mark.parametrize("S,L,axis", SHAPES)

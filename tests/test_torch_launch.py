@@ -154,6 +154,8 @@ def _fake_entry(monkeypatch, mod, entry, rc):
         calls.append(args)
         return rc
     monkeypatch.setattr(mod.LIB, "_fns", {entry: fn})
+    # the library's sizes (gp_take_ax0's scratch): a few words
+    monkeypatch.setattr(mod.LIB, "value", lambda name, *ints: 64)
     return calls
 
 

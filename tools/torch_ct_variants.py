@@ -564,7 +564,8 @@ def sources(names=VARIANTS) -> dict:
     from bwamem_tpu_torch.ops import gather_probe3 as gp3
     from bwamem_tpu_torch.ops.launch import CSRC
     base = {EXTRAS_NAME: EXTRAS, SHIPPED: open(gp3.SRC).read(),
-            "col0.cuh": open(os.path.join(CSRC, "col0.cuh")).read()}
+            **{h: open(os.path.join(CSRC, h)).read()
+               for h in ("col0.cuh", "smem.cuh")}}
     out = {}
     for name in names:
         if name.startswith("replaced"):

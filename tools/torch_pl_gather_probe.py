@@ -18,7 +18,11 @@ seeded numpy tables:
   gp_onehot    the gather the TPU probe's one-hot product computes: one
                load of the [611, 128] table a lane, rounded to bf16
   gp_take_ax0  a chained take along axis 0 over the whole [R, 128] table,
-               `steps` dependent steps
+               `steps` dependent steps, on the probe's indices (zero past
+               the lanes' rows: the chains of a column share a state
+               there) and timed again on spread ones (every row its own
+               start: ops/gather_probe.take_inputs), held on a table
+               whose adds wrap too
 
 Each kernel's output must equal its plain PyTorch version exactly before
 anything is timed (a difference exits non-zero); gp_onehot also on the
@@ -70,25 +74,30 @@ def median_ms(fn, reps: int = REPS) -> float:
 
 def make_inputs(n_lanes: int, seed: int, device) -> dict:
     """The probe's tables and lanes, from numpy with `seed`, on `device`:
-    tab [R, 128] and tabw [R, W] in [0, 2^20), tab3 [R/128, 128] in
-    [0, 255), k [n_lanes/128, 128] in [0, R), and kfull [R, 128], k in its
-    first rows and 0 below (the take's table-shaped indices)."""
+    tab [R, 128] in [0, 2^20) and kfull [R, 128], lanes in [0, R) in its
+    first n_lanes / 128 rows and 0 below (the take's table-shaped indices:
+    ops/gather_probe.take_inputs("probe")), k [n_lanes/128, 128] those
+    lanes, tabw [R, W] in [0, 2^20), tab3 [R/128, 128] in [0, 255); and
+    the take's other inputs, tab_spread with kfull_spread and tab_wrap
+    with kfull_wrap (take_inputs' "spread" and "wrap")."""
     import numpy as np
     import torch
+    from bwamem_tpu_torch.ops import gather_probe as gp
     if n_lanes <= 0 or n_lanes % 128 or n_lanes > R * 128:
         raise ValueError(f"n_lanes {n_lanes}: a positive multiple of 128 "
                          f"up to {R * 128}")
-    rng = np.random.default_rng(seed)
-    S = n_lanes // 128
-    tab = rng.integers(0, 1 << 20, (R, 128), dtype=np.int32)
-    tabw = rng.integers(0, 1 << 20, (R, W), dtype=np.int32)
-    tab3 = rng.integers(0, 255, (R // 128, 128), dtype=np.int32)
-    k = rng.integers(0, R, (S, 128), dtype=np.int32)
-    kfull = np.zeros((R, 128), np.int32)
-    kfull[:S] = k
-    return {name: torch.from_numpy(a).to(device) for name, a in
-            (("tab", tab), ("tabw", tabw), ("tab3", tab3), ("k", k),
-             ("kfull", kfull))}
+    x = {}
+    x["tab"], x["kfull"] = gp.take_inputs("probe", R, n_lanes, seed, device)
+    x["k"] = x["kfull"][:n_lanes // 128].clone()
+    for i, kind in enumerate(("spread", "wrap")):
+        x[f"tab_{kind}"], x[f"kfull_{kind}"] = gp.take_inputs(
+            kind, R, n_lanes, seed + 1 + i, device)
+    rng = np.random.default_rng(seed + 3)
+    x["tabw"] = torch.from_numpy(rng.integers(0, 1 << 20, (R, W),
+                                              dtype=np.int32)).to(device)
+    x["tab3"] = torch.from_numpy(rng.integers(0, 255, (R // 128, 128),
+                                              dtype=np.int32)).to(device)
+    return x
 
 
 def check_onehot(n_lanes: int, device, log=print) -> dict:
@@ -164,11 +173,13 @@ def check_scalar2(n_lanes: int, device, seed: int = 5, log=print) -> dict:
 def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
           log=print) -> dict:
     """Runs the probe on the current CUDA device.  Returns dict(inputs=...
-    (make_inputs), results={kernel: dict(ms, device_ms, plain_ms,
+    (make_inputs), results={label: dict(ms, device_ms, plain_ms,
     library_ms, max_abs_err, and but for gp_take_ax0 issue_us,
-    library_issue_us)}, onehot=check_onehot's errors, scalar2=
-    check_scalar2's); raises when a kernel differs from its plain
-    version."""
+    library_issue_us)} (labels the kernels' names, and gp_take_ax0_spread
+    for the take on the spread input), onehot=check_onehot's errors,
+    scalar2=check_scalar2's); raises when a kernel differs from its plain
+    version.  gp_take_ax0 is also held, not timed, on the wrapping
+    input."""
     import torch
     sys.path.insert(0, REPO)
     from bwamem_tpu_torch.ops import gather_probe as gp
@@ -182,8 +193,7 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
     log(f"card: {smi.stdout.strip().splitlines()[0]}")
     dev = torch.device("cuda")
     x = make_inputs(n_lanes, seed, dev)
-    tab, tabw, tab3, k, kfull = (x[n] for n in
-                                 ("tab", "tabw", "tab3", "k", "kfull"))
+    tab, tabw, tab3, k = (x[n] for n in ("tab", "tabw", "tab3", "k"))
     log(f"lanes={n_lanes}, steps={steps}, R={R}, W={W}, A="
         f"{tab3.shape[0]}; tab {tab.numel() * 4 / 1e6:.2f} MB")
 
@@ -198,49 +208,56 @@ def probe(n_lanes: int = 8192, steps: int = 16, seed: int = 0,
         got = torch.take(t3, k64.clamp(0, t3.numel() - 1))
         return torch.where(inside, got, 0).to(torch.int32)
 
-    def take_chain():
-        kk = kfull
+    def take_chain(tab, kk):
         for _ in range(steps):
             kk = torch.remainder(kk + torch.gather(tab, 0, kk.long()), R)
         return kk
 
-    cases = (
-        ("gp_scalar", lambda: gp.gp_scalar(tab, k),
+    # (label, kernel, call, plain, library call, timed)
+    cases = [
+        ("gp_scalar", "gp_scalar", lambda: gp.gp_scalar(tab, k),
          lambda: gp.scalar_plain(tab, k),
-         lambda: torch.gather(tab, 0, k64)),
-        ("gp_scalar2", lambda: gp.gp_scalar2(tabw, k),
-         lambda: gp.scalar2_plain(tabw, k), scalar2_sum),
-        ("gp_onehot", lambda: gp.gp_onehot(tab3, k),
-         lambda: gp.onehot_plain(tab3, k), onehot_gather),
-        ("gp_take_ax0", lambda: gp.gp_take_ax0(tab, kfull, steps),
-         lambda: gp.take_ax0_plain(tab, kfull, steps), take_chain))
-    for name, kern, plain, lib in cases:
+         lambda: torch.gather(tab, 0, k64), True),
+        ("gp_scalar2", "gp_scalar2", lambda: gp.gp_scalar2(tabw, k),
+         lambda: gp.scalar2_plain(tabw, k), scalar2_sum, True),
+        ("gp_onehot", "gp_onehot", lambda: gp.gp_onehot(tab3, k),
+         lambda: gp.onehot_plain(tab3, k), onehot_gather, True)]
+    for sfx in ("", "_spread", "_wrap"):
+        t, kk = x["tab" + sfx], x["kfull" + sfx]
+        cases.append((
+            "gp_take_ax0" + sfx, "gp_take_ax0",
+            lambda t=t, kk=kk: gp.gp_take_ax0(t, kk, steps),
+            lambda t=t, kk=kk: gp.take_ax0_plain(t, kk, steps),
+            lambda t=t, kk=kk: take_chain(t, kk), sfx != "_wrap"))
+    for label, _, kern, plain, lib, _ in cases:
         want = plain().to(torch.int64)
         for what, fn in (("kernel", kern), ("library call", lib)):
             got = fn().to(torch.int64)
             torch.cuda.synchronize()
             n_bad = int((got != want).sum())
             if n_bad:
-                raise RuntimeError(f"{name}: the {what} differs from its "
+                raise RuntimeError(f"{label}: the {what} differs from its "
                                    f"plain version on {n_bad} of "
                                    f"{want.numel()} outputs")
     log("every kernel and library call equals its plain version on every "
-        "output")
+        "output (gp_take_ax0 on the probe's, spread and wrapping inputs)")
     onehot = check_onehot(n_lanes, dev, log)
     scalar2 = check_scalar2(n_lanes, dev, log=log)
 
     results = {}
-    for name, kern, plain, lib in cases:
+    for label, name, kern, plain, lib, timed in cases:
+        if not timed:
+            continue
         r = dict(max_abs_err=0, ms=median_ms(kern), device_ms=device_ms(kern),
                  plain_ms=median_ms(plain), library_ms=median_ms(lib))
-        results[name] = r
+        results[label] = r
         per = steps if name == "gp_take_ax0" else 1
-        log(f"{name:12s} kernel {r['ms']:9.4f} ms ({r['ms'] / per * 1e3:9.3f}"
+        log(f"{label:18s} kernel {r['ms']:9.4f} ms ({r['ms'] / per * 1e3:9.3f}"
             f" us/step), on the device alone {r['device_ms']:9.4f} ms, plain "
             f"{r['plain_ms']:9.4f} ms, library {r['library_ms']:.4f} ms")
         if name != "gp_take_ax0":
             r.update(issue_us=issue_us(kern), library_issue_us=issue_us(lib))
-            log(f"{name:12s} host issue {r['issue_us']:.2f} us a call, "
+            log(f"{label:18s} host issue {r['issue_us']:.2f} us a call, "
                 f"library {r['library_issue_us']:.2f} us")
     return dict(inputs=x, results=results, onehot=onehot, scalar2=scalar2)
 

@@ -16,11 +16,13 @@ of ops/gather_probe3 on seeded numpy inputs:
 
 Tables of the chains are drawn from [0, 2^20), as the TPU probe's: on them
 nearly every chain sits at hi - 1 after its first step.  So each chain
-kernel is also held on a spread input (ops/gather_probe3.spread_inputs:
-values in [-hi, hi], chains that keep moving and meet both ends of the
-clip), and 7B also timed there (its gathers then spread over the banks
-of shared memory); gp3_mm on integer-valued a, b in [-8, 8], where every
-sum is exact.  Each kernel's output must equal its plain PyTorch version
+kernel is also held and timed on a spread input
+(ops/gather_probe3.spread_inputs: values in [-hi, hi], chains that keep
+moving and meet both ends of the clip; 7B's gathers then spread over the
+banks of shared memory), and 7A held on a table within 64 of +-2^31
+(gather_probe3.dg_inputs("wrap"): every add wraps); gp3_mm on
+integer-valued a, b in [-8, 8], where every sum is exact.  Each kernel's
+output must equal its plain PyTorch version
 exactly (gp3_mm on the normal inputs: within ops/gather_probe3.mm_tolerance)
 before anything is timed, and so must each library call's; a difference
 exits non-zero.  Times are the median of 5 runs between CUDA events after
@@ -55,7 +57,8 @@ E_M, E_K, E_N = 1024, 640, 128
 
 def make_inputs(seed: int, device) -> dict:
     """The probe's inputs from numpy with `seed`, on `device`, and the
-    extra inputs the kernels are also held on (*_spread, e_int)."""
+    extra inputs the kernels are also held on (*_spread, *_wrap,
+    e_int)."""
     import numpy as np
     import torch
     from bwamem_tpu_torch.ops import gather_probe3 as gp3
@@ -79,14 +82,16 @@ def make_inputs(seed: int, device) -> dict:
     for i, (tag, S, L, axis) in enumerate(DG_SHAPES):
         out[f"{tag}_tab_spread"], out[f"{tag}_kk_spread"] = \
             gp3.spread_inputs(seed + 1 + i, S, L, axis, device)
+        out[f"{tag}_tab_wrap"], out[f"{tag}_kk_wrap"] = gp3.dg_inputs(
+            "wrap", S, L, axis, seed + 20 + i, device)
     out["ct_tab_spread"], out["ct_kk_spread"] = gp3.spread_inputs(
         seed + 9, CT_N, CT_N, 1, device)
     return out
 
 
 def torch_dg(tab, kk, steps: int, axis: int):
-    """The chain issued from PyTorch in int32 (the add cannot wrap:
-    |values| < 2^21)."""
+    """The chain issued from PyTorch in int32 (the add wraps as int32's
+    does on the card)."""
     import torch
     hi = tab.shape[axis]
     for _ in range(steps):
@@ -117,11 +122,12 @@ def torch_mm(a, b):
 def cases(x: dict, steps: int) -> list:
     """(label, kernel name, kernel call, plain call, library call, tolerance
     against the plain version, timed) for each kernel, shape and input the
-    probe holds; the untimed cases are the extra inputs."""
+    probe holds; the untimed cases are 7A's wrapping tables and 7D's
+    integer-valued inputs."""
     from bwamem_tpu_torch.ops import col0, gather_probe3 as gp3
     out = []
     for tag, S, L, axis in DG_SHAPES:
-        for sfx in ("", "_spread"):
+        for sfx in ("", "_spread", "_wrap"):
             tab, kk = x[f"{tag}_tab{sfx}"], x[f"{tag}_kk{sfx}"]
             out.append((f"7A dg {tag} ax{axis} [{S},{L}]{sfx}", "gp3_dg",
                         lambda t=tab, k=kk, a=axis: gp3.gp3_dg(t, k, steps,
@@ -129,7 +135,7 @@ def cases(x: dict, steps: int) -> list:
                         lambda t=tab, k=kk, a=axis: gp3.dg_plain(t, k, steps,
                                                                  a),
                         lambda t=tab, k=kk, a=axis: torch_dg(t, k, steps, a),
-                        0.0, not sfx))
+                        0.0, sfx != "_wrap"))
     for sfx in ("", "_spread"):
         tab, kk = x[f"ct_tab{sfx}"], x[f"ct_kk{sfx}"]
         out.append((f"7B ct [{CT_N},{CT_N}]{sfx}", "gp3_ct",
@@ -160,7 +166,9 @@ def probe(steps: int = STEPS, seed: int = 0, log=print) -> dict:
     than the case's tolerance; 7C's result has col0_times' keys.  Each
     kernel launches 12 times a timed case (1 check, 1 warm-up and 5 timed
     calls, then 5 on the device alone; 7C 13255, as probe 2's D), and
-    once an untimed case: 7B 24 times (both inputs timed)."""
+    once an untimed case: 7A 75 times in all (three shapes, the probe's
+    and the spread input timed, the wrapping one held), 7B 24 (both
+    inputs timed)."""
     import torch
     from torch_pl_gather_probe2 import (col0_times, device_ms, log_col0,
                                         median_ms)
