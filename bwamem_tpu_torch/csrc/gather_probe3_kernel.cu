@@ -60,10 +60,22 @@
 //             additions acc = acc + m of m = (a @ b)[:8]: a [M, K], b
 //             [K, N], out [R, N].  Only rows :R of the product reach the
 //             output and they are the same in each of the 64 iterations,
-//             so a thread computes its m[r, c] once, by float32 FMA on the
-//             CUDA cores in k order (TF32 would round from 2^11 on), then
-//             adds it 64 times, each add rounded (not 64 * m, which is
-//             another number).  A block takes one row, a thread a column.
+//             so m is computed once, by float32 FMA on the CUDA cores
+//             (TF32 would round from 2^11 on), then added 64 times, each
+//             add rounded (not 64 * m, which is another number).  K is
+//             split into MM_CS x MM_G chunks: a cluster of MM_CS blocks
+//             on neighbouring SMs takes a tile of MM_TR x MM_TC outputs,
+//             each block MM_G chunks (a group of MM_P threads a chunk,
+//             four outputs a thread).  A group stages its chunk of a and
+//             b in shared memory with coalesced loads (MM_KB values of k
+//             at a time) and sums each output's chunk by FMA in k order
+//             from 0; each block then stores its partial sums into the
+//             shared memory of the block that adds them up
+//             (st.shared::cluster, 1/MM_CS of the tile's outputs a block),
+//             and after one cluster barrier each block adds its own in
+//             chunk order, then adds the sum 64 times.  No atomics: the
+//             order is fixed, so two calls give the same bits, and the
+//             host build (gp3_mm_host) computes them on the CPU.
 //
 // The add of the chains wraps in 32 bits (jnp's int32 add), and the clip
 // is jnp.clip's.
@@ -79,7 +91,18 @@
 // elements, at most 32 words a clock); gp3_col0 moves
 // under 100 bytes; gp3_mm's function moves a[:8], b and out (352 KB, 0.1 us)
 // and does 1.4 MFLOP.  The TPU kernel computed 64 whole [1024, 640] x
-// [640, 128] products (10.7 GFLOP); this one computes the function.
+// [640, 128] products (10.7 GFLOP); this one computes the function.  What
+// held the design it replaced (a block a row, a thread a column, 640
+// dependent FMAs each waiting on its two loads, on 8 SMs: 0.025 ms on the
+// device of an H100 80GB HBM3 at 700 W) was that chain of load latencies;
+// split over a cluster of 16 SMs, a block stages 40 values of k (20 KB of
+// b) and its chain is 40 FMAs from shared memory, so what is left (0.009
+// ms) is a launch (about 0.0055 on that timing), the stage, the remote
+// stores of the partial sums and one cluster barrier
+// (tools/torch_fm_mm_variants.py on that card: reading the partial sums
+// remotely, which needs a second barrier before a block may leave,
+// 0.0095; a cluster of 8, two groups a block, one block, and plain blocks
+// with a second kernel 0.0101-0.0241).
 //
 // The same source compiles as host C++ (no __CUDACC__), exposing the lane
 // loops as *_host entries, so the CPU tests check their arithmetic without
@@ -144,17 +167,20 @@ static GP_HD inline unsigned ct_src(unsigned m, unsigned i, unsigned rb,
   return (m % rb) * N + i;
 }
 
-// gp3_mm's element (r, c): m by FMA in k order, then `reps` adds
-static GP_HD inline float mm_elem(const float* __restrict__ a,
-                                  const float* __restrict__ b, int r, int c,
-                                  int K, int N, int reps) {
-  float m = 0.0f;
-  for (int k = 0; k < K; ++k)
-    m = fmaf(GP_LDG(a + (long long)r * K + k),
-             GP_LDG(b + (long long)k * N + c), m);
-  float acc = 0.0f;
-  for (int t = 0; t < reps; ++t) acc = acc + m;
-  return acc;
+#define MM_CS 16       // gp3_mm's cluster: blocks, each a chunk of K
+#define MM_G 1         // ... chunks a block (a group of MM_P threads each)
+#define MM_P 256       // threads of a group: a tile's outputs, 4 a thread
+#define MM_TR 8        // rows of a tile of outputs
+#define MM_TC 128      // columns of a tile
+#define MM_KB 64       // values of k a group stages at a time
+
+// chunk j of `chunks` of [0, K): [k0, k1), ceil(K / chunks) values of k
+// (the last ones shorter or empty)
+static GP_HD inline void mm_chunk(int j, int chunks, int K, int& k0,
+                                  int& k1) {
+  const int kc = (K + chunks - 1) / chunks;
+  k0 = j * kc < K ? j * kc : K;
+  k1 = k0 + kc < K ? k0 + kc : K;
 }
 
 #ifdef __CUDACC__
@@ -395,12 +421,110 @@ ct_cluster_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
   for (int k = 0; k < K; ++k) out[row0 * N + (at[k] & 0xffff)] = v[k];
 }
 
-__global__ void __launch_bounds__(1024)
-gp3_mm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-              float* __restrict__ out, int K, int N, int reps) {
-  const int r = blockIdx.x;
-  for (int c = threadIdx.x; c < N; c += blockDim.x)
-    out[(long long)r * N + c] = mm_elem(a, b, r, c, K, N, reps);
+// a named barrier of the n threads of a group
+static __device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+
+// The partial sums of chunk [k0, k1) for a thread's four outputs (rows
+// rq..rq+3 of the tile at r0, column c0 + c), the group's chunk staged in
+// shared memory MM_KB values of k at a time (bs [MM_KB, MM_TC], as
+// [MM_TR, MM_KB]; outputs past R or N read zeros); `bar` the group's
+// barrier
+static __device__ __forceinline__ void mm_tile_part(
+    const float* __restrict__ a, const float* __restrict__ b, int R, int K,
+    int N, int r0, int c0, int k0, int k1, float* bs, float* as, int t,
+    int bar, float (&acc)[4]) {
+  const int c = t % MM_TC, rq = t / MM_TC * 4;
+  for (int kb = k0; kb < k1; kb += MM_KB) {
+    const int n = k1 - kb < MM_KB ? k1 - kb : MM_KB;
+#pragma unroll 4
+    for (int e = t; e < n * MM_TC; e += MM_P) {
+      const int col = c0 + e % MM_TC;
+      bs[e] = col < N ? __ldg(b + (long long)(kb + e / MM_TC) * N + col)
+                      : 0.0f;
+    }
+    for (int e = t; e < MM_TR * n; e += MM_P) {
+      const int row = r0 + e / n;
+      as[e / n * MM_KB + e % n] =
+          row < R ? __ldg(a + (long long)row * K + kb + e % n) : 0.0f;
+    }
+    group_sync(bar, MM_P);
+    for (int i = 0; i < n; ++i) {
+      const float bv = bs[i * MM_TC + c];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc[q] = fmaf(as[(rq + q) * MM_KB + i], bv, acc[q]);
+    }
+    group_sync(bar, MM_P);            // read before the next stage lands
+  }
+}
+
+// the partial sum v into the word at shared-memory address addr (of this
+// block's window) in the block of rank `rank` of the cluster
+static __device__ __forceinline__ void st_cluster_f32(unsigned addr,
+                                                      unsigned rank,
+                                                      float v) {
+  unsigned remote;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;"
+               :: "r"(remote), "f"(v) : "memory");
+}
+
+// gp3_mm as a cluster of CS blocks of G groups a tile: chunk j = rank * G
+// + g of CS * G.  Block `rank` adds up the tile's outputs [rank * PER,
+// (rank + 1) * PER): every group stores its partial sums into row j of
+// their adder's inbox [CS * G][PER] (st.shared::cluster; CS = 1: one
+// block, no cluster), one barrier, then each block adds its inbox's rows
+// in chunk order from its own shared memory, so nothing is read remotely
+// and no block waits for the others to finish.  The relaxed arrive at the
+// start, waited on before the first remote store, lets no block store into
+// a peer that has not started.  Shared memory: each group's stage, then
+// the inbox.
+template <int CS, int G>
+__global__ void __launch_bounds__(MM_P * G)
+mm_split_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                float* __restrict__ out, int R, int K, int N, int reps) {
+  extern __shared__ float mm_sm[];
+  constexpr int STAGE = MM_KB * MM_TC + MM_TR * MM_KB;
+  constexpr int PER = MM_TR * MM_TC / CS;
+  if (CS > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;");
+  const int g = threadIdx.x / MM_P, t = threadIdx.x % MM_P;
+  const unsigned rank = CS > 1 ? cluster_rank() : 0;
+  const int tile = blockIdx.x / CS, ntc = (N + MM_TC - 1) / MM_TC;
+  const int r0 = tile / ntc * MM_TR, c0 = tile % ntc * MM_TC;
+  float* bs = mm_sm + g * STAGE;
+  float* inbox = mm_sm + G * STAGE;
+  const int j = (int)rank * G + g;
+  int k0, k1;
+  mm_chunk(j, CS * G, K, k0, k1);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mm_tile_part(a, b, R, K, N, r0, c0, k0, k1, bs, bs + MM_KB * MM_TC, t,
+               1 + g, acc);
+  if (CS > 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  const unsigned base = (unsigned)__cvta_generic_to_shared(inbox);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int o = (t / MM_TC * 4 + q) * MM_TC + t % MM_TC;
+    if (CS > 1)
+      st_cluster_f32(base + 4u * (j * PER + o % PER), o / PER, acc[q]);
+    else
+      inbox[j * PER + o] = acc[q];
+  }
+  if (CS > 1)
+    cluster_sync();              // every partial sum in its inbox
+  else
+    __syncthreads();
+  for (int i = threadIdx.x; i < PER; i += MM_P * G) {
+    float m = inbox[i];
+    for (int x = 1; x < CS * G; ++x) m = m + inbox[x * PER + i];
+    float s = 0.0f;
+    for (int x = 0; x < reps; ++x) s = s + m;
+    const int o = (int)rank * PER + i;
+    const int r = r0 + o / MM_TC, c = c0 + o % MM_TC;
+    if (r < R && c < N) out[(long long)r * N + c] = s;
+  }
 }
 
 // C entries for ctypes: device pointers; each returns cudaGetLastError()
@@ -501,13 +625,42 @@ extern "C" int gp3_col0(const int* tab, const int* k, int* out, int N, int W,
   return col0_launch(tab, k, out, N, W, (cudaStream_t)stream);
 }
 
+// mm_split_kernel<CS, G> over every tile of [R, N], as clusters of CS
+// blocks (more than 8: allowed explicitly; 1: no cluster)
+template <int CS, int G>
+static int mm_split_launch(const float* a, const float* b, float* out, int R,
+                           int K, int N, int reps, cudaStream_t st) {
+  if (R < 1 || N < 1) return (int)cudaGetLastError();
+  const void* fn = (const void*)mm_split_kernel<CS, G>;
+  const size_t smem = (size_t)G * (MM_KB * MM_TC + MM_TR * MM_KB +
+                                   MM_TR * MM_TC) * sizeof(float);
+  int rc = smem_opt_in(fn, smem);
+  if (!rc && CS > 8)
+    rc = (int)cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (rc) return rc;
+  const int tiles = (R + MM_TR - 1) / MM_TR * ((N + MM_TC - 1) / MM_TC);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * CS);
+  cfg.blockDim = dim3(MM_P * G);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, mm_split_kernel<CS, G>, a, b,
+                                           out, R, K, N, reps);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 extern "C" int gp3_mm(const float* a, const float* b, float* out, int R,
                       int K, int N, int reps, void* stream) {
-  const int threads = N < 1024 ? (N + 31) / 32 * 32 : 1024;
-  if (R > 0 && N > 0)
-    gp3_mm_kernel<<<R, threads, 0, (cudaStream_t)stream>>>(a, b, out, K, N,
-                                                           reps);
-  return (int)cudaGetLastError();
+  return mm_split_launch<MM_CS, MM_G>(a, b, out, R, K, N, reps,
+                                      (cudaStream_t)stream);
 }
 
 #else
@@ -609,11 +762,32 @@ extern "C" int gp3_col0_host(const int* tab, const int* k, int* out, int N,
   return col0_host(tab, k, out, N, W);
 }
 
+// m[r, c] as gp3_mm sums it: each chunk by FMA in k order from 0, the
+// chunks' sums added in chunk order; then `reps` rounded adds
+static inline float mm_split_elem(const float* a, const float* b, int r,
+                                  int c, int K, int N, int reps,
+                                  int chunks) {
+  float m = 0.0f;
+  for (int j = 0; j < chunks; ++j) {
+    int k0, k1;
+    mm_chunk(j, chunks, K, k0, k1);
+    float p = 0.0f;
+    for (int k = k0; k < k1; ++k)
+      p = fmaf(a[(long long)r * K + k], b[(long long)k * N + c], p);
+    m = j ? m + p : p;
+  }
+  float acc = 0.0f;
+  for (int t = 0; t < reps; ++t) acc = acc + m;
+  return acc;
+}
+
+// gp3_mm's sums in the card's order: MM_CS x MM_G chunks of K
 extern "C" int gp3_mm_host(const float* a, const float* b, float* out, int R,
                            int K, int N, int reps) {
   for (int r = 0; r < R; ++r)
     for (int c = 0; c < N; ++c)
-      out[(long long)r * N + c] = mm_elem(a, b, r, c, K, N, reps);
+      out[(long long)r * N + c] =
+          mm_split_elem(a, b, r, c, K, N, reps, MM_CS * MM_G);
   return 0;
 }
 

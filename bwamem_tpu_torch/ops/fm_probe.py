@@ -11,22 +11,26 @@ the same dependent chain — for each lane independently, `steps` times:
     k   = (k + acc) mod seq_len      wrapping add; the result is in
                                      [0, seq_len) as Python's % gives it
 
-— inside one kernel, so the per-step cost of a host-issued scan step can be
-held against the cost of the same step with no launch between steps.
+— on the card in one call, so the per-step cost of a host-issued scan step
+can be held against the cost of the same step with no launch between
+steps.
 
 chain_words and chain_rows replace the two Pallas TPU probe kernels of the
 reference package's tools/fm_step_probe.py (`kernel` at :120, `kernel_rows`
-at :150): on a CUDA tensor each launches its kernel (one thread per lane;
-word-by-word loads, or 16-byte vector loads of the 48- or 64-byte row); on a
-CPU tensor each runs chain_gather, the plain version.  There is no fallback
-between a kernel and the plain version: a failed build or launch raises.
-Each wrapper counts its own launches.
+at :150): on a CUDA tensor each launches its kernels; on a CPU tensor each
+runs chain_gather, the plain version.  There is no fallback between a
+kernel and the plain version: a failed build or launch raises.  Each
+wrapper counts its own launches (one a call).
 
-What holds the kernels on an H100: the serial chain.  The table of a 5 Mbp
-genome is 3.75 MB, read from memory once and from L2 after that, and W adds
-a step are nothing; a lane cannot finish before `steps` dependent loads
-have come back from L2, and 8192 lanes are only 2 warps an SM to overlap
-them.
+What holds them on an H100 is the serial chain, not bytes or operations: a
+lane cannot finish before `steps` dependent loads have come back from L2.  A
+step reads its row only through the row's sum, so both take the sums once a
+call (a coalesced pass over the table, word by word for chain_words, in
+16-byte vectors for chain_rows) into a scratch of one int32 a row that the
+wrapper allocates; the chain, a lane every four threads, then reads one
+word a step and takes the remainder by an invariant divisor.  That is the
+same function; a seeding step cannot take it, since the FM step reads the
+part of a row that its next base picks.
 
 The kernels are built and launched through ops/launch (nvcc for sm_90a at
 first use, the caller's current stream).
@@ -40,9 +44,9 @@ import torch
 from bwamem_tpu_torch.ops.launch import Library
 
 LANES = 128                  # lanes come in multiples of this
-# (cmb, k0, out, N, W, steps, seq_len)
+# (cmb, k0, out, sums, N, W, steps, seq_len)
 LIB = Library("fm_probe_kernel.cu", {
-    name: [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    name: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     for name in ("fm_chain_words", "fm_chain_rows")})
 SRC = LIB.src
 
@@ -83,7 +87,10 @@ def chain_gather(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
     return k.to(torch.int32)
 
 
-def _launch(name: str, cmb, k0, steps: int, seq_len: int):
+def _prep(name: str, cmb, k0, steps: int, seq_len: int):
+    """The kernels' checks; returns (out, the C entry's arguments): out and
+    the scratch of row sums (one int32 a row a lane can reach) from
+    new_empty."""
     if cmb.dtype != torch.int32 or cmb.dim() != 2 or not cmb.is_contiguous():
         raise ValueError(f"{name}: cmb must be contiguous int32 [nb, W] "
                          "(see words32)")
@@ -101,18 +108,23 @@ def _launch(name: str, cmb, k0, steps: int, seq_len: int):
     if not 0 < seq_len < (1 << 31) or seq_len > nb * 128 or steps < 0:
         raise ValueError(f"{name}: seq_len {seq_len} for {nb} rows, "
                          f"steps {steps}")
-    out = torch.empty_like(k0)
-    LIB.launch(name, cmb.get_device(), (
-        cmb.data_ptr(), k0.data_ptr(), out.data_ptr(), int(N), int(W),
-        int(steps), int(seq_len)))
+    out = k0.new_empty(N)
+    sums = cmb.new_empty((seq_len + 127) // 128)
+    return out, (cmb.data_ptr(), k0.data_ptr(), out.data_ptr(),
+                 sums.data_ptr(), int(N), int(W), int(steps), int(seq_len))
+
+
+def _launch(name: str, cmb, k0, steps: int, seq_len: int):
+    out, args = _prep(name, cmb, k0, steps, seq_len)
+    LIB.launch(name, cmb.get_device(), args)
     return out
 
 
 def chain_words(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
                 seq_len: int) -> torch.Tensor:
-    """chain_gather with the whole chain inside one kernel, the row read
-    word by word (fm_chain_words).  cmb: int32 [nb, W] from words32; k0:
-    int32 [N] in [0, seq_len), N a multiple of 128."""
+    """chain_gather on the card (fm_chain_words: the row sums read word by
+    word, then the chain through them).  cmb: int32 [nb, W] from words32;
+    k0: int32 [N] in [0, seq_len), N a multiple of 128."""
     if not cmb.is_cuda:
         return chain_gather(cmb, k0, steps, seq_len)
     global launches_words
@@ -123,7 +135,7 @@ def chain_words(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
 
 def chain_rows(cmb: torch.Tensor, k0: torch.Tensor, steps: int,
                seq_len: int) -> torch.Tensor:
-    """As chain_words, the row read with 16-byte vector loads
+    """As chain_words, the row sums read with 16-byte vector loads
     (fm_chain_rows)."""
     if not cmb.is_cuda:
         return chain_gather(cmb, k0, steps, seq_len)

@@ -26,9 +26,11 @@ tools/pl_gather_probe3.py, which maps what a gather costs in a kernel:
 Preconditions the kernels do not check (a plain version raises on the
 first two): kk in [0, hi) for gp3_dg and in [0, N) for gp3_ct, k in [0, R)
 for gp3_col0.  The adds of the chains wrap in int32, as jnp's do.  gp3_mm
-sums each product in k order by float32 FMA (TF32 off); the plain version
-takes torch.matmul's order, so the two are equal where every partial sum
-is exact (integer-valued inputs small enough, mm_exact) and within
+splits K into 16 chunks over a cluster of 16 blocks, sums each chunk by
+float32 FMA in k order (TF32 off) and adds the chunks' sums in a fixed
+order (no atomics: two calls give the same bits); the plain version takes
+torch.matmul's order, so the two are equal where every partial sum is
+exact (integer-valued inputs small enough, mm_exact) and within
 mm_tolerance elsewhere.
 
 On the probe's own inputs (tables drawn from [0, 2^20), as the TPU

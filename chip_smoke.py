@@ -151,10 +151,9 @@ Three phases; any failure exits non-zero without printing a result.
      gives every lane, the ones with a query over 4095 bases included, to
      ext_pl_kernel: 0 dispatches of the plain extension;
    * the FM-step probe (tools/torch_fm_step_probe.py, 8192 lanes, 64
-     steps): the chained index-row gather inside one kernel
-     (fm_chain_words, fm_chain_rows) beside the same chain and the real
-     scan step issued from PyTorch, and beside one serial step measured
-     on a single block.
+     steps): the chained index-row gather in one call (fm_chain_words,
+     fm_chain_rows: the row sums once, then the chain through them) beside
+     the same chain and the real scan step issued from PyTorch.
    Each path runs with every launch count set to 0 just before it and
    read just after; a path that never launched its kernel, or launched
    another path's, fails.  Each alignment path prints reads/s, the stage
@@ -167,7 +166,16 @@ Three phases; any failure exits non-zero without printing a result.
    kept, and the kernel is held against its plain version on those lanes
    too, and timed at each G (each G's output held to plain as well); the
    kernels line reports these main-path lanes.  The FM probe
-   kernels are held against their plain version on the probe's own lanes.
+   kernels are held against their plain version on the probe's own lanes,
+   then (phase_fm_mm, tools/torch_fm_mm_variants.py) after 0, 1, 37 and
+   64 steps on the index's table at its seq_len and at rows x 128, and on
+   a random table of 262145 rows at rows x 128, where k + S wraps past
+   int32 on some steps; timed in turns with the
+   design they replaced on the device alone, beside one serial step of
+   that design and of the full-row step a seeding kernel would pay.
+   gp3_mm is held the same way (exact on integer-valued inputs, within
+   mm_tolerance on normal ones, the same bits twice, and at other shapes)
+   and timed in turns with the design it replaced.
    Last, the seeding and merging tools through cli.main on the card, with
    the stage timers on: fastmap and maxk over the first 8192 reads of
    101 bp (two CLI batches of 4096; no extension kernel may launch;
@@ -244,9 +252,6 @@ PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 33.5e12
 PEAK_INT16X2_OPS = 67e12
 OPS_PER_CELL = 16      # int32 operations of ksw's recurrence per DP cell
-# steps of the FM probe's one-block chain, which measures what one serial
-# step of a lane costs when nothing overlaps it
-FM_SERIAL_STEPS = 4096
 # the gather-strategy probe at tools/pl_gather_probe.py's defaults
 GP_LANES, GP_STEPS = 8192, 16
 # round 2 of the gather probe, at tools/pl_gather_probe2.py's defaults
@@ -306,6 +311,7 @@ def phase_env():
                                       gather_probe, gather_probe2,
                                       gather_probe3, int_rate, pl_probe)
     import torch_dg_variants
+    import torch_fm_mm_variants
     errors = []
 
     def build(name, fn):
@@ -334,6 +340,8 @@ def phase_env():
         ("int_rate_kernel.cu, five mixes (nvcc sm_90a)", int_rate.LIB.load),
         ("tools/dg_variants.cu, the 5d and 7A designs weighed (nvcc "
          "sm_90a)", torch_dg_variants.library),
+        ("tools/fm_mm_variants.cu, the #3 and 7D designs weighed (nvcc "
+         "sm_90a)", torch_fm_mm_variants.library),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -2118,8 +2126,8 @@ def fm_bound(n_lanes, steps, nb, W):
     Operations: W adds, the shift and address, the add and the non-negative
     remainder per lane and step (W + 6 int32 operations).  Neither is what
     holds the kernel: a lane's steps are serial, so it cannot finish before
-    `steps` dependent loads have come back; phase_fm_probe measures that
-    step and prints it beside the bound."""
+    `steps` dependent loads have come back; phase_fm_mm measures one
+    serial step and prints it beside the bound."""
     nbytes = min(nb, n_lanes * steps) * W * 4 + 2 * 4 * n_lanes
     ops = n_lanes * steps * (W + 6)
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -2131,7 +2139,8 @@ def fm_bound(n_lanes, steps, nb, W):
 def phase_fm_probe():
     """The FM-step probe as its users run it (launch counts from 0), then
     both kernel entries against the plain chain_gather on the probe's
-    lanes, timed with CUDA events.  Returns the two kernels-line entries."""
+    lanes, timed with CUDA events.  Returns the two kernels-line entries
+    (phase_fm_mm adds the device times and the serial steps)."""
     import numpy as np
     import torch
     import se_smoke_data as sd
@@ -2180,30 +2189,94 @@ def phase_fm_probe():
         if err:
             raise RuntimeError(f"{name} disagrees with chain_gather")
         ms = median_ms(lambda: fn(*args))
-        # one block of 128 lanes: its 4 warps share an SM and no lane waits
-        # on another, so time / steps is one serial step with nothing to
-        # overlap it — the dependent load from L2, the sum and the
-        # remainder
-        serial_ms = median_ms(lambda: fn(cmb32, k0[:fm_probe.LANES],
-                                         FM_SERIAL_STEPS, seq_len))
-        step_ns = serial_ms / FM_SERIAL_STEPS * 1e6
-        floor = FM_STEPS * step_ns * 1e-6
         log(f"{name} {ms:.4f} ms ({ms / FM_STEPS * 1e3:.3f} us/step), "
-            f"{ms / bound_ms:.1f} times the bound; one serial step "
-            f"measured on one block over {FM_SERIAL_STEPS} steps: "
-            f"{step_ns:.1f} ns, so {FM_STEPS} steps cannot take under "
-            f"{floor:.5f} ms: the "
-            f"{'serial chain' if floor > bound_ms else 'bound'} is the "
-            f"larger ({ms / floor:.2f} times the serial chain)")
+            f"{ms / bound_ms:.1f} times the bound")
         entries.append(dict(
             name=name, route="cuda",
             source="bwamem_tpu_torch/csrc/fm_probe_kernel.cu",
             replaces=f"tools/fm_step_probe.py:{line}",
             launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms, serial_step_ns=step_ns,
-            torch_extend_step_us=extend_us))
+            library_ms=library_ms, torch_extend_step_us=extend_us))
     return entries
+
+
+# the shipped kernels of #3 and 7D (every instantiation in
+# tools/fm_mm_variants.cu's library, built with -Xptxas -v)
+FM_MM_SHIPPED = ("fm_sums_kernel", "fm_l2_kernel", "mm_split_kernel")
+
+
+def phase_fm_mm(kerns3, kerns_gp3):
+    """Kernels #3 (fm_chain_words, fm_chain_rows) and 7D (gp3_mm) against
+    the designs they replaced (tools/torch_fm_mm_variants.py, whose
+    library phase 1 builds).  #3: both wrappers and the replaced designs
+    held against chain_gather after 0, 1, 37 and 64 steps on the index's
+    table at its seq_len and at rows x 128 and on a random table of
+    262145 rows at rows x 128, where some steps must wrap k + S past
+    int32; then timed in turns on the device alone; then one serial
+    step (one block of 128 lanes over 4096 steps) of each replaced design
+    (serial_step_ns, measured as before on the design then shipped),
+    of the shipped one and of the full-row step by four threads a lane
+    (full_row_step_ns: the better load of two, the step a seeding kernel
+    would pay).  7D: the shipped and the replaced design held on the
+    probe's normal and integer-valued inputs (exact there, and the same
+    bits twice), the shipped one also at other shapes, then timed in
+    turns.  The numbers join the kernels-line entries: device_ms,
+    replaced_device_ms, serial_step_ns, shipped_serial_step_ns and
+    full_row_step_ns (#3); replaced_device_ms (normal inputs) and
+    `variants` ({kind: {shipped | replaced | library: dict(device_ms,
+    ms)}}) (7D)."""
+    import torch
+    import torch_fm_mm_variants as fmv
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = fmv.library()
+    regs = fmv.ptxas(lib)
+    shipped = {k: v for k, v in regs.items()
+               if any(n in k for n in FM_MM_SHIPPED)}
+    for kern, (r, ss, sl) in sorted(shipped.items()):
+        log(f"ptxas {kern}: {r} registers, {ss} bytes spill stores, {sl} "
+            f"loads")
+    if len(shipped) < len(FM_MM_SHIPPED) or any(
+            ss or sl for _, ss, sl in shipped.values()):
+        raise RuntimeError(f"a #3 or 7D kernel spills: {shipped}")
+    x = fmv.fm_inputs(dev, log)
+    for label in ("index max", "random"):
+        if fmv.wraps(*x[label][:2], fmv.FM_STEPS, x[label][2]) <= 0:
+            raise RuntimeError(f"#3 {label}: no step wraps k + S")
+    errs = fmv.check_fm(lib, x, log, names=fmv.FM_REPLACED)
+    times = fmv.times_fm(lib, x, log, names=fmv.FM_REPLACED)
+    serial = fmv.serial_steps(lib, x, log, (*fmv.FM_REPLACED, "full_ldg",
+                                            "full_cg"))
+    full = min(serial["full_ldg"], serial["full_cg"])
+    for e in kerns3:
+        kind = "words" if e["name"] == "fm_chain_words" else "rows"
+        e.update(
+            max_abs_err=max(e["max_abs_err"], *(
+                v for k, v in errs.items()
+                if k.startswith(f"shipped_{kind} "))),
+            device_ms=times[f"shipped_{kind}"]["device_ms"],
+            replaced_device_ms=times[f"replaced_{kind}"]["device_ms"],
+            serial_step_ns=serial[f"replaced_{kind}"],
+            shipped_serial_step_ns=serial["shipped_rows"],
+            full_row_step_ns=full)
+        log(f"{e['name']}: device {e['device_ms']:.5f} ms against the "
+            f"replaced design's {e['replaced_device_ms']:.5f} (in turns); "
+            f"a serial step {e['serial_step_ns']:.1f} ns replaced, "
+            f"{serial['shipped_rows']:.1f} shipped, full row {full:.1f}; "
+            f"bound {e['bound_ms']:.5f} ms, device time / bound "
+            f"{e['device_ms'] / e['bound_ms']:.1f}")
+    mx = fmv.mm_inputs(dev)
+    fmv.check_mm(lib, mx, log, names=("replaced",))
+    mt = fmv.times_mm(lib, mx, log, names=("replaced",))
+    e = next(e for e in kerns_gp3 if e["name"] == "gp3_mm")
+    e.update(replaced_device_ms=mt["normal"]["replaced"]["device_ms"],
+             variants=mt)
+    log("gp3_mm in turns, device ms, normal / integer inputs: shipped "
+        + " / ".join(f"{mt[k]['shipped']['device_ms']:.5f}" for k in mt)
+        + ", replaced "
+        + " / ".join(f"{mt[k]['replaced']['device_ms']:.5f}" for k in mt))
+    log(f"#3 and 7D phase: {time.perf_counter() - t0:.1f} s")
 
 
 def run_cli(argv, device):
@@ -2644,6 +2717,7 @@ def main() -> int:
     kerns_gp3 = phase_gather_probe3()
     phase_ct(kerns_gp3)
     phase_take_dg(kerns_gp, kerns_gp3)
+    phase_fm_mm(kerns3, kerns_gp3)
     phase_col0(kerns_gp2, kerns_gp3)
     kerns_dp_pl = phase_dispatch_pl_probe()
     from bwamem_tpu_torch.index import load_index

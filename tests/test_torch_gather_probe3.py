@@ -272,6 +272,31 @@ def test_mm_plain_and_lanes_match_pallas(kind):
             assert np.abs(got.astype(np.float64) - want).max() <= tol
 
 
+@pytest.mark.parametrize("M,K,N,rows", [(8, 5, 7, 8), (24, 40, 16, 8),
+                                        (13, 640, 300, 13),
+                                        (8, 2000, 128, 8)])
+@pytest.mark.parametrize("kind", ["integer", "normal"])
+def test_mm_lanes_split_k_against_plain(kind, M, K, N, rows):
+    """gp3_mm_host runs the card's order: K in MM_CS x MM_G chunks (empty
+    ones where K is smaller), each summed by FMA in k order, the chunks
+    added in order, then the 64 adds.  Exact on integer-valued inputs,
+    within mm_tolerance on normal ones, the same bits on a second call."""
+    a, b = _mm_inputs(kind, seed=K + N, M=M, K=K, N=N)
+    plain = gp3.mm_plain(T(a), T(b), 64, rows).numpy().astype(np.float64)
+
+    def lanes():
+        return _host("gp3_mm_host", a, b, np.zeros((rows, N), np.float32),
+                     rows, K, N, 64)
+    got = lanes()
+    assert np.array_equal(got.view(np.int32), lanes().view(np.int32))
+    assert gp3.mm_exact(T(a), T(b), 64, rows) == (kind == "integer")
+    if kind == "integer":
+        assert_same(plain.astype(np.float32), got, "mm lanes")
+    else:
+        err = np.abs(got.astype(np.float64) - plain).max()
+        assert err <= gp3.mm_tolerance(T(a), T(b), 64, rows)
+
+
 def test_mm_adds_in_order_not_by_a_multiple():
     """64 rounded additions of m are not 64 * m: a value whose sums round
     tells them apart, and plain, lanes and Pallas all add."""

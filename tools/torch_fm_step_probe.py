@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """What a step of the seeding scans costs on a GPU, issued from PyTorch and
-inside one kernel.
+in one call of hand-written kernels.
 
     python3 tools/torch_fm_step_probe.py [n_lanes] [steps]
 
@@ -13,9 +13,10 @@ build/chip_smoke/), with n_lanes lanes (8192) and `steps` chained steps
    step, a few dozen launches);
 2. the chained bare gather of one combined index row per lane per step, and
    of two rows, in PyTorch: the gather without the popcount work;
-3. the same chained one-row gather inside ONE hand-written CUDA kernel
-   (ops/fm_probe: fm_chain_words reads the row word by word, fm_chain_rows
-   with 16-byte vector loads).
+3. the same chained one-row gather in one call of the hand-written CUDA
+   kernels (ops/fm_probe: a pass takes every row's sum, fm_chain_words
+   reading the row word by word and fm_chain_rows with 16-byte vector
+   loads, then one kernel runs every lane's chain through the sums).
 
 Both kernel outputs are checked against the plain chain_gather for exact
 equality before anything is timed; a difference exits non-zero.  Times are
