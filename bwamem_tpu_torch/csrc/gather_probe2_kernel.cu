@@ -5,15 +5,23 @@
 //   gp2_take_ax0   (kernel in probe_b, :75)  a chained gather along axis 0:
 //                  kk = (kk + tab[kk[i,j], j]) mod R, `steps` times, on
 //                  tab and kk [R,128].  Element (i,j) reads only column j,
-//                  so a block takes one column: it stages the column's R
-//                  words in shared memory (2 KB at R = 512; the whole
-//                  256 KB table would not fit in the 227 KB a block may
-//                  have) and runs the R chains of that column, one thread
-//                  each, every step a dependent shared-memory load.
+//                  and its step is a fixed map of its own state, T_j(k) =
+//                  next_k(k, tab[k, j], R) (the int32 wrap and the sign of
+//                  the remainder inside the map: ModStep), so the same
+//                  function takes the map once a launch and a step is one
+//                  lookup.
 //   gp2_take_ax1   (kernel in probe_c, :98)  the same along axis 1:
-//                  kk = (kk + tab[i, kk[i,j]]) mod 128 on [S,128].  A block
-//                  takes one row (512 B in shared memory) and its 128
-//                  chains.  At S = 8 the launch is all there is.
+//                  kk = (kk + tab[i, kk[i,j]]) mod 128 on [S,128], the map
+//                  of row i T_i(k) = next_k(k, tab[i, k], 128).
+//                  Both launch csrc/line_pow.cuh's kernels, which gp3_dg
+//                  launches with its clip: at the probe's R = 512 a block a
+//                  column with T_j 16-bit in shared memory, each of the 32
+//                  steps one dependent 16-bit load (up to 48 steps; past
+//                  that T_j's powers by squaring); at axis 1 (and R from 33
+//                  to 128) a warp a row, T_i in four registers a lane, its
+//                  powers by squaring (32 steps: five squarings and one
+//                  lookup of four shuffles); at R up to 32 a segment of a
+//                  warp a column, a lookup one shuffle.
 //   gp2_col0       (kernel in probe_d, :122) out[q] = tab[k[q], 0] on a
 //                  table of W-word rows: col0_kernel of csrc/col0.cuh,
 //                  which gp3_col0 launches too.
@@ -40,8 +48,15 @@
 // move under a megabyte (tab, kk in and out: 786 KB for take_ax0 at
 // [512,128], 197 KB for take_ax1 at [128,128], tens of KB for col0 at 1024
 // lanes; for onehot_f32 k, out and at most Q table words, about 12 KB at
-// Q = 1024), well under a microsecond, so launch latency and the dependent
-// steps of the chains are what one sees.  onehot_f32 does not make the TPU
+// Q = 1024), well under a microsecond, so one launch's latency is the
+// floor.  For the chains, what comes after it: the design they replaced
+// (a block a line, a thread a chain) took 32 dependent shared loads, each
+// behind the add and a remainder by a run-time divisor; with the map taken
+// once a step is one load (take_ax0) or a squaring is four shuffles
+// (take_ax1).  take_ax0 still reads a column of tab and of kk and writes
+// one of out, a word from each of 512 rows: at 0 steps that alone is
+// about 2 us past the launch, as in every design weighed
+// (tools/torch_take2_variants.py).  onehot_f32 does not make the TPU
 // kernel's whole product (2 x Q x A x 128 FMA operations).
 //
 // The same source compiles as host C++ (no __CUDACC__), exposing the lane
@@ -50,6 +65,7 @@
 #include <stdint.h>
 
 #include "col0.cuh"
+#include "line_pow.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -68,13 +84,10 @@ static GP_HD inline int next_k(int k, int g, int m) {
   return r < 0 ? r + m : r;
 }
 
-// one chain: kk = next_k(kk, words[kk * stride], m), `steps` times; words
-// is the column (axis 0) or row (axis 1) the chain reads
-static GP_HD inline int chain(const int* words, long long stride, int kk,
-                              int steps, int m) {
-  for (int s = 0; s < steps; ++s) kk = next_k(kk, words[kk * stride], m);
-  return kk;
-}
+// the chains' step as line_pow.cuh takes it
+struct ModStep {
+  static GP_HD inline int at(int k, int g, int m) { return next_k(k, g, m); }
+};
 
 // lane of gp2_onehot_f32 for the query kq: f32(tab.flat[kq]) truncated to
 // int, 0 where row kq >> 7 (an arithmetic shift) is outside [0, A); the
@@ -88,30 +101,6 @@ static GP_HD inline int onehot_f32_lane(const int* __restrict__ tab, int kq,
 
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(512)
-gp2_take_ax0_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
-                    int* __restrict__ out, int R, int steps) {
-  extern __shared__ int col[];                   // column j, R words
-  const int j = blockIdx.x;
-  for (int r = threadIdx.x; r < R; r += blockDim.x)
-    col[r] = tab[(long long)r * 128 + j];
-  __syncthreads();
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const long long e = (long long)r * 128 + j;
-    out[e] = chain(col, 1, kk0[e], steps, R);
-  }
-}
-
-__global__ void __launch_bounds__(128)
-gp2_take_ax1_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
-                    int* __restrict__ out, int steps) {
-  __shared__ int row[128];
-  const long long e = (long long)blockIdx.x * 128 + threadIdx.x;
-  row[threadIdx.x] = tab[e];
-  __syncthreads();
-  out[e] = chain(row, 1, kk0[e], steps, 128);
-}
-
 __global__ void __launch_bounds__(128)
 gp2_onehot_f32_kernel(const int* __restrict__ tab,
                       const int* __restrict__ k, int* __restrict__ out,
@@ -124,28 +113,18 @@ gp2_onehot_f32_kernel(const int* __restrict__ tab,
 // after the launch on the caller's stream.  The wrappers in
 // ops/gather_probe2.py check shapes (the 128-column tables, R words of
 // shared memory at most).
+// the chains: line_pow.cuh's kernels with the remainder as the step (R x 4
+// bytes of shared memory at most, which the wrapper checks)
 extern "C" int gp2_take_ax0(const int* tab, const int* kk0, int* out, int R,
                             int steps, void* stream) {
-  const size_t smem = (size_t)R * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gp2_take_ax0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int threads = R < 512 ? (R + 31) / 32 * 32 : 512;
-  if (R > 0)
-    gp2_take_ax0_kernel<<<128, threads, smem, (cudaStream_t)stream>>>(
-        tab, kk0, out, R, steps);
-  return (int)cudaGetLastError();
+  return line_pow_launch<ModStep>(tab, kk0, out, R, 128, steps, 0,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" int gp2_take_ax1(const int* tab, const int* kk0, int* out, int S,
                             int steps, void* stream) {
-  if (S > 0)
-    gp2_take_ax1_kernel<<<S, 128, 0, (cudaStream_t)stream>>>(tab, kk0, out,
-                                                             steps);
-  return (int)cudaGetLastError();
+  return line_pow_launch<ModStep>(tab, kk0, out, S, 128, steps, 1,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" int gp2_col0(const int* tab, const int* k, int* out, int N, int W,
@@ -163,19 +142,16 @@ extern "C" int gp2_onehot_f32(const int* tab, const int* k, int* out, int N,
 
 #else
 
-// Host builds of the lane loops (all pointers are host memory).
+// Host builds of the lane loops (all pointers are host memory); the
+// chains run line_pow.cuh's algorithm in the card's order.
 extern "C" int gp2_take_ax0_host(const int* tab, const int* kk0, int* out,
                                  int R, int steps) {
-  for (long long e = 0; e < (long long)R * 128; ++e)
-    out[e] = chain(tab + (e & 127), 128, kk0[e], steps, R);
-  return 0;
+  return line_pow_host<ModStep>(tab, kk0, out, R, 128, steps, 0);
 }
 
 extern "C" int gp2_take_ax1_host(const int* tab, const int* kk0, int* out,
                                  int S, int steps) {
-  for (long long e = 0; e < (long long)S * 128; ++e)
-    out[e] = chain(tab + (e & ~127LL), 1, kk0[e], steps, 128);
-  return 0;
+  return line_pow_host<ModStep>(tab, kk0, out, S, 128, steps, 1);
 }
 
 extern "C" int gp2_col0_host(const int* tab, const int* k, int* out, int N,

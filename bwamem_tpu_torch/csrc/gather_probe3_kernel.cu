@@ -8,19 +8,14 @@
 //             axis's size.  An element reads only its column (axis 0) or
 //             its row (axis 1), and its step is a fixed map of its own
 //             state within that line, T(k) = clip(k + line[k], 0, hi - 1)
-//             (the wrap and the clip inside the map).  A fixed map
-//             composes, so the kernel computes the same function in
-//             fewer dependent steps: the powers T^(2^b) by squaring
-//             (T^2(r) = T(T(r))), the state taking T^(2^b) for each set
-//             bit b of `steps`, lowest first (the powers of one map
-//             commute): 512 steps are nine squarings and one lookup.  At
-//             hi up to 32 (B8, B32) a line is a segment of a warp, a lane
-//             a row, T and the state in registers and each lookup a
-//             shuffle within the segment (dg_warp_kernel: 32 / hi lines a
-//             warp rounded up to a power of two, no shared memory and no
-//             barrier); past 32 (C512) a block a line, the powers 16-bit
-//             in two shared-memory buffers in turns, a block barrier a
-//             round (dg_block_kernel).
+//             (the wrap and the clip inside the map: ClipStep).  The
+//             kernels are csrc/line_pow.cuh's, which gp2_take_ax0 and
+//             gp2_take_ax1 launch with their own step: the map's powers by
+//             squaring, the state taking T^(2^b) for each set bit b of
+//             `steps` (512 steps are nine squarings and one lookup); at hi
+//             up to 32 (B8, B32) a segment of a warp a line, each lookup a
+//             shuffle (pow_warp_kernel); past 32 (C512) a block a line,
+//             the powers 16-bit in shared memory (pow_block_kernel).
 //   gp3_ct    (kernel in probe_ct, :79)  a take along axis 1, a transpose
 //             and a second take at the same kk: per step g2[i, j] =
 //             tab[m, kk[m, i]] with m = kk[i, j], then kk = clip(kk + g2,
@@ -113,6 +108,7 @@
 #include <string.h>
 
 #include "col0.cuh"
+#include "line_pow.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -136,17 +132,18 @@ static GP_HD inline int clip_step(int k, int g, int hi) {
   return v < 0 ? 0 : (v > hi - 1 ? hi - 1 : v);
 }
 
+// gp3_dg's step as line_pow.cuh takes it
+struct ClipStep {
+  static GP_HD inline int at(int k, int g, int hi) {
+    return clip_step(k, g, hi);
+  }
+};
+
 // one gp3_dg chain over a line of hi words (stride apart)
 static GP_HD inline int dg_chain(const int* line, long long stride, int k,
                                  int steps, int hi) {
   for (int s = 0; s < steps; ++s) k = clip_step(k, line[k * stride], hi);
   return k;
-}
-
-// gp3_dg's element r of line x (the column at axis 0, the row at axis
-// 1): its flat index in [S, L]
-static GP_HD inline long long dg_elem(int axis, int x, int r, int L) {
-  return axis == 0 ? (long long)r * L + x : (long long)x * L + r;
 }
 
 // element e of the rows [row0, row0 + rows) of an N-column state: column
@@ -184,65 +181,6 @@ static GP_HD inline void mm_chunk(int j, int chunks, int K, int& k0,
 }
 
 #ifdef __CUDACC__
-
-// hi <= 32: a lane a row of a line, a segment of W lanes (a power of two
-// >= hi) a line, 32 / W lines a warp; lanes past hi or past the last line
-// take part in every shuffle and store nothing
-template <int AX>
-__global__ void __launch_bounds__(128)
-dg_warp_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
-               int* __restrict__ out, int S, int L, int steps, int W) {
-  const int hi = AX == 0 ? S : L, lines = AX == 0 ? L : S;
-  const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int x = warp * (32 / W) + lane / W, r = lane & (W - 1);
-  const bool on = x < lines && r < hi;
-  const long long e = on ? dg_elem(AX, x, r, L) : 0;
-  int p = on ? clip_step(r, __ldg(tab + e), hi) : 0;
-  int k = on ? __ldg(kk0 + e) : 0;
-  for (int s = steps; s; s >>= 1) {
-    if (s & 1) k = __shfl_sync(0xffffffffu, p, k, W);
-    if (s >> 1) p = __shfl_sync(0xffffffffu, p, p, W);
-  }
-  if (on) out[e] = k;
-}
-
-// hi > 32: a block a line; the power in use and the next one 16-bit in
-// shared memory (2 x hi entries), the states in out (each touched only by
-// its thread, once a set bit)
-template <int AX>
-__global__ void __launch_bounds__(1024)
-dg_block_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
-                int* __restrict__ out, int S, int L, int steps) {
-  extern __shared__ uint16_t dg_sm[];
-  const int hi = AX == 0 ? S : L;
-  const int x = blockIdx.x;
-  uint16_t* cur = dg_sm;
-  uint16_t* nxt = dg_sm + hi;
-  for (int r = threadIdx.x; r < hi; r += blockDim.x)
-    cur[r] = (uint16_t)clip_step(r, __ldg(tab + dg_elem(AX, x, r, L)), hi);
-  __syncthreads();
-  bool first = true;                     // the states are still kk0's
-  for (int s = steps; s; s >>= 1) {
-    for (int r = threadIdx.x; r < hi; r += blockDim.x) {
-      if (s & 1) {
-        const long long e = dg_elem(AX, x, r, L);
-        out[e] = cur[first ? __ldg(kk0 + e) : out[e]];
-      }
-      if (s >> 1) nxt[r] = cur[cur[r]];
-    }
-    first = first && !(s & 1);
-    __syncthreads();
-    uint16_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  if (first)
-    for (int r = threadIdx.x; r < hi; r += blockDim.x) {
-      const long long e = dg_elem(AX, x, r, L);
-      out[e] = __ldg(kk0 + e);
-    }
-}
 
 // ---- gp3_ct ----
 // A thread's K elements: v[k] the state, at[k] = i << 16 | the element's
@@ -530,38 +468,11 @@ mm_split_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // C entries for ctypes: device pointers; each returns cudaGetLastError()
 // after the launch on the caller's stream.  The wrappers in
 // ops/gather_probe3.py check shapes and the shared memory each needs.
-// hi up to 32 the warp design (blocks of 4 warps), past that a block a line
-// with two 16-bit powers of hi entries in shared memory (hi <= 58112, the
-// wrapper's limit, fits: 4 x hi bytes)
+// line_pow.cuh's kernels with gp3_dg's step
 extern "C" int gp3_dg(const int* tab, const int* kk0, int* out, int S, int L,
                       int steps, int axis, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int hi = axis == 0 ? S : L, lines = axis == 0 ? L : S;
-  if (lines < 1 || hi < 1) return (int)cudaGetLastError();
-  if (hi <= 32) {
-    int W = 1;
-    while (W < hi) W *= 2;
-    const int warps = (lines + 32 / W - 1) / (32 / W);
-    const int blocks = (warps + 3) / 4;
-    if (axis == 0)
-      dg_warp_kernel<0><<<blocks, 128, 0, st>>>(tab, kk0, out, S, L, steps, W);
-    else
-      dg_warp_kernel<1><<<blocks, 128, 0, st>>>(tab, kk0, out, S, L, steps, W);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = (size_t)2 * hi * sizeof(uint16_t);
-  const int threads = hi < 1024 ? (hi + 31) / 32 * 32 : 1024;
-  const void* fn = axis == 0 ? (const void*)dg_block_kernel<0>
-                             : (const void*)dg_block_kernel<1>;
-  const int rc = smem_opt_in(fn, smem);
-  if (rc) return rc;
-  if (axis == 0)
-    dg_block_kernel<0><<<lines, threads, smem, st>>>(tab, kk0, out, S, L,
-                                                     steps);
-  else
-    dg_block_kernel<1><<<lines, threads, smem, st>>>(tab, kk0, out, S, L,
-                                                     steps);
-  return (int)cudaGetLastError();
+  return line_pow_launch<ClipStep>(tab, kk0, out, S, L, steps, axis,
+                                   (cudaStream_t)stream);
 }
 
 static int ct_block_launch(const int* tab, const int* kk0, int* out, int N,
@@ -676,37 +587,12 @@ extern "C" int gp3_dg_host(const int* tab, const int* kk0, int* out, int S,
   return 0;
 }
 
-// gp3_dg as the card computes it: each line's map T, its powers by
-// squaring and the state taking T^(2^b) for each set bit b of `steps`,
-// lowest first, as dg_warp_kernel (a shuffle at the state: the segment's
-// lane) and dg_block_kernel (a 16-bit power in shared memory) both do
+// gp3_dg as the card computes it: line_pow.cuh's algorithm (each line's
+// map T, its powers by squaring, the state taking T^(2^b) for each set
+// bit b of `steps`, lowest first) with gp3_dg's step
 extern "C" int gp3_dg_double_host(const int* tab, const int* kk0, int* out,
                                   int S, int L, int steps, int axis) {
-  const int hi = axis == 0 ? S : L, lines = axis == 0 ? L : S;
-  uint16_t* cur = (uint16_t*)malloc((size_t)2 * hi * sizeof(uint16_t));
-  if (!cur) return 2;
-  uint16_t* nxt = cur + hi;
-  for (int x = 0; x < lines; ++x) {
-    uint16_t* p = cur;
-    uint16_t* q = nxt;
-    for (int r = 0; r < hi; ++r) {
-      const long long e = dg_elem(axis, x, r, L);
-      p[r] = (uint16_t)clip_step(r, tab[e], hi);
-      out[e] = kk0[e];
-    }
-    for (int s = steps; s; s >>= 1) {
-      for (int r = 0; r < hi; ++r) {
-        const long long e = dg_elem(axis, x, r, L);
-        if (s & 1) out[e] = p[out[e]];
-        if (s >> 1) q[r] = p[p[r]];
-      }
-      uint16_t* t = p;
-      p = q;
-      q = t;
-    }
-  }
-  free(cur);
-  return 0;
+  return line_pow_host<ClipStep>(tab, kk0, out, S, L, steps, axis);
 }
 
 // gp3_ct as `blocks` blocks that split the rows (1: the one block; CT_CS

@@ -22,6 +22,16 @@ package's tools/pl_gather_probe2.py:
                                    the kernel computes it so: one load a
                                    query, no product
 
+gp2_take_ax0 and gp2_take_ax1 launch the kernels of csrc/line_pow.cuh,
+which gp3_dg launches too: a step of line x (a column at axis 0, a row at
+axis 1) is a fixed map of the state, T_x(k) = (k + tab[k, x]) mod R at
+axis 0, (k + tab[x, k]) mod 128 at axis 1, with the wrap and the
+remainder's sign inside it, so the kernel takes T_x once a launch and
+computes the same function: at the probe's R = 512 a block a column,
+each step one 16-bit shared load (past 48 steps the map's powers by
+squaring); at axis 1 a warp a row, the map in registers and its powers by
+squaring; at R up to 32 a segment of a warp a column.
+
 Preconditions the kernels do not check (a plain version raises on the
 first two): kk in [0, R) for gp2_take_ax0 and in [0, 128) for
 gp2_take_ax1, k in [0, R) for gp2_col0, and |tab| <= 2^31 - 129 for

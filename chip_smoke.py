@@ -65,7 +65,18 @@ Three phases; any failure exits non-zero without printing a result.
    each also timed on the device alone; gp2_onehot_f32 is also held on a
    small input past the probe's range (table values up to +-2^23, and in
    (2^24, 2^30) with float32 ties, where int32 -> float32 rounds; k at both
-   ends of the table and outside it).
+   ends of the table and outside it).  gp2_take_ax0 and gp2_take_ax1 (the
+   kernels of csrc/line_pow.cuh, which gp3_dg launches too) are also
+   held, with the designs they replaced, on tables from the CPU tests'
+   ranges (adds that wrap past int32) after 0, 1, 5, 31, 32, 33 and 49
+   steps (49: the block design composes its map), at R 1, 5, 32, 33,
+   128, 129, 512 and 58112 (the warp-segment design and its edge, the
+   warp-a-line design's ends, the block design's first, the probe's, and
+   the wrapper's limit) and S 1, 8, 128 and 1000;
+   ptxas's registers and spills of the shipped kernels printed (a spill
+   fails the run); then each timed on the device alone in turns with the
+   design it replaced on the probe's inputs
+   (tools/torch_take2_variants.py, which alone times the other designs).
 2d. Round 3 of the gather probe (tools/torch_pl_gather_probe3.py) at the
    TPU script's shapes (512 steps; the clipped chain on B8 [8,128] and B32
    [32,128] along axis 0 and C512 [128,512] along axis 1, the transpose
@@ -86,11 +97,11 @@ Three phases; any failure exits non-zero without printing a result.
    takes its column design, and at R 1, 33, 1000, 109376 and 109377, the
    first R where it takes a thread an element) and 0, 1, 37, 511 and 512
    (7A, its three shapes and lines of 1, 5, 40, 1000 and 2000 words: the
-   warp design and the block design), ptxas's registers and spills of
-   both shipped designs printed (a spill fails the run), then each timed
-   on the device alone in turns with the design it replaced on the
-   probe's and the spread input (tools/torch_dg_variants.py, which alone times the
-   other designs).
+   warp-segment, warp-a-line and block designs), ptxas's registers and
+   spills of both shipped designs printed (a spill fails the run), then
+   each timed on the device alone in turns with the design it replaced
+   on the probe's and the spread input (tools/torch_dg_variants.py,
+   which alone times the other designs).
    The column-0 gathers of 2c and 2d (D, gp2_col0, and gp3_col0: one
    kernel, csrc/col0.cuh) are timed as 200 back-to-back calls, on the
    device alone and on the host clock, in turns with tab[k, 0]; then
@@ -312,6 +323,7 @@ def phase_env():
                                       gather_probe3, int_rate, pl_probe)
     import torch_dg_variants
     import torch_fm_mm_variants
+    import torch_take2_variants
     errors = []
 
     def build(name, fn):
@@ -342,6 +354,8 @@ def phase_env():
          "sm_90a)", torch_dg_variants.library),
         ("tools/fm_mm_variants.cu, the #3 and 7D designs weighed (nvcc "
          "sm_90a)", torch_fm_mm_variants.library),
+        ("tools/take2_variants.cu, the 6B and 6C designs weighed (nvcc "
+         "sm_90a)", torch_take2_variants.library),
         ("hostops.c (cc)", native.load),
         ("sais.c (cc)", load_sais))]
     t0 = time.perf_counter()
@@ -1069,6 +1083,12 @@ def onehot_edge_inputs(seed, dev):
     return torch.from_numpy(tab).to(dev), torch.from_numpy(k).to(dev)
 
 
+# where the round-2 kernels' code lives, past gather_probe2_kernel.cu
+GP2_SOURCES = {"gp2_col0": "bwamem_tpu_torch/csrc/col0.cuh",
+               "gp2_take_ax0": "bwamem_tpu_torch/csrc/line_pow.cuh",
+               "gp2_take_ax1": "bwamem_tpu_torch/csrc/line_pow.cuh"}
+
+
 def phase_gather_probe2():
     """Round 2 of the gather probe as its users run it
     (tools/torch_pl_gather_probe2.probe, launch counts from 0; it checks
@@ -1135,8 +1155,8 @@ def phase_gather_probe2():
             continue
         entries[name] = dict(
             name=name, route="cuda",
-            source=("bwamem_tpu_torch/csrc/col0.cuh" if name == "gp2_col0"
-                    else "bwamem_tpu_torch/csrc/gather_probe2_kernel.cu"),
+            source=GP2_SOURCES.get(
+                name, "bwamem_tpu_torch/csrc/gather_probe2_kernel.cu"),
             replaces=f"tools/pl_gather_probe2.py:{line}",
             launches=launches[name], max_abs_err=err, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
@@ -1166,7 +1186,47 @@ def phase_gather_probe2():
                            "unrounded")
     e = entries["gp2_onehot_f32"]
     e["max_abs_err"] = max(e["max_abs_err"], err)
+    take2_turns(entries, x)
     return list(entries.values()), entries["gp2_col0"]
+
+
+def take2_turns(entries, x):
+    """Kernels 6B (gp2_take_ax0) and 6C (gp2_take_ax1) held against their
+    plain versions through their wrappers, with the designs they replaced
+    (tools/torch_take2_variants.check: the probe's inputs x and the wrap
+    tables, every step count and size), then ptxas's registers and spills
+    of the shipped kernels (a spill or a missing kernel fails), then each
+    timed in turns with the design it replaced on the probe's inputs (the
+    tool's rounds, on the device alone and between events).  The numbers
+    join the kernels-line entries: replaced_device_ms (6C's [8,128] with
+    _s8) and `variants` ({input: {shipped | replaced | "shipped, 0 steps":
+    dict(device_ms, ms, device_lo, device_hi)}})."""
+    import torch_take2_variants as t2v
+    t0 = time.perf_counter()
+    lib = t2v.library()
+    errs, calls = t2v.check(lib, x, log, designs=("replaced",))
+    regs = t2v.shipped_ptxas(lib)
+    for kern, (r, ss, sl) in sorted(regs.items()):
+        log(f"ptxas {kern}: {r} registers, {ss} bytes spill stores, {sl} "
+            f"loads")
+    if len(regs) < 8 or any(ss or sl for _, ss, sl in regs.values()):
+        raise RuntimeError(f"a shipped 6B or 6C kernel spills or was not "
+                           f"found: {regs}")
+    times = t2v.times(lib, x, log, designs=("replaced",), extras=False)
+    e = entries["gp2_take_ax0"]
+    t = times["6B [512,128]"]
+    e.update(max_abs_err=max(e["max_abs_err"], *(
+                 v for k, v in errs.items() if k.startswith("6B"))),
+             replaced_device_ms=t["replaced"]["device_ms"], variants=t)
+    e = entries["gp2_take_ax1"]
+    t, t8 = times["6C [128,128]"], times["6C [8,128]"]
+    e.update(max_abs_err=max(e["max_abs_err"], *(
+                 v for k, v in errs.items() if k.startswith("6C"))),
+             replaced_device_ms=t["replaced"]["device_ms"],
+             replaced_device_ms_s8=t8["replaced"]["device_ms"],
+             variants={"[128,128]": t, "[8,128]": t8})
+    log(f"6B and 6C turns: {calls} calls held, "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # keys of a kernels-line entry past the contract's: the host issue of the
@@ -1333,8 +1393,9 @@ def phase_gather_probe3():
             e["max_abs_err"] = max(e["max_abs_err"], err)
             continue
         e = dict(name=name, route="cuda",
-                 source=("bwamem_tpu_torch/csrc/col0.cuh" if name == "gp3_col0"
-                         else "bwamem_tpu_torch/csrc/gather_probe3_kernel.cu"),
+                 source={"gp3_col0": "bwamem_tpu_torch/csrc/col0.cuh",
+                         "gp3_dg": "bwamem_tpu_torch/csrc/line_pow.cuh"}.get(
+                     name, "bwamem_tpu_torch/csrc/gather_probe3_kernel.cu"),
                  replaces=f"tools/pl_gather_probe3.py:{line}",
                  launches=launches[name], max_abs_err=err, ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=bound_ms,
@@ -1437,7 +1498,8 @@ def phase_ct(kerns_gp3):
 # the shipped kernels of 5d and 7A (tools/dg_variants.cu's library holds
 # them too, built with -Xptxas -v)
 DG_SHIPPED = ("take_in_kernel", "take_col_kernel", "take_out_kernel",
-              "gp_take_ax0_kernel", "dg_warp_kernel", "dg_block_kernel")
+              "gp_take_ax0_kernel", "pow_warp_kernel", "pow_row_kernel",
+              "pow_block_kernel")
 
 
 def phase_take_dg(kerns_gp, kerns_gp3):
@@ -1447,8 +1509,9 @@ def phase_take_dg(kerns_gp, kerns_gp3):
     spread and wrapping inputs after 0, 1, 5 and 16 steps, and at R 1, 33,
     1000, 109376 and 109377, the first R that takes a thread an element; 7A at
     its three shapes on the same kinds after 0, 1, 37, 511 and 512 steps,
-    and at shapes of hi 1, 5, 40, 1000 and 2000, the warp design and the
-    block design; the replaced designs the same way at the timed shapes),
+    and at shapes of hi 1, 5, 40, 1000 and 2000, the warp-segment,
+    warp-a-line and block designs; the replaced designs the same way at
+    the timed shapes),
     then ptxas's registers and spills of the shipped kernels (a spill
     fails), then each timed in turns with the design it replaced on the
     probe's and the spread input (the tool's rounds, on the device alone

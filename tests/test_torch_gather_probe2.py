@@ -4,10 +4,13 @@ tools/pl_gather_probe2.py (:75-161), copied here with their sizes and
 STEPS as parameters, run under pl.pallas_call(..., interpret=True) at a
 small size, and each plain version must equal its kernel exactly; so must
 the lane loops of csrc/gather_probe2_kernel.cu, built for the host
-(gp2_take_ax0, gp2_take_ax1, gp2_col0, and gp2_onehot_f32's gather, held
-against the float32 one-hot product in interpret mode).  The edge cases:
-table values near +-2^31 for the chains (the int32 wrap, and the sign of
-the remainder), values up to 2^23 for the float32 one-hot product, values
+(gp2_take_ax0 and gp2_take_ax1 as the card runs them: csrc/line_pow.cuh's
+map taken once, its powers by squaring and a lookup a set bit of `steps`;
+gp2_col0, and gp2_onehot_f32's gather, held against the float32 one-hot
+product in interpret mode).  The edge cases: table values near +-2^31 for
+the chains (the int32 wrap, and the sign of the remainder), step counts
+with no bit, one, low bits and both ends set, R at the warp design's sizes
+and past them, values up to 2^23 for the float32 one-hot product, values
 in (2^24, 2^30) and at float32 ties there, where the int32 -> float32
 conversion rounds, and k at 0, at A * 128 - 1 and outside [0, A * 128)."""
 import ctypes
@@ -150,6 +153,46 @@ def test_take_ax1_plain_and_lanes_match_pallas(S, lo, hi):
     assert (want >= 0).all() and (want < 128).all()
     assert_same(want, _host("gp2_take_ax1_host", tab, kk, np.zeros_like(kk),
                             S, STEPS), "take_ax1 lanes")
+
+
+# step counts of the composed map: no bit set; one; low bits; five set
+# bits; one high bit; both ends; the first count the block design
+# composes rather than walks (csrc/line_pow.cuh's LP_CHAIN_STEPS, 48)
+POW_STEPS = (0, 1, 5, 31, 32, 33, 49)
+
+
+@pytest.mark.parametrize("steps", POW_STEPS)
+@pytest.mark.parametrize("R", [1, 5, 32, 33, 64, 128, 129])
+@pytest.mark.parametrize("lo,hi", RANGES)
+def test_take_ax0_composed_map_matches_pallas(lo, hi, R, steps):
+    """gp2_take_ax0_host runs the card's algorithm (the map of each
+    column built at its row, T_j(r) = (r + tab[r, j]) mod R; its powers by
+    squaring, the state taking one a set bit of `steps`, or at R past 128
+    and up to 48 steps the map walked a step at a time): R up to 32 the
+    warp-segment design's sizes, up to 128 the warp-a-line design's, 129
+    the block design's."""
+    rng = np.random.default_rng(8 + R * 64 + steps)
+    tab = _table(rng, (R, 128), lo, hi)
+    kk = rng.integers(0, R, (R, 128), dtype=np.int32)
+    want = np.asarray(pl_b(jnp.asarray(tab), jnp.asarray(kk), steps))
+    assert_same(want, gp2.take_ax0_plain(T(tab), T(kk), steps), "take_ax0")
+    assert_same(want, _host("gp2_take_ax0_host", tab, kk, np.zeros_like(kk),
+                            R, steps), "take_ax0 composed lanes")
+
+
+@pytest.mark.parametrize("steps", POW_STEPS)
+@pytest.mark.parametrize("S", [1, 8, 16])
+@pytest.mark.parametrize("lo,hi", RANGES)
+def test_take_ax1_composed_map_matches_pallas(lo, hi, S, steps):
+    """gp2_take_ax1_host runs the card's algorithm on each row's map
+    T_i(k) = (k + tab[i, k]) mod 128."""
+    rng = np.random.default_rng(9 + S * 64 + steps)
+    tab = _table(rng, (S, 128), lo, hi)
+    kk = rng.integers(0, 128, (S, 128), dtype=np.int32)
+    want = np.asarray(pl_c(jnp.asarray(tab), jnp.asarray(kk), steps))
+    assert_same(want, gp2.take_ax1_plain(T(tab), T(kk), steps), "take_ax1")
+    assert_same(want, _host("gp2_take_ax1_host", tab, kk, np.zeros_like(kk),
+                            S, steps), "take_ax1 composed lanes")
 
 
 def test_chains_with_no_steps_return_their_input():

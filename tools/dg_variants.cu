@@ -35,8 +35,9 @@
 //                  and the clip
 //   1 chain        the same with the clip taken once a launch: the line's
 //                  map T in shared memory, each step k = T[k]
-//   2 double_block the shipped block design (dg_block_kernel) at any hi
-//   3 double_warp  the shipped warp design (dg_warp_kernel), hi <= 32
+//   2 double_block the shipped block design (pow_block_kernel of
+//                  csrc/line_pow.cuh with ClipStep) at any hi
+//   3 double_warp  the shipped warp design (pow_warp_kernel), hi <= 32
 // chase: `steps` dependent loads k = t[k] by one warp (a permutation of n
 // words in shared memory or in device memory), timed by clock64 inside.
 #include "gather_probe_kernel.cu"
@@ -333,10 +334,10 @@ dg_chain_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
   const int hi = AX == 0 ? S : L;
   const int x = blockIdx.x;
   for (int r = threadIdx.x; r < hi; r += blockDim.x)
-    t[r] = clip_step(r, __ldg(tab + dg_elem(AX, x, r, L)), hi);
+    t[r] = clip_step(r, __ldg(tab + line_elem(AX, x, r, L)), hi);
   __syncthreads();
   for (int r = threadIdx.x; r < hi; r += blockDim.x) {
-    const long long e = dg_elem(AX, x, r, L);
+    const long long e = line_elem(AX, x, r, L);
     int k = __ldg(kk0 + e);
     for (int s = 0; s < steps; ++s) k = t[k];
     out[e] = k;
@@ -365,8 +366,8 @@ extern "C" int dg_variant(const int* tab, const int* kk0, int* out, int S,
     case 2:
       smem = (size_t)hi * 4;
       threads = hi < 1024 ? (hi + 31) / 32 * 32 : 1024;
-      fn = axis == 0 ? (const void*)dg_block_kernel<0>
-                     : (const void*)dg_block_kernel<1>;
+      fn = axis == 0 ? (const void*)pow_block_kernel<ClipStep, 0>
+                     : (const void*)pow_block_kernel<ClipStep, 1>;
       break;
     case 3:
       if (hi > 32) return (int)cudaErrorInvalidValue;

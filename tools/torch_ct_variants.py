@@ -565,7 +565,7 @@ def sources(names=VARIANTS) -> dict:
     from bwamem_tpu_torch.ops.launch import CSRC
     base = {EXTRAS_NAME: EXTRAS, SHIPPED: open(gp3.SRC).read(),
             **{h: open(os.path.join(CSRC, h)).read()
-               for h in ("col0.cuh", "smem.cuh")}}
+               for h in ("col0.cuh", "line_pow.cuh", "smem.cuh")}}
     out = {}
     for name in names:
         if name.startswith("replaced"):
@@ -757,8 +757,10 @@ def device_ms(fn, reps: int = REPS, spin: int = SPIN_CYCLES) -> float:
 
 
 def in_turns(fns: dict, rounds: int = ROUNDS) -> dict:
-    """{label: dict(device_ms, ms)}, each the median of `rounds` rounds
-    taken in turns (A..Z, Z..A, ...)."""
+    """{label: dict(device_ms, ms, device_lo, device_hi)}: device_ms and
+    ms the medians of `rounds` rounds taken in turns (A..Z, Z..A, ...),
+    device_lo and device_hi the fastest and the slowest round on the
+    device alone (the rounds' spread)."""
     from torch_pl_gather_probe2 import median_ms
     runs = {k: [] for k in fns}
     order = list(fns)
@@ -768,7 +770,9 @@ def in_turns(fns: dict, rounds: int = ROUNDS) -> dict:
             runs[k].append((device_ms(fns[k], REPS, spin),
                             median_ms(fns[k], REPS)))
     return {k: dict(device_ms=sorted(r[0] for r in v)[len(v) // 2],
-                    ms=sorted(r[1] for r in v)[len(v) // 2])
+                    ms=sorted(r[1] for r in v)[len(v) // 2],
+                    device_lo=min(r[0] for r in v),
+                    device_hi=max(r[0] for r in v))
             for k, v in runs.items()}
 
 

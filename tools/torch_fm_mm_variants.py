@@ -76,7 +76,7 @@ CHASES = (("shared, 156 KB", 0, 39104, 100_000),
           ("cluster peer's shared, 156 KB", 3, 39104, 50_000),
           ("own shared by ld.shared::cluster", 4, 39104, 50_000))
 SOURCES = ("fm_probe_kernel.cu", "gather_probe3_kernel.cu", "col0.cuh",
-           "smem.cuh")
+           "line_pow.cuh", "smem.cuh")
 EXTRAS = os.path.join(REPO, "tools", "fm_mm_variants.cu")
 
 
