@@ -14,13 +14,13 @@
 //                  kk = (kk + tab[i, kk[i,j]]) mod 128 on [S,128], the map
 //                  of row i T_i(k) = next_k(k, tab[i, k], 128).
 //                  Both launch csrc/line_pow.cuh's kernels, which gp3_dg
-//                  launches with its clip: at the probe's R = 512 a block a
-//                  column with T_j 16-bit in shared memory, each of the 32
-//                  steps one dependent 16-bit load (up to 48 steps; past
-//                  that T_j's powers by squaring); at axis 1 (and R from 33
-//                  to 128) a warp a row, T_i in four registers a lane, its
-//                  powers by squaring (32 steps: five squarings and one
-//                  lookup of four shuffles); at R up to 32 a segment of a
+//                  launches with its clip, each taking T's powers by
+//                  squaring (32 steps: five squarings and one lookup): at
+//                  the probe's R = 512 a block a column with the powers
+//                  16-bit in shared memory, a squaring two dependent 16-bit
+//                  loads and a block barrier; at axis 1 (and R = 128) a
+//                  warp a row, T_i in four registers a lane, a lookup four
+//                  shuffles and a select; at R up to 32 a segment of a
 //                  warp a column, a lookup one shuffle.
 //   gp2_col0       (kernel in probe_d, :122) out[q] = tab[k[q], 0] on a
 //                  table of W-word rows: col0_kernel of csrc/col0.cuh,
@@ -52,7 +52,8 @@
 // floor.  For the chains, what comes after it: the design they replaced
 // (a block a line, a thread a chain) took 32 dependent shared loads, each
 // behind the add and a remainder by a run-time divisor; with the map taken
-// once a step is one load (take_ax0) or a squaring is four shuffles
+// once, 32 steps are five squarings and one lookup, each a round of
+// dependent shared loads and a barrier (take_ax0) or of four shuffles
 // (take_ax1).  take_ax0 still reads a column of tab and of kk and writes
 // one of out, a word from each of 512 rows: at 0 steps that alone is
 // about 2 us past the launch, as in every design weighed

@@ -25,16 +25,13 @@
 //                  state in registers, a lookup one shuffle within the
 //                  segment (pow_warp_kernel: 32 / hi lines a warp rounded
 //                  up to a power of two; no shared memory, no barrier);
-//   32 < hi <= 128 a warp a line, a lane 4 rows, their entries of T and
+//   hi = 128       a warp a line, a lane 4 rows, their entries of T and
 //                  their states in registers, a lookup four shuffles and a
-//                  select (pow_row_kernel; no shared memory, no barrier;
-//                  at hi = 128 with hi known at compile time);
-//   hi > 128       a block a line, T 16-bit in shared memory; up to
-//                  LP_CHAIN_STEPS steps each state walks T a dependent
-//                  load a step, past that the powers in two buffers in
-//                  turns, a block barrier a round (4 x hi bytes: hi up to
-//                  58112, the wrappers' limit, fits 227 KB)
-//                  (pow_block_kernel).
+//                  select (pow_row_kernel; no shared memory, no barrier);
+//   other hi > 32  a block a line, the powers 16-bit in two shared-memory
+//                  buffers in turns, a block barrier a round (4 x hi
+//                  bytes: hi up to 58112, the wrappers' limit, fits
+//                  227 KB) (pow_block_kernel).
 // `steps` = 0 leaves every state at kk0.
 //
 // The step is a compile-time parameter: a struct with a static
@@ -66,13 +63,6 @@
 #else
 #define LP_HD
 #endif
-
-// the most steps the block design takes one by one on its map: past
-// that, composing the map in rounds of two dependent loads and a block
-// barrier costs less than a dependent load a step (gp2_take_ax0 at R =
-// 512 on an H100: walked 0.0086 ms at 48 steps, composed 0.0097; at 64
-// 0.0088 and 0.0086; tools/torch_take2_variants.py)
-#define LP_CHAIN_STEPS 48
 
 // element r of line x of [S, L] along `axis`: its flat index
 static LP_HD inline long long line_elem(int axis, int x, int r, int L) {
@@ -116,28 +106,26 @@ static __device__ __forceinline__ int lp_row_lookup(const int (&p)[4],
   return h == 0 ? v0 : (h == 1 ? v1 : (h == 2 ? v2 : v3));
 }
 
-// 32 < hi <= 128: a warp a line, lane l its rows l + 32 c (c < 4), their
-// entries of T and their states in registers; rows past hi take part in
-// every shuffle and store nothing.  FULL: hi is 128, known at compile time
-// (no row is idle, and a step's remainder by hi is a mask)
-template <class Step, int AX, bool FULL>
+// hi = 128: a warp a line, lane l its rows l + 32 c (c < 4), their
+// entries of T and their states in registers; hi known at compile time,
+// so a step's remainder by hi is a mask
+template <class Step, int AX>
 __global__ void __launch_bounds__(128)
 pow_row_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
                int* __restrict__ out, int S, int L, int steps) {
-  const int hi = FULL ? 128 : (AX == 0 ? S : L), lines = AX == 0 ? L : S;
+  const int lines = AX == 0 ? L : S;
   const int x = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (x >= lines) return;                // the whole warp
   const int lane = threadIdx.x & 31;
   int p[4], k[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const int r = lane + 32 * c;
-    const long long e = r < hi ? line_elem(AX, x, r, L) : 0;
-    p[c] = r < hi ? __ldg(tab + e) : 0;
-    k[c] = r < hi ? __ldg(kk0 + e) : 0;
+    const long long e = line_elem(AX, x, lane + 32 * c, L);
+    p[c] = __ldg(tab + e);
+    k[c] = __ldg(kk0 + e);
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c) p[c] = Step::at(lane + 32 * c, p[c], hi);
+  for (int c = 0; c < 4; ++c) p[c] = Step::at(lane + 32 * c, p[c], 128);
   for (int s = steps; s; s >>= 1) {
     if (s & 1) {
 #pragma unroll
@@ -152,17 +140,13 @@ pow_row_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
     }
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int r = lane + 32 * c;
-    if (r < hi) out[line_elem(AX, x, r, L)] = k[c];
-  }
+  for (int c = 0; c < 4; ++c) out[line_elem(AX, x, lane + 32 * c, L)] = k[c];
 }
 
-// hi > 128: a block a line; T 16-bit in shared memory.  Up to
-// LP_CHAIN_STEPS steps each state walks T step by step (a dependent
-// shared load a step and no barrier); past that the power in use and the
-// next one in two buffers (2 x hi entries), a barrier a round, the states
-// in out (each touched only by its thread, once a set bit)
+// a block a line (line_pow_launch's at hi > 32 but not 128); the power in
+// use and the next one 16-bit in shared memory (2 x hi entries), a
+// barrier a round, the states in out (each touched only by its thread,
+// once a set bit)
 template <class Step, int AX>
 __global__ void __launch_bounds__(1024)
 pow_block_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
@@ -175,15 +159,6 @@ pow_block_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
   for (int r = threadIdx.x; r < hi; r += blockDim.x)
     cur[r] = (uint16_t)Step::at(r, __ldg(tab + line_elem(AX, x, r, L)), hi);
   __syncthreads();
-  if (steps <= LP_CHAIN_STEPS) {
-    for (int r = threadIdx.x; r < hi; r += blockDim.x) {
-      const long long e = line_elem(AX, x, r, L);
-      int k = __ldg(kk0 + e);
-      for (int s = 0; s < steps; ++s) k = cur[k];
-      out[e] = k;
-    }
-    return;
-  }
   bool first = true;                     // the states are still kk0's
   for (int s = steps; s; s >>= 1) {
     for (int r = threadIdx.x; r < hi; r += blockDim.x) {
@@ -199,11 +174,16 @@ pow_block_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
     cur = nxt;
     nxt = t;
   }
+  if (first)
+    for (int r = threadIdx.x; r < hi; r += blockDim.x) {
+      const long long e = line_elem(AX, x, r, L);
+      out[e] = __ldg(kk0 + e);
+    }
 }
 
 // The chain along `axis` on the stream: hi up to 32 the warp-segment
-// design, up to 128 a warp a line (both in blocks of 4 warps), past that
-// a block a line with two 16-bit maps of hi entries in shared memory
+// design, hi = 128 a warp a line (both in blocks of 4 warps), else a
+// block a line with two 16-bit maps of hi entries in shared memory
 // (opted into past 48 KB).  Returns the CUDA error code.
 template <class Step>
 static int line_pow_launch(const int* tab, const int* kk0, int* out, int S,
@@ -223,20 +203,14 @@ static int line_pow_launch(const int* tab, const int* kk0, int* out, int S,
                                                        steps, W);
     return (int)cudaGetLastError();
   }
-  if (hi <= 128) {
+  if (hi == 128) {
     const int blocks = (lines + 3) / 4;
-    if (axis == 0 && hi == 128)
-      pow_row_kernel<Step, 0, true><<<blocks, 128, 0, st>>>(tab, kk0, out, S,
-                                                            L, steps);
-    else if (axis == 0)
-      pow_row_kernel<Step, 0, false><<<blocks, 128, 0, st>>>(tab, kk0, out, S,
-                                                             L, steps);
-    else if (hi == 128)
-      pow_row_kernel<Step, 1, true><<<blocks, 128, 0, st>>>(tab, kk0, out, S,
-                                                            L, steps);
+    if (axis == 0)
+      pow_row_kernel<Step, 0><<<blocks, 128, 0, st>>>(tab, kk0, out, S, L,
+                                                       steps);
     else
-      pow_row_kernel<Step, 1, false><<<blocks, 128, 0, st>>>(tab, kk0, out, S,
-                                                             L, steps);
+      pow_row_kernel<Step, 1><<<blocks, 128, 0, st>>>(tab, kk0, out, S, L,
+                                                       steps);
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)2 * hi * sizeof(uint16_t);
@@ -256,17 +230,15 @@ static int line_pow_launch(const int* tab, const int* kk0, int* out, int S,
 
 #else
 
-// The kernels' algorithm on the host, in their order: each line's map T;
-// where the block design walks it (hi > 128, steps up to LP_CHAIN_STEPS)
-// each state step by step, else T's powers by squaring and the state
-// taking T^(2^b) for each set bit b of `steps`, lowest first, as the warp
-// designs (a shuffle at the state) and the block design (a 16-bit power)
-// do.  Returns 2 when the buffers cannot be allocated.
+// The kernels' algorithm on the host, in their order: each line's map T,
+// T's powers by squaring and the state taking T^(2^b) for each set bit b
+// of `steps`, lowest first, as the warp designs (a shuffle at the state)
+// and the block design (a 16-bit power) do.  Returns 2 when the buffers
+// cannot be allocated.
 template <class Step>
 static int line_pow_host(const int* tab, const int* kk0, int* out, int S,
                          int L, int steps, int axis) {
   const int hi = axis == 0 ? S : L, lines = axis == 0 ? L : S;
-  const bool walk = hi > 128 && steps <= LP_CHAIN_STEPS;
   uint16_t* cur = (uint16_t*)malloc((size_t)2 * hi * sizeof(uint16_t));
   if (!cur) return 2;
   uint16_t* nxt = cur + hi;
@@ -277,13 +249,6 @@ static int line_pow_host(const int* tab, const int* kk0, int* out, int S,
       const long long e = line_elem(axis, x, r, L);
       p[r] = (uint16_t)Step::at(r, tab[e], hi);
       out[e] = kk0[e];
-    }
-    if (walk) {
-      for (int r = 0; r < hi; ++r) {
-        const long long e = line_elem(axis, x, r, L);
-        for (int s = 0; s < steps; ++s) out[e] = p[out[e]];
-      }
-      continue;
     }
     for (int s = steps; s; s >>= 1) {
       for (int r = 0; r < hi; ++r) {

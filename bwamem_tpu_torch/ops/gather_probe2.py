@@ -27,10 +27,11 @@ which gp3_dg launches too: a step of line x (a column at axis 0, a row at
 axis 1) is a fixed map of the state, T_x(k) = (k + tab[k, x]) mod R at
 axis 0, (k + tab[x, k]) mod 128 at axis 1, with the wrap and the
 remainder's sign inside it, so the kernel takes T_x once a launch and
-computes the same function: at the probe's R = 512 a block a column,
-each step one 16-bit shared load (past 48 steps the map's powers by
-squaring); at axis 1 a warp a row, the map in registers and its powers by
-squaring; at R up to 32 a segment of a warp a column.
+computes the same function by the map's powers, taken by squaring (32
+steps: five squarings and one lookup): at the probe's R = 512 a block a
+column, the powers 16-bit in shared memory; at axis 1 (and R = 128) a
+warp a row, the map in registers; at R up to 32 a segment of a warp a
+column.
 
 Preconditions the kernels do not check (a plain version raises on the
 first two): kk in [0, R) for gp2_take_ax0 and in [0, 128) for

@@ -68,11 +68,11 @@ Three phases; any failure exits non-zero without printing a result.
    ends of the table and outside it).  gp2_take_ax0 and gp2_take_ax1 (the
    kernels of csrc/line_pow.cuh, which gp3_dg launches too) are also
    held, with the designs they replaced, on tables from the CPU tests'
-   ranges (adds that wrap past int32) after 0, 1, 5, 31, 32, 33 and 49
-   steps (49: the block design composes its map), at R 1, 5, 32, 33,
-   128, 129, 512 and 58112 (the warp-segment design and its edge, the
-   warp-a-line design's ends, the block design's first, the probe's, and
-   the wrapper's limit) and S 1, 8, 128 and 1000;
+   ranges (adds that wrap past int32) after 0, 1, 5, 31, 32 and 33
+   steps, at R 1, 5, 32, 33, 128, 129, 512 and 58112 (the warp-segment
+   design and its edge, the block design's first, the warp-a-line
+   design's one size, the block design past it, the probe's, and the
+   wrapper's limit) and S 1, 8, 128 and 1000;
    ptxas's registers and spills of the shipped kernels printed (a spill
    fails the run); then each timed on the device alone in turns with the
    design it replaced on the probe's inputs
@@ -96,12 +96,12 @@ Three phases; any failure exits non-zero without printing a result.
    inputs after 0, 1, 5 and 16 steps (5d, at the probe's R, where it
    takes its column design, and at R 1, 33, 1000, 109376 and 109377, the
    first R where it takes a thread an element) and 0, 1, 37, 511 and 512
-   (7A, its three shapes and lines of 1, 5, 40, 1000 and 2000 words: the
-   warp-segment, warp-a-line and block designs), ptxas's registers and
-   spills of both shipped designs printed (a spill fails the run), then
-   each timed on the device alone in turns with the design it replaced
-   on the probe's and the spread input (tools/torch_dg_variants.py,
-   which alone times the other designs).
+   (7A, its three shapes and lines of 1, 5, 128, 40, 1000 and 2000 words:
+   the warp-segment, warp-a-line and block designs, each at both axes),
+   ptxas's registers and spills of both shipped designs printed (a spill
+   fails the run), then each timed on the device alone in turns with the
+   design it replaced on the probe's and the spread input
+   (tools/torch_dg_variants.py, which alone times the other designs).
    The column-0 gathers of 2c and 2d (D, gp2_col0, and gp3_col0: one
    kernel, csrc/col0.cuh) are timed as 200 back-to-back calls, on the
    device alone and on the host clock, in turns with tab[k, 0]; then
@@ -1209,7 +1209,8 @@ def take2_turns(entries, x):
     for kern, (r, ss, sl) in sorted(regs.items()):
         log(f"ptxas {kern}: {r} registers, {ss} bytes spill stores, {sl} "
             f"loads")
-    if len(regs) < 8 or any(ss or sl for _, ss, sl in regs.values()):
+    if len(regs) < t2v.SHIPPED_KERNELS or any(ss or sl for _, ss, sl in
+                                              regs.values()):
         raise RuntimeError(f"a shipped 6B or 6C kernel spills or was not "
                            f"found: {regs}")
     times = t2v.times(lib, x, log, designs=("replaced",), extras=False)
@@ -1509,8 +1510,9 @@ def phase_take_dg(kerns_gp, kerns_gp3):
     spread and wrapping inputs after 0, 1, 5 and 16 steps, and at R 1, 33,
     1000, 109376 and 109377, the first R that takes a thread an element; 7A at
     its three shapes on the same kinds after 0, 1, 37, 511 and 512 steps,
-    and at shapes of hi 1, 5, 40, 1000 and 2000, the warp-segment,
-    warp-a-line and block designs; the replaced designs the same way at
+    and at shapes of hi 1, 5, 128, 40, 1000 and 2000, the warp-segment,
+    warp-a-line and block designs at both axes; the replaced designs the
+    same way at
     the timed shapes),
     then ptxas's registers and spills of the shipped kernels (a spill
     fails), then each timed in turns with the design it replaced on the

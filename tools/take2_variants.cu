@@ -25,18 +25,13 @@
 //                  (ld.shared::cluster, 16 bytes a row), arrives on the
 //                  cluster barrier, runs its chains and waits on it before
 //                  it exits (a peer may still be reading); R up to 14528
-//   5 block_pow    both axes: a block a line, the composed map at every
-//                  step count (line_pow.cuh's block kernel before it took
-//                  short chains step by step); with the walk, its two
-//                  paths
+//   5 block_pow    axis 1: line_pow.cuh's block kernel (pow_block_kernel
+//                  with ModStep, which 6B ships past 128 words and 7A past
+//                  32) at 128 words: a block a row, the 16-bit map's
+//                  powers by squaring, a block barrier a round
 //   6 warp_chain   axis 1: a warp a row, the row's map in 4 registers a
 //                  lane as the shipped pow_row_kernel holds it, the 32
 //                  steps one lookup each (the shipped kernel squares)
-//   7 warp_pow     axis 1: a warp a row, the map in 4 registers a lane,
-//                  squaring, the modulus 128 known at compile time and
-//                  every load unconditional
-//   8 row_const    axis 1: pow_row_kernel for any hi (FULL false) with the
-//                  modulus 128 known at compile time (Mod128Step)
 // A design returns cudaErrorInvalidValue for an axis or an n it does not
 // take (the tool skips it there).
 #include <cooperative_groups.h>
@@ -207,42 +202,6 @@ slab_cluster_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// design 5: a block a line, T 16-bit, its powers by squaring at every
-// step count, the states in out
-template <int AX>
-__global__ void __launch_bounds__(1024)
-block_pow_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
-                 int* __restrict__ out, int S, int L, int steps) {
-  extern __shared__ uint16_t bp_sm[];
-  const int hi = AX == 0 ? S : L;
-  const int x = blockIdx.x;
-  uint16_t* cur = bp_sm;
-  uint16_t* nxt = bp_sm + hi;
-  for (int r = threadIdx.x; r < hi; r += blockDim.x)
-    cur[r] = (uint16_t)next_k(r, __ldg(tab + line_elem(AX, x, r, L)), hi);
-  __syncthreads();
-  bool first = true;
-  for (int s = steps; s; s >>= 1) {
-    for (int r = threadIdx.x; r < hi; r += blockDim.x) {
-      if (s & 1) {
-        const long long e = line_elem(AX, x, r, L);
-        out[e] = cur[first ? __ldg(kk0 + e) : out[e]];
-      }
-      if (s >> 1) nxt[r] = cur[cur[r]];
-    }
-    first = first && !(s & 1);
-    __syncthreads();
-    uint16_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  if (first)
-    for (int r = threadIdx.x; r < hi; r += blockDim.x) {
-      const long long e = line_elem(AX, x, r, L);
-      out[e] = __ldg(kk0 + e);
-    }
-}
-
 // design 6: a warp a row of [S, 128], lane l its elements l, l + 32,
 // l + 64, l + 96, the 32 steps one lookup each
 __global__ void __launch_bounds__(128)
@@ -265,44 +224,6 @@ warp_chain_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
 #pragma unroll
   for (int c = 0; c < 4; ++c) out[base + 32 * c] = k[c];
 }
-
-// design 7: a warp a row of [S, 128], the powers by squaring
-__global__ void __launch_bounds__(128)
-warp_pow_kernel(const int* __restrict__ tab, const int* __restrict__ kk0,
-                int* __restrict__ out, int S, int steps) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (i >= S) return;                    // the whole warp
-  const int lane = threadIdx.x & 31;
-  const long long base = (long long)i * 128 + lane;
-  int p[4], k[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    p[c] = next_k(lane + 32 * c, __ldg(tab + base + 32 * c), 128);
-    k[c] = __ldg(kk0 + base + 32 * c);
-  }
-  for (int s = steps; s; s >>= 1) {
-    if (s & 1) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) k[c] = lp_row_lookup(p, k[c]);
-    }
-    if (s >> 1) {
-      int q[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) q[c] = lp_row_lookup(p, p[c]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) p[c] = q[c];
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) out[base + 32 * c] = k[c];
-}
-
-// design 8's step: the remainder by 128 known at compile time
-struct Mod128Step {
-  static __device__ inline int at(int k, int g, int) {
-    return next_k(k, g, 128);
-  }
-};
 
 extern "C" int take2_variant(const int* tab, const int* kk0, int* out, int n,
                              int steps, int axis, int design, void* stream) {
@@ -371,32 +292,12 @@ extern "C" int take2_variant(const int* tab, const int* kk0, int* out, int n,
       slab_cluster_kernel<<<slab_blocks, slab_threads, smem, st>>>(
           tab, kk0, out, n, steps);
       break;
-    case 10:
-    case 11: {
-      const int hi = axis == 0 ? n : 128, lines = axis == 0 ? 128 : n;
-      smem = (size_t)hi * 4;
-      fn = axis == 0 ? (const void*)block_pow_kernel<0>
-                     : (const void*)block_pow_kernel<1>;
-      rc = smem_opt_in(fn, smem);
-      if (rc) return rc;
-      const int threads = hi < 1024 ? (hi + 31) / 32 * 32 : 1024;
-      if (axis == 0)
-        block_pow_kernel<0><<<lines, threads, smem, st>>>(tab, kk0, out, S, L,
-                                                          steps);
-      else
-        block_pow_kernel<1><<<lines, threads, smem, st>>>(tab, kk0, out, S, L,
-                                                          steps);
+    case 11:
+      pow_block_kernel<ModStep, 1><<<n, 128, 128 * 4, st>>>(tab, kk0, out, S,
+                                                            L, steps);
       break;
-    }
     case 13:
       warp_chain_kernel<<<(n + 3) / 4, 128, 0, st>>>(tab, kk0, out, n, steps);
-      break;
-    case 15:
-      warp_pow_kernel<<<(n + 3) / 4, 128, 0, st>>>(tab, kk0, out, n, steps);
-      break;
-    case 17:
-      pow_row_kernel<Mod128Step, 1, false><<<(n + 3) / 4, 128, 0, st>>>(
-          tab, kk0, out, n, 128, steps);
       break;
     default:
       return bad;

@@ -6,7 +6,7 @@ clip(kk + take_along_axis(tab, kk, axis), 0, hi - 1) on B8 [8, 128], B32
 other and against the designs they replaced (5d's still ships past the
 column design's R), on one NVIDIA GPU, in one process.
 
-    python3 tools/torch_dg_variants.py [--json PATH] [--parent DIR]
+    python3 tools/torch_dg_variants.py [--json PATH]
 
 Every design takes a step as a fixed map of the element's state within its
 line (5d: column j's T_j(k) = (k + tab[k, j]) mod R; 7A: the line's T(k) =
@@ -31,12 +31,14 @@ and the probe's steps, and the shipped wrappers also at other sizes: 5d at
 R = 1, 33, 1000 and at 109376 and 109377 (the last R whose columns' maps
 fit a block's shared memory, and the first that takes a thread an
 element),
-7A at [5, 7] and [1, 3] (hi 5 and 1: the warp-segment design), [40, 3]
-along axis 0 (a warp a line), [128, 1000] along axis 1 and [4, 2000]
-along axis 1 (the block design, more rows than threads at 2000) (exit 1
-otherwise).  Then each kernel and
-input runs its calls in turns, in order and then in reverse, ROUNDS
-rounds, each timed on the device alone (behind a spin of the card longer
+7A at every design csrc/line_pow.cuh takes by the gathered axis's size
+hi, each at both axes: [5, 7] and [1, 3] along axis 0 and [7, 5] along
+axis 1 (hi 5 and 1: the warp-segment design), [128, 3] along axis 0 and
+[2, 128] along axis 1 (hi 128: a warp a line), [40, 3] along axis 0,
+[3, 40], [128, 1000] and [4, 2000] along axis 1 (the block design, more
+rows than threads at 2000) (exit 1 otherwise).  Then each
+kernel and input runs its calls in turns, in order and then in reverse,
+ROUNDS rounds, each timed on the device alone (behind a spin of the card longer
 than its issue: `device_ms`) and between two events (`ms`), each number
 the median of its rounds (tools/torch_ct_variants.in_turns).  Beside the
 designs: 5d's map pass alone and the shipped call at 0 steps (its fixed
@@ -48,10 +50,7 @@ Prints the card's name and power limit, ptxas's registers and spills for
 every kernel built (a design that spills is not shipped), the checks, one
 line per call and input, fastest first, and the chase; --json writes
 every number to PATH.  chip_smoke.py times only the shipped and the
-replaced designs (compare with designs=("replaced",)).  --parent DIR
-(another checkout of the repo, say the parent commit's `git archive`)
-adds its gp3_dg, built from DIR's csrc/ into build/dg_parent/, to 7A's
-checks and turns as "parent".
+replaced designs (compare with designs=("replaced",)).
 """
 from __future__ import annotations
 
@@ -81,7 +80,8 @@ DG_DESIGNS = {"replaced": 0, "chain": 1, "double_block": 2,
 TAKE_CHECK_STEPS = (0, 1, 5, TAKE_STEPS)
 DG_CHECK_STEPS = (0, 1, 37, 511, DG_STEPS)
 TAKE_CHECK_R = (1, 33, 1000, 109376, 109377)
-DG_CHECK_SHAPES = ((5, 7, 0), (1, 3, 0), (40, 3, 0), (128, 1000, 1),
+DG_CHECK_SHAPES = ((5, 7, 0), (1, 3, 0), (7, 5, 1), (128, 3, 0),
+                   (2, 128, 1), (40, 3, 0), (3, 40, 1), (128, 1000, 1),
                    (4, 2000, 1))
 # chase: (label, words, steps, in shared memory)
 CHASES = (("shared, 512 words", 512, 100_000, True),
@@ -112,26 +112,6 @@ def library():
         "chase": [vp, ci, ci, ci, vp, vp]}, ["-Xptxas", "-v"])
     lib.src = os.path.join(d, "dg_variants.cu")
     lib.so_name = os.path.join("dg_variants", "libdg_variants.so")
-    lib.load()
-    return lib
-
-
-def parent_library(root: str):
-    """ops.launch.Library of gather_probe3_kernel.cu as checkout `root`
-    has it (its csrc/ copied to build/dg_parent/); raises if the build
-    fails."""
-    import ctypes
-    from bwamem_tpu_torch._build import BUILD_DIR
-    from bwamem_tpu_torch.ops.launch import Library
-    src = os.path.join(root, "bwamem_tpu_torch", "csrc")
-    d = os.path.join(BUILD_DIR, "dg_parent")
-    os.makedirs(d, exist_ok=True)
-    for n in os.listdir(src):
-        shutil.copyfile(os.path.join(src, n), os.path.join(d, n))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib = Library("gather_probe3_kernel.cu", {"gp3_dg": [vp] * 3 + [ci] * 4})
-    lib.src = os.path.join(d, "gather_probe3_kernel.cu")
-    lib.so_name = os.path.join("dg_parent", "libgather_probe3_kernel.so")
     lib.load()
     return lib
 
@@ -179,18 +159,10 @@ def take_calls(lib, tab, kk, steps=TAKE_STEPS, designs=TAKE_DESIGNS):
     return out
 
 
-def dg_calls(lib, tab, kk, axis, steps=DG_STEPS, designs=DG_DESIGNS,
-             parent=None):
-    """{label: call} for 7A on one input (double_warp only at hi <= 32;
-    "parent": gp3_dg of the library `parent`, where given)."""
+def dg_calls(lib, tab, kk, axis, steps=DG_STEPS, designs=DG_DESIGNS):
+    """{label: call} for 7A on one input (double_warp only at hi <= 32)."""
     from bwamem_tpu_torch.ops import gather_probe3 as gp3
     out = {"shipped": lambda: gp3.gp3_dg(tab, kk, steps, axis)}
-    if parent is not None:
-        def parent_call():
-            o, args = gp3._prep_dg(tab, kk, steps, axis)
-            parent.launch("gp3_dg", o.get_device(), args, "parent gp3_dg")
-            return o
-        out["parent"] = parent_call
     for name in designs:
         if name == "double_warp" and tab.shape[axis] > 32:
             continue
@@ -217,8 +189,7 @@ def dg_inputs(device) -> dict:
 
 
 def check(lib, tx: dict, dx: dict, log=print,
-          take_designs=TAKE_DESIGNS, dg_designs=DG_DESIGNS,
-          parent=None) -> dict:
+          take_designs=TAKE_DESIGNS, dg_designs=DG_DESIGNS) -> dict:
     """Every call of take_calls and dg_calls (for `take_designs` and
     `dg_designs`) against the plain version on every input of tx and dx
     after each of TAKE_CHECK_STEPS and DG_CHECK_STEPS, and the shipped
@@ -258,7 +229,7 @@ def check(lib, tx: dict, dx: dict, log=print,
         for steps in DG_CHECK_STEPS:
             want = gp3.dg_plain(tab, kk, steps, axis)
             for label, fn in dg_calls(lib, tab, kk, axis, steps,
-                                      dg_designs, parent).items():
+                                      dg_designs).items():
                 hold(f"7A {tag} {label}", fn(), want)
     for i, (S, L, axis) in enumerate(DG_CHECK_SHAPES):
         for kind, seed in SEEDS.items():
@@ -277,7 +248,7 @@ def check(lib, tx: dict, dx: dict, log=print,
 
 def times(lib, tx: dict, dx: dict, log=print, kinds=("probe", "spread"),
           take_designs=TAKE_DESIGNS, dg_designs=DG_DESIGNS,
-          extras=True, parent=None) -> dict:
+          extras=True) -> dict:
     """{"5d": {kind: {label: dict(device_ms, ms)}}, "7A <tag>": {...}}: each
     kernel's calls in turns on each of `kinds` (torch_ct_variants.in_turns,
     ROUNDS rounds); extras: also 5d's map pass alone and shipped call at
@@ -299,8 +270,7 @@ def times(lib, tx: dict, dx: dict, log=print, kinds=("probe", "spread"),
         out[key] = {}
         for kind in kinds:
             tab, kk, _ = dx[(tag, kind)]
-            fns = dg_calls(lib, tab, kk, axis, DG_STEPS, dg_designs,
-                           parent)
+            fns = dg_calls(lib, tab, kk, axis, DG_STEPS, dg_designs)
             if extras:
                 fns["chain, 0 steps"] = lambda t=tab, k=kk, a=axis: dg_call(
                     lib, DG_DESIGNS["chain"], t, k, 0, a)
@@ -368,16 +338,13 @@ def main() -> int:
 
     def log(m):
         print(m, flush=True)
-    parent = (parent_library(sys.argv[sys.argv.index("--parent") + 1])
-              if "--parent" in sys.argv else None)
     try:
-        errs, _ = check(lib, tx, dx, log, parent=parent)
+        errs, _ = check(lib, tx, dx, log)
     except RuntimeError as e:
         print(f"torch_dg_variants: {e}", file=sys.stderr)
         return 1
     res = dict(card=card, ptxas=regs, max_abs_err=errs,
-               times=times(lib, tx, dx, log, parent=parent),
-               chase=chase(lib, dev, log))
+               times=times(lib, tx, dx, log), chase=chase(lib, dev, log))
     if "--json" in sys.argv:
         path = sys.argv[sys.argv.index("--json") + 1]
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -13,30 +13,28 @@ the sign of the remainder inside the map) or composes that map.  The
 designs are the kernels of tools/take2_variants.cu (its header lists
 them), the shipped ones called through the wrappers of ops/gather_probe2
 ("shipped": csrc/line_pow.cuh's kernels, which gp3_dg launches too:
-at R = 512 a block a column walking its map, at 128 words a row a warp a
-row squaring it) and, for 6B, 5d's column design through
+at R = 512 a block a column, at 128 words a warp a row, each squaring
+its map) and, for 6B, 5d's column design through
 ops/gather_probe.gp_take_ax0 ("col_5d": the same function, three
-launches).  6B's block designs are also timed at WALK_STEPS and every
-6B design at 0 steps (its fixed cost).
+launches).  Every 6B design is also timed at 0 steps (its fixed cost).
 
 Every design must equal the plain version (ops/gather_probe2.
-take_ax0_plain, take_ax1_plain) after each of CHECK_STEPS (no bit set; one;
-low bits; five set bits; one high bit; both ends; the first count past
-the block kernel's walk, which it composes) on the probe's input and on
-tables drawn from each of RANGES (the CPU tests': the probe's [0, 2^20),
-[2^31 - 4096, 2^31) and all of int32, where the adds wrap), 6B at each R of
-CHECK_R (the warp-segment design's sizes and its edge, the warp-a-line
-design's two ends, the block design's first, the probe's, and 58112, the
-wrapper's limit: two 16-bit maps in 232448 bytes of shared memory) and 6C
-at each S of CHECK_S, each design at the sizes it takes (exit 1
-otherwise).  Then each kernel's calls on the probe's input
-(tools/torch_pl_gather_probe2.make_inputs) run in turns, in order and
-then in reverse, ROUNDS rounds, each timed on the device alone (behind a
-spin of the card longer than its issue: `device_ms`) and between two
-events (`ms`), each number the median of its rounds, with the fastest and
-slowest round on the device (`device_lo`, `device_hi`;
-tools/torch_ct_variants.in_turns).  Beside the designs: the shipped call
-at 0 steps (the launch and the map).
+take_ax0_plain, take_ax1_plain) after each of CHECK_STEPS (no bit set;
+one; low bits; five set bits; one high bit; both ends) on the probe's
+input and on tables drawn from each of RANGES (the CPU tests': the
+probe's [0, 2^20), [2^31 - 4096, 2^31) and all of int32, where the adds
+wrap), 6B at each R of CHECK_R (the warp-segment design's sizes and its
+edge, the block design's first, the warp-a-line design's one size, the
+block design past it, the probe's, and 58112, the wrapper's limit: two
+16-bit maps in 232448 bytes of shared memory) and 6C at each S of
+CHECK_S, each design at the sizes it takes (exit 1 otherwise).  Then
+each kernel's calls on the probe's input (tools/torch_pl_gather_probe2.
+make_inputs) run in turns, in order and then in reverse, ROUNDS rounds,
+each timed on the device alone (behind a spin of the card longer than
+its issue: `device_ms`) and between two events (`ms`), each number the
+median of its rounds, with the fastest and slowest round on the device
+(`device_lo`, `device_hi`; tools/torch_ct_variants.in_turns).  Beside
+the designs: the shipped call at 0 steps (the launch and the map).
 
 The library is tools/take2_variants.cu with copies of the shipped sources
 beside it, written to build/take2_variants/ and built with the shipped
@@ -63,22 +61,18 @@ STEPS = 32
 SEED = 0                       # the probe script's own default
 ROUNDS = 6
 RANGES = ((0, 1 << 20), ((1 << 31) - 4096, 1 << 31), (-(1 << 31), 1 << 31))
-CHECK_STEPS = (0, 1, 5, 31, 32, 33, 49)
+CHECK_STEPS = (0, 1, 5, 31, 32, 33)
 CHECK_R = (1, 5, 32, 33, 128, 129, 512, 58112)
 CHECK_S = (1, 8, 128, 1000)
 # the designs' numbers in take2_variant (tools/take2_variants.cu), by axis
 DESIGNS = {"replaced": 0, "map_chain": 1, "slab": 2, "slab_pow": 3,
-           "slab_cluster": 4, "block_pow": 5, "warp_chain": 6,
-           "warp_pow": 7, "row_const": 8}
+           "slab_cluster": 4, "block_pow": 5, "warp_chain": 6}
 AXIS_DESIGNS = {0: ("replaced", "map_chain", "slab", "slab_pow",
-                    "slab_cluster", "block_pow", "col_5d"),
-                1: ("replaced", "map_chain", "block_pow", "warp_chain",
-                    "warp_pow", "row_const")}
-# 6B's block designs also timed at these step counts, where the shipped
-# block kernel walks its map (up to LP_CHAIN_STEPS, 48) or squares it
-WALK_STEPS = (48, 64)
-WALK_DESIGNS = ("map_chain", "block_pow")
+                    "slab_cluster", "col_5d"),
+                1: ("replaced", "map_chain", "block_pow", "warp_chain")}
 SMEM_MAX = 232448
+# line_pow.cuh's three kernels, each at both axes
+SHIPPED_KERNELS = 6
 # the timed inputs: (label, axis, tab key, kk key of make_inputs)
 TIMED = (("6B [512,128]", 0, "b_tab", "b_kk"),
          ("6C [128,128]", 1, "c128_tab", "c128_kk"),
@@ -119,7 +113,7 @@ def ptxas(lib) -> dict:
 
 def shipped_ptxas(lib) -> dict:
     """ptxas's lines of the shipped chains: line_pow.cuh's three kernels
-    at both axes with ModStep."""
+    at both axes with ModStep (SHIPPED_KERNELS of them)."""
     return {k: v for k, v in ptxas(lib).items()
             if "ModStep" in k and "pow_" in k}
 
@@ -223,8 +217,8 @@ def times(lib, x: dict, log=print, designs=None, extras=True) -> dict:
     """{label: {call: dict(device_ms, ms, device_lo, device_hi)}}: each
     kernel's calls in turns on the probe's inputs x
     (torch_ct_variants.in_turns, ROUNDS rounds); extras: also the shipped
-    call at 0 steps, and for 6B every design at 0 steps (its fixed cost)
-    and the block designs at WALK_STEPS ("<label> <n> steps")."""
+    call at 0 steps, and for 6B every design at 0 steps (its fixed cost,
+    "<label> 0 steps")."""
     from bwamem_tpu_torch.ops import gather_probe2 as gp2
     from torch_ct_variants import in_turns
     runs = []
@@ -238,9 +232,6 @@ def times(lib, x: dict, log=print, designs=None, extras=True) -> dict:
         if extras and axis == 0:
             runs.append((f"{label} 0 steps", calls(lib, tab, kk, 0, axis,
                                                    designs)))
-            for n in WALK_STEPS:
-                runs.append((f"{label} {n} steps",
-                             calls(lib, tab, kk, n, axis, WALK_DESIGNS)))
     out = {}
     for label, fns in runs:
         out[label] = in_turns(fns, ROUNDS)
