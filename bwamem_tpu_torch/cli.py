@@ -17,7 +17,9 @@ the card unless the caller passes another device to main().
 from __future__ import annotations
 
 import getopt as getopt_mod
+import os
 import sys
+import time
 
 from bwamem_tpu_torch.config import (MemOptions, preset, MEM_F_ALL,
                                      MEM_F_PE, MEM_F_NOPAIRING,
@@ -25,6 +27,7 @@ from bwamem_tpu_torch.config import (MemOptions, preset, MEM_F_ALL,
                                      MEM_F_SOFTCLIP, MEM_F_REF_HDR,
                                      MEM_F_PRIMARY5, MEM_F_KEEP_SUPP_MAPQ,
                                      MEM_F_XB, MEM_F_SMARTPE)
+from bwamem_tpu_torch.utils import timers
 
 MEM_GETOPT = "51qpaMCSPVYjuk:c:v:s:r:t:R:A:B:O:E:U:w:L:d:T:Q:D:m:I:N:o:f:W:x:G:h:y:K:X:H:"
 
@@ -198,15 +201,32 @@ def _rg_id(rg_line: str | None):
     return None
 
 
-def cmd_mem(argv: list[str], device=None) -> int:
+def cmd_mem(argv: list[str], device=None, mesh=None) -> int:
+    """`mem` on `device` (default "cuda"), or data-parallel over `mesh`
+    (parallel.make_mesh); with neither, over the local cards when
+    BWAMEM_TPU_DEVICES allows two or more (_local_mesh).  Under
+    BWAMEM_COORDINATOR / BWAMEM_NUM_PROCESSES / BWAMEM_PROCESS_ID it is one
+    rank of a multi-process run (parallel/multihost): it aligns its share
+    of the -K chunks into <out or bwamem_out.sam>.shard<rank>, and rank 0
+    merges the shards into the output after a barrier."""
     opt, touched, x, args = parse_mem_args(argv)
     if len(args) < 2 or len(args) > 3:
         sys.stderr.write(
             "Usage: bwamem_tpu mem [options] <idxbase> <in1.fq> [in2.fq]\n")
         return 1
+    from bwamem_tpu_torch.parallel import multihost
+    pid, nproc = multihost.init_from_env()
+    try:
+        return _mem(argv, opt, x, args, device, mesh, pid, nproc)
+    finally:
+        multihost.finalize()
+
+
+def _mem(argv, opt, x, args, device, mesh, pid: int, nproc: int) -> int:
     from bwamem_tpu_torch.index import load_index
     from bwamem_tpu_torch.io import sam as samio
     from bwamem_tpu_torch.io.fastq import read_fastx, interleave
+    from bwamem_tpu_torch.parallel import multihost
     from bwamem_tpu_torch.pipeline.align import Aligner, align_stream
 
     idx = load_index(args[0])
@@ -223,19 +243,57 @@ def cmd_mem(argv: list[str], device=None) -> int:
             rdr = interleave(rdr, read_fastx(args[2]))
             opt.flag |= MEM_F_PE
             pe = True
-    al = Aligner(idx, opt, device=device)
-    out = open(x["out"], "w") if x["out"] else sys.stdout
-    pg = ("@PG\tID:bwamem_tpu\tPN:bwamem_tpu\tVN:0.1.0\tCL:" +
-          " ".join(["bwamem_tpu", "mem"] + argv))
-    hdr = [x["hdr_line"]] if x["hdr_line"] else []
-    if x["rg_line"]:
-        hdr.append(x["rg_line"])
-    out.write(samio.sam_header(idx.contigs, pg_line=pg,
-                               hdr_line="\n".join(hdr) if hdr else None))
+    if mesh is None and device is None:
+        mesh = _local_mesh()
+    al = Aligner(idx, opt, device=device, mesh=mesh)
+    # multi-process: only rank 0 owns the output stream (header + merge)
+    out = None
+    if pid == 0:
+        out = open(x["out"], "w") if x["out"] else sys.stdout
+        pg = ("@PG\tID:bwamem_tpu\tPN:bwamem_tpu\tVN:0.1.0\tCL:" +
+              " ".join(["bwamem_tpu", "mem"] + argv))
+        hdr = [x["hdr_line"]] if x["hdr_line"] else []
+        if x["rg_line"]:
+            hdr.append(x["rg_line"])
+        out.write(samio.sam_header(idx.contigs, pg_line=pg,
+                                   hdr_line="\n".join(hdr) if hdr
+                                   else None))
     rg = _rg_id(x["rg_line"])
     n_processed = 0
     chunk = x["fixed_chunk"] if x["fixed_chunk"] > 0 else \
         opt.chunk_size * opt.n_threads
+    if nproc > 1:
+        # this rank aligns chunks pid, pid + nproc, ... into a shard; rank
+        # 0 merges them in chunk order after the barrier (chunk-local
+        # pestat makes this byte-identical to one process).  As in the
+        # reference, -I does not reach the chunks here: each infers its
+        # own insert-size distribution.
+        base = x["out"] or "bwamem_out.sam"
+        shard = f"{base}.shard{pid}"
+        sys.stderr.write(f"[M::mem] multi-host rank {pid}/{nproc}; "
+                         f"shard -> {shard}\n")
+        t0 = time.perf_counter()
+        done = multihost.align_shard(
+            al, _batches_by_bases(rdr, chunk, pe), process_id=pid,
+            num_processes=nproc, shard_path=shard, pe=pe, rg_id=rg)
+        sys.stderr.write(f"[M::mem] rank {pid} aligned {done} reads\n")
+        _rank_report(pid, done, time.perf_counter() - t0)
+        # raises on a rank that is gone, or at the group's timeout
+        import torch.distributed as dist
+        dist.barrier()
+        if pid == 0:
+            t0 = time.perf_counter()
+            out.flush()
+            shards = [f"{base}.shard{r}" for r in range(nproc)]
+            n = multihost.merge_shards(shards, out.buffer
+                                       if hasattr(out, "buffer") else out)
+            if timers.enabled():
+                sys.stderr.write(f"[M::mem] merged {n} chunks of {nproc} "
+                                 f"shards in "
+                                 f"{time.perf_counter() - t0:.3f} s\n")
+            if x["out"]:
+                out.close()
+        return 0
     # reads per batch ~ chunk bases (bseq_read semantics, bwa.c:195-210)
     for n, sams in align_stream(al, _batches_by_bases(rdr, chunk, pe),
                                 pe=pe, rg_id=rg, pes0=x["pes"]):
@@ -246,6 +304,37 @@ def cmd_mem(argv: list[str], device=None) -> int:
     if x["out"]:
         out.close()
     return 0
+
+
+def _rank_report(pid: int, done: int, secs: float) -> None:
+    """With the stage timers on (BWAMEM_TPU_TIMERS=1): one stderr line of
+    this rank's wall time, its extension kernel launches and its rows
+    through the host-compacted front."""
+    if not timers.enabled():
+        return
+    from bwamem_tpu_torch.ops import ext_kernel
+    snap = timers.snapshot()
+    sys.stderr.write(
+        f"[M::mem] rank {pid}: {done} reads in {secs:.3f} s; "
+        f"ext_pl2_kernel launches {ext_kernel.launches}, ext_pl_kernel "
+        f"launches {ext_kernel.launches_pl}, fallback rows "
+        f"{snap.get('front.fallback_rows.count', 0)}, fetch timeouts "
+        f"{snap.get('front.fetch_timeouts.count', 0)}\n")
+
+
+def _local_mesh():
+    """Data-parallel mesh over the local cards when more than one is
+    visible.  BWAMEM_TPU_DEVICES=N caps the count (1 turns it off); the
+    mesh takes the largest power of two of them.  None under two."""
+    import torch
+    from bwamem_tpu_torch.parallel import make_mesh
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    want = min(int(os.environ.get("BWAMEM_TPU_DEVICES", have)), have)
+    if want < 2:
+        return None
+    n = 1 << (want.bit_length() - 1)   # largest power-of-two prefix
+    sys.stderr.write(f"[M::mem] data-parallel mesh over {n} devices\n")
+    return make_mesh([f"cuda:{i}" for i in range(n)])
 
 
 def _batches_by_bases(reads, max_bases: int, pe: bool):
@@ -828,10 +917,10 @@ def cmd_index_micro(cmd: str, argv: list[str]) -> int:
     return 0
 
 
-def main(argv: list[str] | None = None, device=None) -> int:
+def main(argv: list[str] | None = None, device=None, mesh=None) -> int:
     """Dispatch a command; the device commands (mem, aln, samse, sampe,
     bwasw, fastmap, maxk, pemerge) run on `device` ("cuda" when None;
-    raises without a GPU)."""
+    raises without a GPU); `mem` runs over `mesh` when one is given."""
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         sys.stderr.write(
@@ -840,7 +929,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
         return 1
     cmd, rest = argv[0], argv[1:]
     if cmd == "mem":
-        return cmd_mem(rest, device=device)
+        return cmd_mem(rest, device=device, mesh=mesh)
     if cmd == "index":
         return cmd_index(rest)
     if cmd == "fastmap":

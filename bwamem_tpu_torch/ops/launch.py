@@ -52,6 +52,13 @@ def raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def caller_streams(devices) -> dict:
+    """{device: torch.cuda.Stream}, the caller's current stream of each
+    CUDA device of `devices`: for work the caller hands to another thread,
+    which makes them current there (utils/fetchguard's copies)."""
+    return {d: torch.cuda.current_stream(d) for d in devices}
+
+
 def launch(fn, name: str, index: int, args: tuple) -> None:
     """fn(*args, stream) on the caller's current stream of CUDA device
     `index`, with that device current; RuntimeError when the entry returns

@@ -21,10 +21,12 @@ def pow2_bucket(x: int, lo: int) -> int:
 
 
 def lanes(x: int, device: torch.device, *, fine_lo: int,
-          coarse_lo: int) -> int:
+          coarse_lo: int, shards: int = 1) -> int:
     """Batch-lane bucket: power of 2 from `fine_lo` on the CPU, from
-    `coarse_lo` on a card."""
-    return pow2_bucket(x, fine_lo if device.type == "cpu" else coarse_lo)
+    `coarse_lo` on a card, and from `shards` under a mesh of that many
+    shards (a power of two), so that every shard gets lanes."""
+    lo = fine_lo if device.type == "cpu" else coarse_lo
+    return pow2_bucket(x, max(lo, shards))
 
 
 # The plain tensor programs (ops/extend.extend_batch, ops/local_sw) carry

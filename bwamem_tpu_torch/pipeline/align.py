@@ -17,11 +17,16 @@ onto the device/host split:
   host   (io.sam): NM/MD, clips, flags, SAM text
 
 Entry points run on the card: Aligner(device=None) uses "cuda" and raises
-when no GPU is present; pass device="cpu" to run on the CPU.
+when no GPU is present; pass device="cpu" to run on the CPU.  With
+mesh=parallel.make_mesh(devices) every device stage runs data-parallel over
+the mesh's shards, the index replicated once per distinct device.
+
+BWAMEM_TPU_FRONT=host sends every batch to the host-compacted front.
 """
 from __future__ import annotations
 
 import copy
+import os
 
 import numpy as np
 import torch
@@ -36,6 +41,7 @@ from bwamem_tpu_torch.io import sam as samio
 from bwamem_tpu_torch.io.fastq import Read, pack_batch
 from bwamem_tpu_torch.ops import fm as fmops
 from bwamem_tpu_torch.ops import local_sw
+from bwamem_tpu_torch.parallel import mesh as pmesh
 from bwamem_tpu_torch.pipeline import _shapes
 from bwamem_tpu_torch.pipeline._shapes import pow2_bucket
 from bwamem_tpu_torch.utils import timers
@@ -66,8 +72,22 @@ def resolve_device(device=None) -> torch.device:
 class Aligner:
     """Holds the device-resident index and the arena-size history."""
 
-    def __init__(self, idx, opt: MemOptions | None = None, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, idx, opt: MemOptions | None = None, device=None,
+                 mesh=None):
+        """mesh: a parallel.mesh.Mesh -> every device stage runs
+        shard-mapped data-parallel over it (parallel/mesh.rowmap), the
+        index replicated once per distinct device; the aligner's device is
+        then the mesh's first, where the shards' outputs are joined, and
+        `device` may only name that one."""
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.devices[0]
+            if device is not None and \
+                    pmesh.make_mesh([device]).devices[0] != self.device:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {self.device}")
         self.idx = idx
         self.opt = opt or MemOptions()
         self.fm = fmops.fm_from_index(idx, self.device)
@@ -87,8 +107,16 @@ class Aligner:
         # per orientation), inferred by pestat or given by the caller
         self.last_pes = None
         # arena high-water histories of the two fronts, by batch shape
-        self._front_hist: dict = {}
+        from bwamem_tpu_torch.pipeline import device_front
+        self._front_hist: dict = device_front.hist_load(self)
         self._seed_arena_hist: dict = {}
+        # set when a device fetch outlasts its watchdog: every later batch
+        # takes the host-compacted front (device_front.front_finish)
+        self._front_disabled = False
+        if mesh is not None:
+            for t in (self.fm, self.fm.pac, self.ctg_offsets,
+                      self.ctg_is_alt):
+                pmesh.replicated(mesh, t)
         native.load()
 
     # ---------------------------------------------------------- device ops
@@ -105,14 +133,19 @@ class Aligner:
         LT = pow2_bucket(t.shape[1], lo=64)
         outs = []
         for s0, c in _shapes.chunks(B, _shapes.lane_tile(dev)):
-            Bp = _shapes.lanes(c, dev, fine_lo=8, coarse_lo=64)
+            Bp = _shapes.lanes(c, dev, fine_lo=8, coarse_lo=64,
+                               shards=pmesh.shards(self.mesh))
             sl = slice(s0, s0 + c)
 
             def put(a, **pad):
                 return torch.from_numpy(np.pad(a, **pad)).to(dev)
 
             timers.count("dispatch.local_sw")
-            res = local_sw.ksw_align_batch(
+            # under a mesh: lanes sharded, the scoring matrix replicated
+            res = pmesh.over(self.mesh, local_sw.ksw_align_batch, dict(
+                o_del=self.opt.o_del, e_del=self.opt.e_del,
+                o_ins=self.opt.o_ins, e_ins=self.opt.e_ins,
+                max_mat=int(self.opt.a), p=p), (False,) * 5 + (True,))(
                 put(q[sl], pad_width=((0, Bp - c), (0, LQ - q.shape[1])),
                     constant_values=4),
                 put(qlen[sl], pad_width=(0, Bp - c), constant_values=0),
@@ -120,9 +153,7 @@ class Aligner:
                     constant_values=4),
                 put(tlen[sl], pad_width=(0, Bp - c), constant_values=0),
                 put(minsc[sl], pad_width=(0, Bp - c), constant_values=1),
-                self.opt.mat, o_del=self.opt.o_del, e_del=self.opt.e_del,
-                o_ins=self.opt.o_ins, e_ins=self.opt.e_ins,
-                max_mat=int(self.opt.a), p=p)
+                self.opt.mat)
             outs.append([x.cpu().numpy()[:c] for x in res])
         return local_sw.KswResult(*(np.concatenate(xs) for xs in zip(*outs)))
 
@@ -133,14 +164,18 @@ class Aligner:
         its device front without fetching.  The returned token feeds
         align_batch_se's `_front` parameter; align_stream calls this for
         batch k+1 before batch k's host tail so the device computes
-        ahead."""
+        ahead.  The host-compacted front takes the batch when the device
+        front does not support it, after a fetch timeout turned it off, or
+        when BWAMEM_TPU_FRONT=host asks for it."""
         from bwamem_tpu_torch.pipeline import device_front
         n = len(reads)
         N = pow2_bucket(n, lo=8)
         L = _lbucket(max(r.l_seq for r in reads))
         seq, l_seq = pack_batch(reads, N, L)
         tok = None
-        if device_front.supported(self, reads):
+        if (device_front.supported(self, reads)
+                and not self._front_disabled
+                and os.environ.get("BWAMEM_TPU_FRONT") != "host"):
             tok = device_front.front_start(self, reads, seq, l_seq)
         return dict(seq=seq, l_seq=l_seq, tok=tok)
 

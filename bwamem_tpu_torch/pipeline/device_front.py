@@ -33,12 +33,20 @@ such long reads is not dispatched at all: every row is handed back.  So
 is a batch the front gives up on (FrontBailout: arena growth that does
 not converge, or a chain table overflow), as the reference package's
 front_finish does.
+
+Under a data-parallel mesh (parallel/mesh) the six programs run shard by
+shard on each shard's rows, every arena shard-local and sized by per-shard
+rows, single-round extension only; front_finish combines the shards'
+metas and merges their arenas into the one read-major layout the host
+replay reads.
 """
 from __future__ import annotations
 
+import json
 import math
 import os
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -49,6 +57,7 @@ from bwamem_tpu_torch.ops import align_ext
 from bwamem_tpu_torch.ops import chain as chainops
 from bwamem_tpu_torch.ops import ext_kernel
 from bwamem_tpu_torch.ops import fm as fmops
+from bwamem_tpu_torch.parallel import mesh as pmesh
 from bwamem_tpu_torch.pipeline.chainflt_host import (
     MEM_HSP_COEF, MEM_MINSC_COEF, MEM_SEEDSW_COEF)
 from bwamem_tpu_torch.pipeline._shapes import pow2_bucket
@@ -56,7 +65,7 @@ from bwamem_tpu_torch.pipeline.seeding_host import (
     _ar, _compact_flat, _fetch, _grow_sizes, _note_hwm, _note_seeding_hwm,
     _p1_body, _p2_body, _p3_body, _seeding_kw, _seeding_overflows,
     _sizes_for, _zero, use_kmer_table)
-from bwamem_tpu_torch.utils import timers
+from bwamem_tpu_torch.utils import fetchguard, timers
 
 i32 = torch.int32
 i64 = torch.int64
@@ -478,7 +487,12 @@ def supported(al, reads) -> bool:
     """Whether this batch can take the device front: its EXT program
     extends at the padded read length, and the extension kernel takes
     queries up to 4095 bases and (by the (h<<12)|col packing of its plain
-    version's row max) reachable scores below 2^18."""
+    version's row max) reachable scores below 2^18.  Under a mesh a batch
+    whose row bucket is smaller than the shard count takes the host
+    front, as in the reference."""
+    nsh = pmesh.shards(al.mesh)
+    if nsh > 1 and pow2_bucket(len(reads), lo=8) < nsh:
+        return False
     mat_max = int(np.max(np.asarray(al.opt.mat)))
     Lr = max((r.l_seq for r in reads), default=0)
     # the batch is padded to the next multiple of 32 (align._lbucket)
@@ -494,13 +508,14 @@ def front_start(al, reads, seq: np.ndarray, l_seq: np.ndarray):
     opt: MemOptions = al.opt
     n = len(reads)
     N, Lr = seq.shape
-    Nkey = (N, Lr)     # (rows, read-len bucket) hwm key
+    nsh = pmesh.shards(al.mesh)
+    Nkey = (N // nsh, Lr)     # (per-shard rows, read-len bucket) hwm key
     hist = al._front_hist
-    sizes = _sizes_for(hist, N, Lr)
+    sizes = _sizes_for(hist, *Nkey)
     use_kmer = use_kmer_table(al)
-    # two-round extension (round-1 select + host prepass + round-2 subset);
-    # sel_cap == 0 keeps the single-round program
-    if os.environ.get("BWAMEM_TPU_EXT2", "1") != "1":
+    # two-round extension (round-1 select + host prepass + round-2 subset)
+    # needs a single device; sel_cap == 0 keeps the single-round program
+    if os.environ.get("BWAMEM_TPU_EXT2", "1") != "1" or nsh > 1:
         sizes["a_sel"] = 0
     # long reads that enter mem_flt_chained_seeds keep the host path
     fallback = gate_rows(opt, reads)
@@ -530,7 +545,63 @@ def front_start(al, reads, seq: np.ndarray, l_seq: np.ndarray):
     return dict(abort=False, reads=reads, n=n, N=N, Lr=Lr, hist=hist,
                 sizes=sizes,
                 use_kmer=use_kmer, fallback=fallback, seq_dev=seq_dev,
-                l_dev=l_dev, arrs=tuple(arrs), Nkey=Nkey, ext2ctx=ext2ctx)
+                l_dev=l_dev, arrs=tuple(arrs), nsh=nsh, Nkey=Nkey,
+                ext2ctx=ext2ctx)
+
+
+# directory of the saved arena high-water history (unset: nothing is saved)
+HWM_DIR_ENV = "BWAMEM_TPU_HWM_DIR"
+
+
+def hist_path(al) -> str | None:
+    """File of the device front's arena high-water history for this index
+    and device type, in the directory BWAMEM_TPU_HWM_DIR names; None when
+    the variable is unset.  A process that starts from the saved sizes
+    does not regrow cold arenas (every regrowth reruns the batch's six
+    programs).  Keys are per-shard rows, so a mesh and one device share
+    the sizes of a shard's shape."""
+    d = os.environ.get(HWM_DIR_ENV)
+    if not d:
+        return None
+    fp = (f"{int(al.idx.seq_len)}-{int(al.idx.primary)}-"
+          f"{len(al.ctg_names)}-{al.device.type}")
+    return os.path.join(d, f"front_hwm_{fp}.json")
+
+
+def hist_load(al) -> dict:
+    """The saved history of hist_path (empty when there is none, or when
+    the file cannot be read)."""
+    hist = {}
+    path = hist_path(al)
+    if path and os.path.exists(path):
+        try:
+            with open(path) as f:
+                for k, v in json.load(f).items():
+                    name, n, lr = k.split(":")
+                    hist[("hwm", name, (int(n), int(lr)))] = int(v)
+        except (OSError, ValueError):
+            return {}
+    return hist
+
+
+def hist_save(al) -> None:
+    """Write al._front_hist to hist_path (atomically; nothing when the
+    variable is unset).  A file that cannot be written costs only the
+    saved sizes: one line on stderr, and alignment goes on."""
+    path = hist_path(al)
+    if not path:
+        return
+    data = {f"{k[1]}:{k[2][0]}:{k[2][1]}": int(v)
+            for k, v in al._front_hist.items()}
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path))
+        with os.fdopen(fd, "w") as f:
+            json.dump(data, f)
+        os.replace(tmp, path)
+    except OSError as e:
+        print(f"[bwamem_tpu_torch] arena history not saved to {path}: {e}",
+              file=sys.stderr, flush=True)
 
 
 MAX_RETRIES = 16        # arena regrowths of one batch before it bails
@@ -552,15 +623,26 @@ def front_finish(al, tok):
     mem_flt_chained_seeds, reads the final two-round walk demotes) need
     the host-compacted front.  When the front bails on the batch
     (FrontBailout), every row is a fallback row: one line on stderr names
-    the cause, and `front.bailouts` counts it.  The reference package
-    catches every RuntimeError there; this catches only FrontBailout, so a
-    CUDA error or a failed kernel build or launch still propagates and
-    the device is never bypassed silently."""
+    the cause, and `front.bailouts` counts it.  When a fetch outlasts its
+    watchdog (utils/fetchguard.FetchTimeout), every row is a fallback row
+    too and the device front stays off for the rest of the process
+    (al._front_disabled): one line on stderr, `front.fetch_timeouts`
+    counts it.  The reference package catches every RuntimeError there;
+    this catches only these two, so a CUDA error or a failed kernel build
+    or launch still propagates and the device is never bypassed
+    silently."""
     n = tok["n"]
     if tok["abort"]:
         return [[] for _ in range(n)], list(range(n))
     try:
         return _finish(al, tok)
+    except fetchguard.FetchTimeout:
+        al._front_disabled = True
+        print("[bwamem_tpu_torch] device front DISABLED after a fetch "
+              "timeout; re-running the batch on the host-compacted front",
+              file=sys.stderr, flush=True)
+        timers.count("front.fetch_timeouts")
+        return [[] for _ in range(n)], list(range(n))
     except FrontBailout as e:
         print(f"[bwamem_tpu_torch] device front bailed for this batch: {e}; "
               "re-running on the host-compacted front", file=sys.stderr,
@@ -569,17 +651,29 @@ def front_finish(al, tok):
         return [[] for _ in range(n)], list(range(n))
 
 
+# meta slots holding bit flags: combined across shards with OR; every other
+# slot is a count or a high-water mark and combines with max
+_FLAG_SLOTS = (1, 9, 17, 24, 32, 33, 34)
+
+
 def _finish(al, tok):
     """front_finish for a dispatched batch; raises FrontBailout."""
     reads, n, N, Lr = tok["reads"], tok["n"], tok["N"], tok["Lr"]
     hist, sizes, use_kmer = tok["hist"], tok["sizes"], tok["use_kmer"]
     fallback = tok["fallback"]
     seq_dev, l_dev, Nkey = tok["seq_dev"], tok["l_dev"], tok["Nkey"]
+    nsh = tok["nsh"]
     meta_all, out32, out_it, chain32, c_pos, scl = tok["arrs"]
     retries = 0
+    changed = False         # a high-water mark rose: save the history
     while True:
         with timers.section("front.fetch"):
             meta = _fetch(meta_all)
+        if nsh > 1:
+            meta_st = meta                      # [48, nsh]
+            meta = meta_st.max(axis=1)
+            for sl in _FLAG_SLOTS:
+                meta[sl] = np.bitwise_or.reduce(meta_st[sl])
         m1, m2, m3, m4, m5, m6 = (meta[8 * k: 8 * k + 8] for k in range(6))
         grow = _seeding_overflows(m1, m2, m3)
         if m4[0]:
@@ -592,7 +686,7 @@ def _finish(al, tok):
             # an extension window exceeded the hwm-sized t_max: results
             # would be silently truncated — grow and rerun
             sizes["t_span"] = pow2_bucket(int(m5[6]), lo=128)
-            _note_hwm(hist, Nkey, t_span=m5[6])
+            changed |= _note_hwm(hist, Nkey, t_span=m5[6])
             grow.append(None)
         if not grow:
             break
@@ -608,24 +702,30 @@ def _finish(al, tok):
                                          use_kmer, N, Lr)
 
     with timers.section("front.fetch"):
-        out32, out_it, chain32, c_pos, scl = (
-            _fetch(x) for x in (out32, out_it, chain32, c_pos, scl))
+        out32, out_it, chain32, c_pos, scl = fetchguard.fetch(
+            [out32, out_it, chain32, c_pos, scl], what="front.arenas")
     timers.add_bytes("d2h.front", out32.nbytes + out_it.nbytes
                      + chain32.nbytes + c_pos.nbytes + scl.nbytes
                      + meta.nbytes)
-    _note_seeding_hwm(hist, Nkey, m1, m2, m3)
-    _note_hwm(hist, Nkey, a_seed=m4[1], s_cap=m4[2], a_ch=m5[3], a_it=m5[4],
-              t_span=m5[6], a_sel=m6[0])
+    changed |= _note_seeding_hwm(hist, Nkey, m1, m2, m3)
+    changed |= _note_hwm(hist, Nkey, a_seed=m4[1], s_cap=m4[2], a_ch=m5[3],
+                         a_it=m5[4], t_span=m5[6], a_sel=m6[0])
+    if changed:
+        hist_save(al)
     if m5[0]:
         raise FrontBailout("chain table overflow with chain_cap == seed cap")
 
     seed_cnt = scl[0].astype(np.int64)
     l_rep = scl[1]
-    n_ch, n_it = int(m5[3]), int(m5[4])
-    I32 = np.array(out32[:, :n_it])
-    IIT = np.array(out_it[:, :n_it])
-    CH32 = chain32[:, :n_ch]
-    CHPOS = c_pos[:n_ch]
+    if nsh > 1:
+        I32, IIT, CH32, CHPOS = _merge_shards(out32, out_it, chain32, c_pos,
+                                              meta_st, N // nsh)
+    else:
+        n_ch, n_it = int(m5[3]), int(m5[4])
+        I32 = np.array(out32[:, :n_it])
+        IIT = np.array(out_it[:, :n_it])
+        CH32 = chain32[:, :n_ch]
+        CHPOS = c_pos[:n_ch]
     for i in np.nonzero(seed_cnt[:n] > sizes["s_cap"])[0]:
         fallback.add(int(i))
 
@@ -638,11 +738,37 @@ def _finish(al, tok):
         timers.count("ext.items", int(m6[0]) + len(needed))
         if len(needed):
             _ext2_run(al, tok["ext2ctx"], I32, IIT, needed, hist, Nkey)
-            _note_hwm(hist, Nkey, a_e2=len(needed))
+            if _note_hwm(hist, Nkey, a_e2=len(needed)):
+                hist_save(al)
             has[needed] = 1
     regs_out = _replay(al, reads, I32, IIT, CH32, CHPOS, l_rep, n, fallback,
                        has_res=has)
     return regs_out, sorted(fallback)
+
+
+def _merge_shards(out32, out_it, chain32, c_pos, meta_st, Ns):
+    """The per-shard item and chain arenas (stacked on axis 1, a shard's
+    arena after another's) merged into the global read-major layout the
+    host replay reads: shard s holds reads [s*Ns, (s+1)*Ns) under
+    shard-local read ids, so its ids are offset by s*Ns."""
+    nsh = meta_st.shape[1]
+    a_it = out32.shape[1] // nsh
+    a_ch = chain32.shape[1] // nsh
+    nit = meta_st[36].astype(np.int64)     # m5[4] per shard
+    nch = meta_st[35].astype(np.int64)     # m5[3] per shard
+    i32p, itp, chp, pp = [], [], [], []
+    for s in range(nsh):
+        it0, ch0 = s * a_it, s * a_ch
+        blk = np.array(out32[:, it0:it0 + nit[s]])
+        blk[0] += s * Ns
+        i32p.append(blk)
+        itp.append(out_it[:, it0:it0 + nit[s]])
+        cb = np.array(chain32[:, ch0:ch0 + nch[s]])
+        cb[0] += s * Ns
+        chp.append(cb)
+        pp.append(c_pos[0, ch0:ch0 + nch[s]])
+    return (np.concatenate(i32p, axis=1), np.concatenate(itp, axis=1),
+            np.concatenate(chp, axis=1), np.concatenate(pp))
 
 
 def _ext2_run(al, ctx, I32, IIT, needed, hist, Nkey):
@@ -665,19 +791,19 @@ def _ext2_run(al, ctx, I32, IIT, needed, hist, Nkey):
             ctx["sv"], ctx["sq"], ctx["sl"], ctx["sr"],
             torch.from_numpy(sub32).to(dev), torch.from_numpy(subit).to(dev),
             k, sel_cap=0, c_cap=0, **ctx["s6"])
-        o32, oit = _fetch(o32d), _fetch(oitd)
+        o32, oit = fetchguard.fetch([o32d, oitd], what="front.ext2")
         timers.add_bytes("d2h.front", o32.nbytes + oit.nbytes)
     I32[5:11, needed] = o32[5:11, :k]
     IIT[1:, needed] = oit[1:, :k]
 
 
-def _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr):
-    """Enqueue the device program chain; returns device tensors (no
-    fetch)."""
-    opt: MemOptions = al.opt
+def _program_kw(opt: MemOptions, sizes: dict, use_kmer: bool, n_reads: int,
+                Lr: int) -> dict:
+    """Keyword sets of the six programs (s1..s6) for a batch (or a shard)
+    of n_reads rows padded to Lr bases."""
     s1, s2, s3 = _seeding_kw(opt, sizes, use_kmer)
     s4 = dict(max_occ=opt.max_occ, a_seed=sizes["a_seed"],
-              s_cap=sizes["s_cap"], n_reads=N)
+              s_cap=sizes["s_cap"], n_reads=n_reads)
     s5 = dict(w=opt.w, max_chain_gap=opt.max_chain_gap,
               chain_cap=sizes["s_cap"], a_ch=sizes["a_ch"],
               a_it=sizes["a_it"], min_chain_weight=opt.min_chain_weight,
@@ -688,34 +814,68 @@ def _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr):
               o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
               e_ins=opt.e_ins, zdrop=opt.zdrop, w_opt=opt.w, a=opt.a,
               pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3)
+    return dict(s1=s1, s2=s2, s3=s3, s4=s4, s5=s5, s6=s6)
 
-    timers.count("dispatch.front", 6)
+
+def _programs(fm, ctg_offsets, ctg_is_alt, seq_dev, l_dev, *, s1, s2, s3,
+              s4, s5, s6, sel_cap=0, c_cap=0):
+    """Enqueue the six programs on one device (or one shard's rows);
+    returns device tensors (no fetch) and the round-2 context."""
     with timers.section("front.p1"):
-        sec1, m1 = _p1_body(al.fm, seq_dev, l_dev, **s1)
+        sec1, m1 = _p1_body(fm, seq_dev, l_dev, **s1)
     with timers.section("front.p2"):
-        sec2, m2 = _p2_body(al.fm, seq_dev, l_dev, sec1, m1[0], **s2)
+        sec2, m2 = _p2_body(fm, seq_dev, l_dev, sec1, m1[0], **s2)
     with timers.section("front.p3"):
-        sec3, m3 = _p3_body(al.fm, seq_dev, l_dev, **s3)
+        sec3, m3 = _p3_body(fm, seq_dev, l_dev, **s3)
     with timers.section("front.expand"):
         seeds, seed_cnt, l_rep, m4 = _expand_body(
-            al.fm, al.ctg_offsets, sec1, m1[0], sec2, m2[0], sec3, m3[0],
-            **s4)
+            fm, ctg_offsets, sec1, m1[0], sec2, m2[0], sec3, m3[0], **s4)
     with timers.section("front.chain"):
         seed_chain, items32, items_it, chain32, c_pos, m5 = _chain_body(
-            al.fm, al.ctg_offsets, al.ctg_is_alt, seeds, l_dev, **s5)
+            fm, ctg_offsets, ctg_is_alt, seeds, l_dev, **s5)
     with timers.section("front.ext"):
         out32, out_it, m6 = _ext_body(
-            al.fm, seq_dev, l_dev, seed_chain, seeds.valid, seeds.qbeg,
+            fm, seq_dev, l_dev, seed_chain, seeds.valid, seeds.qbeg,
             seeds.len, seeds.rbeg, items32, items_it, m5[4],
-            sel_cap=sizes.get("a_sel", 0), c_cap=sizes["s_cap"], **s6)
+            sel_cap=sel_cap, c_cap=c_cap, **s6)
     meta_all = torch.cat([m1, m2, m3, m4, m5, m6])
-    scl = torch.stack([seed_cnt.to(al.fm.itype), l_rep])
+    scl = torch.stack([seed_cnt.to(fm.itype), l_rep])
     # ext2 context: device tensors the round-2 dispatch needs (the items
     # come back from the host as an explicit subset)
     ctx = dict(seq_dev=seq_dev, l_dev=l_dev, seed_chain=seed_chain,
                sv=seeds.valid, sq=seeds.qbeg, sl=seeds.len, sr=seeds.rbeg,
                s6=s6)
     return meta_all, out32, out_it, chain32, c_pos, scl, ctx
+
+
+def _shard_programs(fm, ctg_offsets, ctg_is_alt, seq, l_seq, **kw):
+    """One shard's six programs, single-round extension (sel_cap 0: the
+    two-round driver's host prepass would serialize a round trip per
+    shard); the meta [48] and c_pos come back as a column and a row so the
+    shards stack on axis 1 ([48, nsh], [1, nsh * a_ch])."""
+    meta_all, out32, out_it, chain32, c_pos, scl, _ = _programs(
+        fm, ctg_offsets, ctg_is_alt, seq, l_seq, **kw)
+    return meta_all[:, None], out32, out_it, chain32, c_pos[None, :], scl
+
+
+def _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr):
+    """Enqueue the device program chain; returns device tensors (no
+    fetch) and the round-2 context (None under a mesh).  Under a mesh the
+    six programs run shard by shard (parallel/mesh.rowmap): reads on
+    their leading axis, the FM index replicated, every arena shard-local;
+    the outputs keep the stacked per-shard layout for _finish to merge."""
+    nsh = pmesh.shards(al.mesh)
+    kw = _program_kw(al.opt, sizes, use_kmer, N // nsh, Lr)
+    timers.count("dispatch.front", 6)
+    if nsh > 1:
+        run = pmesh.rowmap(al.mesh, _shard_programs, tuple(kw.items()),
+                           (True, True, True, False, False),
+                           out_mask=("ax1",) * 6)
+        return (*run(al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev),
+                None)
+    return _programs(al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev,
+                     sel_cap=sizes.get("a_sel", 0), c_cap=sizes["s_cap"],
+                     **kw)
 
 
 def _replay(al, reads, I32, IIT, CH32, CHPOS, l_rep, n, fallback,

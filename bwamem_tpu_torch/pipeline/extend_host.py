@@ -33,6 +33,7 @@ import torch
 from bwamem_tpu_torch.config import MemOptions
 from bwamem_tpu_torch.finalize import AlnReg
 from bwamem_tpu_torch.ops import ext_kernel
+from bwamem_tpu_torch.parallel import mesh as pmesh
 from bwamem_tpu_torch.pipeline import _shapes
 from bwamem_tpu_torch.pipeline._shapes import pow2_bucket
 from bwamem_tpu_torch.pipeline.device_front import _fetch, _qt_blocks
@@ -144,14 +145,18 @@ class _ExtBatcher:
 
     Targets are NOT materialized up front: each lane carries (t_start,
     t_sign) into the reference and the per-class target block gathers only
-    the rows of its class."""
+    the rows of its class.  Under a mesh each dispatch's lanes are split
+    over the shards (the packed [10, B] block on axis 1; the reference and
+    the read batch replicated)."""
 
-    def __init__(self, opt: MemOptions, mat, end_bonus: int, fm, seq_dev):
+    def __init__(self, opt: MemOptions, mat, end_bonus: int, fm, seq_dev,
+                 mesh=None):
         self.opt = opt
         self.mat = mat
         self.end_bonus = end_bonus
         self.fm = fm
         self.seq_dev = seq_dev
+        self.mesh = mesh
 
     def _dispatch(self, idx, B, arrays, *, lq_max, t_max):
         """Pack the lanes `idx` of the nine per-lane arrays into one
@@ -165,9 +170,13 @@ class _ExtBatcher:
         for r_, a in enumerate(arrays):
             packed[r_, : idx.size] = a[idx]
         dev = self.seq_dev.device
-        return _extend_flat(self.fm.pac, self.fm.l_pac, self.seq_dev,
-                            torch.from_numpy(packed).to(dev), lq_max=lq_max,
-                            t_max=t_max, **_score_kw(self.opt, self.mat))
+        return pmesh.over(
+            self.mesh, _extend_flat,
+            dict(lq_max=lq_max, t_max=t_max,
+                 **_score_kw(self.opt, self.mat)),
+            (True, True, True, "ax1"), out_mask="ax1")(
+            self.fm.pac, self.fm.l_pac, self.seq_dev,
+            torch.from_numpy(packed).to(dev))
 
     def submit(self, lane_read, q_start, q_sign, qlen, t_start, t_sign,
                tlen, h0, w):
@@ -201,7 +210,8 @@ class _ExtBatcher:
                         "widened packing: %d >= 2^%d; lower -A" %
                         (int(need.max()), 31 - sh))
                 idx = np.nonzero(long_sel)[0]
-                B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=8)
+                B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=8,
+                                  shards=pmesh.shards(self.mesh))
                 LT = pow2_bucket(max(int(tlen[idx].max()), 1), lo=16)
                 timers.count("dispatch.extend_long")
                 plan["parts"].append((idx, self._dispatch(
@@ -231,7 +241,8 @@ class _ExtBatcher:
                 tile = _shapes.LANE_TILE
             for s0, c in _shapes.chunks(cls_idx.size, tile):
                 idx = cls_idx[s0:s0 + c]
-                B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=512)
+                B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=512,
+                                  shards=pmesh.shards(self.mesh))
                 timers.count("dispatch.extend")
                 plan["parts"].append((idx, self._dispatch(
                     idx, B, arrays, lq_max=LQ, t_max=LT)))
@@ -243,7 +254,7 @@ class _ExtBatcher:
         M = plan["M"]
         out = {k: np.zeros(M, np.int32) for k in FIELDS}
         for idx, res in plan["parts"]:
-            arr = _fetch(res)
+            arr = _fetch(res, "extend")
             timers.add_bytes("d2h.extend", arr.nbytes)
             for fi, k in enumerate(FIELDS):
                 out[k][idx] = arr[fi, : idx.size]
@@ -286,7 +297,8 @@ def _extend_both_fused(al, opt, mat, seq_dev, ii, s_qb, s_len, s_rb, rmax0,
     """Host side of _extend_fused: classes lanes by the larger of the two
     target spans, ships ONE [7, B] array per tile, fetches ONE [14, B]
     result.  Returns (L results, aw0, R results, aw1) shaped like two
-    _extend_side calls."""
+    _extend_side calls.  Under a mesh each tile's lanes are split over the
+    shards, as in _ExtBatcher."""
     M = len(ii)
     mat_np = np.asarray(mat, np.int8)
     dev = seq_dev.device
@@ -323,23 +335,26 @@ def _extend_both_fused(al, opt, mat, seq_dev, ii, s_qb, s_len, s_rb, rmax0,
         for s0, c in _shapes.chunks(cls_idx.size,
                                     _kernel_tile(lq_fixed, tcap)):
             idx = cls_idx[s0:s0 + c]
-            B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=512)
+            B = _shapes.lanes(idx.size, dev, fine_lo=8, coarse_lo=512,
+                              shards=pmesh.shards(al.mesh))
             packed = np.zeros((7, B), np.int64)
             for r_, a_ in enumerate((ii, s_qb, s_len, s_rb, rmax0, rmax1,
                                      l_seq)):
                 packed[r_, : idx.size] = a_[idx]
             timers.count("dispatch.extend_fused")
-            parts.append((idx, _extend_fused(
+            parts.append((idx, pmesh.over(
+                al.mesh, _extend_fused,
+                dict(kw, lq_max=lq_fixed, t_max=tcap),
+                (True, True, True, "ax1"), out_mask="ax1")(
                 al.fm.pac, al.l_pac, seq_dev,
-                torch.from_numpy(packed).to(dev), lq_max=lq_fixed,
-                t_max=tcap, **kw)))
+                torch.from_numpy(packed).to(dev))))
 
     L = {k: np.zeros(M, np.int32) for k in FIELDS}
     R = {k: np.zeros(M, np.int32) for k in FIELDS}
     aw0 = np.full(M, opt.w, np.int32)
     aw1 = np.full(M, opt.w, np.int32)
     for idx, res in parts:
-        arr = _fetch(res)
+        arr = _fetch(res, "extend_fused")
         timers.add_bytes("d2h.extend", arr.nbytes)
         k = idx.size
         for fi, name in enumerate(FIELDS):
@@ -400,7 +415,8 @@ def extend_regions(al, reads, seq: np.ndarray, wr) -> list[list[AlnReg]]:
                 al, opt, mat, seq_dev, ii, s_qb, s_len, s_rb, rmax0,
                 rmax1, l_seq)
     else:
-        batcherL = _ExtBatcher(opt, mat, opt.pen_clip5, al.fm, seq_dev)
+        batcherL = _ExtBatcher(opt, mat, opt.pen_clip5, al.fm, seq_dev,
+                               mesh=al.mesh)
         with timers.section("ext.left"):
             L, aw0 = _extend_side(batcherL, opt, ii, s_qb - 1, neg1, lql,
                                   s_rb - 1, neg1, ltl, h0)
@@ -424,7 +440,8 @@ def extend_regions(al, reads, seq: np.ndarray, wr) -> list[list[AlnReg]]:
     sc0 = np.maximum(score_l, 1).astype(np.int32)
     pos1 = np.ones(M, np.int64)
     if not fused:
-        batcherR = _ExtBatcher(opt, mat, opt.pen_clip3, al.fm, seq_dev)
+        batcherR = _ExtBatcher(opt, mat, opt.pen_clip3, al.fm, seq_dev,
+                               mesh=al.mesh)
         with timers.section("ext.right"):
             R, aw1 = _extend_side(batcherR, opt, ii, s_qe, pos1, rql,
                                   s_rb + s_len, pos1, rtl, sc0)

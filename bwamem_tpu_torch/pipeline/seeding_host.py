@@ -32,10 +32,11 @@ from bwamem_tpu_torch.ops import align_ext
 from bwamem_tpu_torch.ops import chain as chainops
 from bwamem_tpu_torch.ops import fm as fmops
 from bwamem_tpu_torch.ops import smem as smemops
+from bwamem_tpu_torch.parallel import mesh as pmesh
 from bwamem_tpu_torch.pipeline import _shapes
 from bwamem_tpu_torch.pipeline._shapes import pow2_bucket
 from bwamem_tpu_torch.pipeline import chainflt_host
-from bwamem_tpu_torch.utils import timers
+from bwamem_tpu_torch.utils import fetchguard, timers
 
 i32 = torch.int32
 i64 = torch.int64
@@ -340,18 +341,23 @@ def _grow_sizes(sizes: dict, grow, m1, m2) -> None:
                            pow2_bucket(int(m2[6]) + 1, lo=1024))
 
 
-def _note_seeding_hwm(hist, key, m1, m2, m3) -> None:
-    _note_hwm(hist, key, cap=m1[2], kmax=m1[3], emax=m1[4],
-              pmax=m2[2], cand2=m2[3], k2max=m2[4], e2max=m2[5],
-              p3cap=m3[2], e3max=m3[3], b1s=m1[5], b2s=m2[6],
-              t1s=m1[6], t2s=m2[7], t3s=m3[4])
+def _note_seeding_hwm(hist, key, m1, m2, m3) -> bool:
+    return _note_hwm(hist, key, cap=m1[2], kmax=m1[3], emax=m1[4],
+                     pmax=m2[2], cand2=m2[3], k2max=m2[4], e2max=m2[5],
+                     p3cap=m3[2], e3max=m3[3], b1s=m1[5], b2s=m2[6],
+                     t1s=m1[6], t2s=m2[7], t3s=m3[4])
 
 
-def _note_hwm(hist, N, **vals):
+def _note_hwm(hist, N, **vals) -> bool:
+    """Raise the high-water marks of `vals` under key N; True when one
+    rose."""
+    changed = False
     for k, v in vals.items():
         key = ("hwm", k, N)
         if int(v) > hist.get(key, 0):
             hist[key] = int(v)
+            changed = True
+    return changed
 
 
 def _chain_worklist(fm, ctg_offsets, ctg_is_alt, seeds, l_seq, *,
@@ -453,8 +459,10 @@ def _np_itype(fm) -> np.dtype:
     return np.dtype(np.int64 if fm.itype == torch.int64 else np.int32)
 
 
-def _fetch(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
+def _fetch(x: torch.Tensor, what: str = "fetch") -> np.ndarray:
+    """One tensor to the host under the fetch watchdog (utils/fetchguard:
+    FetchTimeout past its timeout)."""
+    return fetchguard.fetch([x], what=what)[0]
 
 
 def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
@@ -483,11 +491,13 @@ def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
     it = _np_itype(al.fm)
     if M:
         with timers.section("seed.sa_walk"):
-            Mp = _shapes.lanes(M, dev, fine_lo=256, coarse_lo=1024)
+            Mp = _shapes.lanes(M, dev, fine_lo=256, coarse_lo=1024,
+                               shards=pmesh.shards(al.mesh))
             rk = np.zeros(Mp, dtype=it)
             rk[:M] = ranks
-            rbeg = _fetch(fmops.sa_lookup(
-                al.fm, torch.from_numpy(rk).to(dev)))[:M]
+            rbeg = _fetch(pmesh.over(al.mesh, fmops.sa_lookup, {},
+                                     (True, False))(
+                al.fm, torch.from_numpy(rk).to(dev)), "sa_walk")[:M]
             timers.add_bytes("d2h.sa_walk", rbeg.nbytes)
             rbeg = rbeg.astype(np.int64)
     else:
@@ -531,7 +541,8 @@ def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
         dispatch; the fetch is deferred to drain_group so the device works
         through every group while the host packs the next."""
         G = ridx.size
-        Gp = _shapes.lanes(G, dev, fine_lo=8, coarse_lo=64)
+        Gp = _shapes.lanes(G, dev, fine_lo=8, coarse_lo=64,
+                           shards=pmesh.shards(al.mesh))
         g_qbeg = np.zeros((Gp, cap), np.int32)
         g_rbeg = np.zeros((Gp, cap), it)
         g_len = np.zeros((Gp, cap), np.int32)
@@ -559,17 +570,24 @@ def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
             rbeg=put(g_rbeg), qbeg=put(g_qbeg), len=put(g_len),
             rid=put(g_rid), valid=put(g_valid), frac_rep=put(g_frac),
             overflow=torch.zeros(Gp, dtype=torch.bool, device=dev))
-        res = _chain_worklist(al.fm, al.ctg_offsets, al.ctg_is_alt, seeds,
-                              put(g_l), arena=arena, **statics)
-        return ridx, (g_qbeg, g_rbeg, g_len, g_valid, g_frac), res
+        # under a mesh the compactions are shard-local: each shard's
+        # [., arena] block follows the one before on axis 1
+        res = pmesh.over(
+            al.mesh, _chain_worklist, dict(statics, arena=arena),
+            (True, True, True, False, False),
+            out_mask=("ax1", False, False) if it == np.int32
+            else ("ax1", "ax1", False, False))(
+            al.fm, al.ctg_offsets, al.ctg_is_alt, seeds, put(g_l))
+        return ridx, (g_qbeg, g_rbeg, g_len, g_valid, g_frac), res, arena
 
     def drain_group(plan):
-        ridx, (g_qbeg, g_rbeg, g_len, g_valid, g_frac), res = plan
+        ridx, (g_qbeg, g_rbeg, g_len, g_valid, g_frac), res, arena = plan
         if len(res) == 3:
-            flat, sc16, cnts = (_fetch(r) for r in res)
+            flat, sc16, cnts = fetchguard.fetch(res, what="chain_grid")
             fitp = flat[4:7].astype(it)
         else:
-            flat, fitp, sc16, cnts = (_fetch(r) for r in res)
+            flat, fitp, sc16, cnts = fetchguard.fetch(res,
+                                                      what="chain_grid")
         timers.add_bytes("d2h.chain_grid",
                          flat.nbytes + fitp.nbytes + sc16.nbytes
                          + cnts.nbytes)
@@ -592,8 +610,9 @@ def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
         c_rid = np.full((Gp, C), -1, np.int32)
         c_alt = np.zeros((Gp, C), bool)
 
-        def scatter(dst_list, src_list, counts_row):
-            """Unpack read-major flat arrays into [rows, C] grids."""
+        def scatter(dst_list, src_list, counts_row, base, r0):
+            """Unpack a shard's read-major flat arrays (from column `base`,
+            its rows from r0) into [rows, C] grids."""
             k = counts_row.sum()
             if not k:
                 return
@@ -601,17 +620,25 @@ def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
             cum = np.concatenate([[0], np.cumsum(counts_row)])
             cols = np.arange(k) - cum[rows_r]
             for dst, src in zip(dst_list, src_list):
-                dst[rows_r, cols] = src[:k]
+                dst[rows_r + r0, cols] = src[base:base + k]
 
+        # one arena a shard (one shard off a mesh), a shard's block of rows
+        # after another's
+        nsh = flat.shape[1] // arena
+        Gs = Gp // nsh
         wv = flat[0]
-        scatter([wl_slot, wl_chain],
-                [(wv >> 16).astype(np.int16), (wv & 0xFFFF).astype(np.int16)],
-                wl_n)
-        scatter([c_w, c_fq, c_lq, c_ll, c_rid, c_alt, rmax0, rmax1, c_pos],
-                [flat[1] >> 16, flat[1] & 0xFFFF, flat[2] >> 16,
-                 flat[2] & 0xFFFF, flat[3] >> 1, (flat[3] & 1).astype(bool),
-                 fitp[0], fitp[1], fitp[2]],
-                chain_n)
+        for sh in range(nsh):
+            r0 = sh * Gs
+            scatter([wl_slot, wl_chain],
+                    [(wv >> 16).astype(np.int16),
+                     (wv & 0xFFFF).astype(np.int16)],
+                    wl_n[r0:r0 + Gs], sh * arena, r0)
+            scatter([c_w, c_fq, c_lq, c_ll, c_rid, c_alt, rmax0, rmax1,
+                     c_pos],
+                    [flat[1] >> 16, flat[1] & 0xFFFF, flat[2] >> 16,
+                     flat[2] & 0xFFFF, flat[3] >> 1,
+                     (flat[3] & 1).astype(bool), fitp[0], fitp[1], fitp[2]],
+                    chain_n[r0:r0 + Gs], sh * arena, r0)
         wr = WorklistNp(
             seeds=SeedsNp(qbeg=g_qbeg, rbeg=g_rbeg, len=g_len,
                           valid=g_valid, frac_rep=g_frac),
@@ -661,6 +688,20 @@ def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
 _MAX_RETRIES = 16
 
 
+def _collect_programs(fm, seq, l_seq, *, s1, s2, s3, pass3):
+    """The three seeding programs on one device (or one shard's rows):
+    (meta [24, 1], sec1, sec2, sec3), the metas as a column so shards
+    stack on axis 1."""
+    sec1, m1 = _p1_body(fm, seq, l_seq, **s1)
+    sec2, m2 = _p2_body(fm, seq, l_seq, sec1, m1[0], **s2)
+    if pass3:
+        sec3, m3 = _p3_body(fm, seq, l_seq, **s3)
+    else:
+        sec3, m3 = sec2[:, :0], torch.zeros((8,), dtype=i32,
+                                            device=seq.device)
+    return torch.cat([m1, m2, m3])[:, None], sec1, sec2, sec3
+
+
 def collect_intervals_host(al, seq_np: np.ndarray, l_seq: np.ndarray,
                            n: int, kmax0: int = 0, emax0: int = 0):
     """Returns flat per-interval arrays (read, start, end, x0, x2) sorted by
@@ -670,33 +711,42 @@ def collect_intervals_host(al, seq_np: np.ndarray, l_seq: np.ndarray,
     16 retries).
 
     The arena sizes start from the aligner's high-water history of this
-    batch shape (al._seed_arena_hist) or shape-scaled defaults.  kmax0 /
-    emax0 override the initial pass-1 arena sizes (tests use tiny values to
-    force the grow-and-retry path)."""
+    batch shape (al._seed_arena_hist) or shape-scaled defaults; under a
+    mesh every shard has arenas of its own, sized and keyed by per-shard
+    rows.  kmax0 / emax0 override the initial pass-1 arena sizes (tests
+    use tiny values to force the grow-and-retry path)."""
     opt: MemOptions = al.opt
     dev = al.device
+    nsh = pmesh.shards(al.mesh)
+    if seq_np.shape[0] % nsh:
+        # a batch under the shard count: empty rows give every shard one
+        seq_np = np.pad(seq_np, ((0, -seq_np.shape[0] % nsh), (0, 0)))
+        l_seq = np.pad(l_seq, (0, -l_seq.shape[0] % nsh))
     seq_d = torch.from_numpy(np.ascontiguousarray(seq_np)).to(dev)
     l_d = torch.from_numpy(np.ascontiguousarray(l_seq)).to(dev)
     N, Lr = seq_np.shape
+    key = (N // nsh, Lr)
     hist = al._seed_arena_hist
-    sizes = _sizes_for(hist, N, Lr)
+    sizes = _sizes_for(hist, *key)
     if kmax0:
         sizes["kmax"] = kmax0
     if emax0:
         sizes["emax"] = emax0
     use_kmer = use_kmer_table(al)
-    z8 = torch.zeros((8,), dtype=i32, device=dev)
     retries = 0
     while True:
         s1, s2, s3 = _seeding_kw(opt, sizes, use_kmer)
+        kw = dict(s1=s1, s2=s2, s3=s3, pass3=opt.max_mem_intv > 0)
         with timers.section("seed.collect_rt"):
-            sec1, m1 = _p1_body(al.fm, seq_d, l_d, **s1)
-            sec2, m2 = _p2_body(al.fm, seq_d, l_d, sec1, m1[0], **s2)
-            if opt.max_mem_intv > 0:
-                sec3, m3 = _p3_body(al.fm, seq_d, l_d, **s3)
-            else:
-                sec3, m3 = sec2[:, :0], z8
-            meta = _fetch(torch.cat([m1, m2, m3]))
+            meta_d, sec1, sec2, sec3 = pmesh.over(
+                al.mesh, _collect_programs, kw, (True, False, False),
+                out_mask="ax1")(al.fm, seq_d, l_d)
+            meta_st = _fetch(meta_d, "seed_collect.meta")     # [24, nsh]
+        # flags of any shard (OR), counts and high-water marks of the
+        # fullest (max)
+        meta = meta_st.max(axis=1)
+        for sl in (1, 9, 17):
+            meta[sl] = np.bitwise_or.reduce(meta_st[sl])
         m1, m2, m3 = meta[:8], meta[8:16], meta[16:]
         # grow whichever arena overflowed and rerun: dropped-lane output is
         # incomplete, silently truncating seeds is not an option
@@ -712,12 +762,21 @@ def collect_intervals_host(al, seq_np: np.ndarray, l_seq: np.ndarray,
         for g in grow:
             timers.count("seed.grow." + g)
     # running max of the measured high-water marks sizes the next batch
-    _note_seeding_hwm(hist, (N, Lr), m1, m2, m3)
-    n1, n2, n3 = int(m1[0]), int(m2[0]), int(m3[0])
-    allv = _fetch(torch.cat([sec1[:, :n1], sec2[:, :n2], sec3[:, :n3]],
-                            dim=1))
-    timers.add_bytes("d2h.seed_collect", allv.nbytes + meta.nbytes)
+    _note_seeding_hwm(hist, key, m1, m2, m3)
+    # the filled head of each shard's three arenas; shard-local read rows
+    # become batch rows
+    parts = []
+    for sh in range(nsh):
+        for k, sec in enumerate((sec1, sec2, sec3)):
+            w = sec.shape[1] // nsh
+            parts.append(sec[:, sh * w: sh * w + int(meta_st[8 * k, sh])])
+    allv = _fetch(torch.cat(parts, dim=1), "seed_collect")
+    timers.add_bytes("d2h.seed_collect", allv.nbytes + meta_st.nbytes)
     read_iv = allv[0].astype(np.int32)
+    if nsh > 1:
+        lens = [p.shape[1] for p in parts]
+        read_iv += np.repeat(np.repeat(np.arange(nsh, dtype=np.int32)
+                                       * key[0], 3), lens)
     start = allv[1].astype(np.int64)
     end = allv[2].astype(np.int64)
     x0 = allv[3].astype(np.int64)

@@ -148,9 +148,9 @@ Three phases; any failure exits non-zero without printing a result.
      host.  No row may fall back; both mates of at least 90 % of the pairs
      lie where simdata sampled them, at least 90 % of the pairs are flagged
      proper, the inferred FR insert mean is within 400 +- 10 and mate
-     rescue ran; one batch of 256 pairs run whole on the card and on the
+     rescue ran; one batch of 128 pairs run whole on the card and on the
      CPU gives byte-identical SAM;
-   * the first 256 reads and the 256 pairs rerun on the CPU, on the card
+   * the first 128 reads and the 128 pairs rerun on the CPU, on the card
      again with the device front's first arenas forced small (it must
      grow and retry, no row falling back) and with its item arena pinned
      (it must bail to the host-compacted front after its 16 retries,
@@ -158,20 +158,34 @@ Three phases; any failure exits non-zero without printing a result.
      front.retries, front.bailouts and the fallback rows are printed;
    * 512 reads of 1000 bp: every row is handed to the host-compacted
      front, whose fused path launches ext_pl2_kernel;
-   * 64 reads of 5000 bp: the host-compacted front's side path, which
+   * 32 reads of 5000 bp: the host-compacted front's side path, which
      gives every lane, the ones with a query over 4095 bases included, to
      ext_pl_kernel: 0 dispatches of the plain extension;
+   * multi-process mem (phase_multihost): 4 -K chunks of 8192 reads of
+     101 bp (the 2 x 8192 twice over) through cli.main in this process,
+     then through two processes of `python3 -m bwamem_tpu_torch.cli mem`
+     joined over gloo on a local port, 2 chunks a rank, both starting
+     from the main path's saved arena sizes; rank 0's merged SAM must
+     equal this process's bytes, and each rank must launch
+     ext_pl2_kernel (its count, fallback rows and wall time printed);
+   * the data-parallel mesh (phase_mesh): the 101 bp and 150 bp streams
+     again through Aligner(mesh=make_mesh(devs)), devs the first two
+     cards or cuda:0 twice on a one-card machine; the SAM of batches 0
+     and 1 must equal the one-device run's, ext_pl2_kernel must launch in
+     every shard (launches a shard printed) and no row may fall back;
    * the FM-step probe (tools/torch_fm_step_probe.py, 8192 lanes, 64
      steps): the chained index-row gather in one call (fm_chain_words,
      fm_chain_rows: the row sums once, then the chain through them) beside
      the same chain and the real scan step issued from PyTorch.
    Each path runs with every launch count set to 0 just before it and
    read just after; a path that never launched its kernel, or launched
-   another path's, fails.  Each alignment path prints reads/s, the stage
-   timers and the peak device memory; requires nearly every read mapped,
-   and mapped where simdata sampled it; then reruns its first reads (256,
-   16, 1) on the CPU and requires byte-identical SAM.  The 5000 bp path
-   also reruns its first 16 reads on the card as a batch of their own,
+   another path's, fails, and so does a path with a device fetch that
+   outlasted its watchdog (front.fetch_timeouts).  Each alignment path
+   prints reads/s, the stage timers and the peak device memory; requires
+   nearly every read mapped, and mapped where simdata sampled it; then
+   reruns its first reads (128, 8, 1) on the CPU and requires
+   byte-identical SAM.  The 5000 bp path
+   also reruns its first 8 reads on the card as a batch of their own,
    byte-identical again.  The widest call of each extension kernel in its
    path (for the 5000 bp path: the widest with a query over 4095 bases) is
    kept, and the kernel is held against its plain version on those lanes
@@ -196,20 +210,20 @@ Three phases; any failure exits non-zero without printing a result.
    pemerge's stderr too).
    Then the legacy aligner through cli.main on the card: one host-issued
    `aln` round of 1024 lanes (copy in, occ4, copy out) timed beside kernel
-   D at 1024 lanes; `aln` + `samse` over the first 4096 reads of 101 bp,
-   and `aln` on both mates + `sampe` over 2048 pairs of 101 bp (insert
+   D at 1024 lanes; `aln` + `samse` over the first 2048 reads of 101 bp,
+   and `aln` on both mates + `sampe` over 1024 pairs of 101 bp (insert
    300 +- 30; every 16th second mate carries 10 substitutions, so only the
    mate rescue places it): reads/s, rounds and lanes of the search, the
    host time a round, the stage timers, peak memory, at least 90 % of the
    reads (both mates of 90 % of the pairs) where simdata sampled them, and
-   some rescued mates; the first 256 reads, and 256 pairs, run whole on
+   some rescued mates; the first 128 reads, and 128 pairs, run whole on
    the card and on the CPU give identical .sai and SAM bytes.
-   Last, `bwasw` through cli.main on the card: 256 reads of 500 bp (2 %
+   Last, `bwasw` through cli.main on the card: 128 reads of 500 bp (2 %
    substitutions, 0.2 % indels) and 64 pairs of 300 bp (insert 700 +-
    60): reads/s, pairs/s, the bwasw.* stage timers, the extension
    dispatches (every one a launch of ext_pl_kernel, none of the plain
    extension), peak memory; at least 90 % of the reads where simdata
-   sampled them, some pair flagged proper; the first 16 reads and 8 pairs
+   sampled them, some pair flagged proper; the first 8 reads and 8 pairs
    run whole on the card and on the CPU give identical SAM bytes.
 
 The line before the last is {"kernels": [...]}, one entry for each of the
@@ -227,18 +241,18 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-CPU_CHECK_READS = 256
+CPU_CHECK_READS = 128
 # reads of each long-read batch rerun on the CPU (a 5000 bp read takes the
 # CPU tens of seconds, most of it the plain extension), and reads rerun on
 # the card as a batch of their own
-LONG_CPU_CHECK = {1000: 16, 5000: 1}
-LONG_SUB_BATCH = {5000: 16}
+LONG_CPU_CHECK = {1000: 8, 5000: 1}
+LONG_SUB_BATCH = {5000: 8}
 # reads of each long-read batch that the smoke run aligns (the first ones
 # of se_smoke_data's batch): seeding time is trips, not reads, so fewer
 # 5000 bp reads mostly cut the extension and the host tail
-LONG_READS = {1000: 512, 5000: 64}
+LONG_READS = {1000: 512, 5000: 32}
 # pairs of the paired-end batch run whole on the card and on the CPU
-PE_CPU_CHECK_PAIRS = 256
+PE_CPU_CHECK_PAIRS = 128
 # lanes of the kernel comparison: the main path's EXT shape
 LANES, LQ, T_MAX = 16384, 128, 256
 # long lanes of the one-pass kernel's comparison
@@ -272,14 +286,23 @@ GP3_STEPS = 512
 # H100 SXM float32 rate outside the tensor cores (data sheet)
 PEAK_F32_OPS = 67e12
 # the legacy aligner: reads of aln + samse (the first of the 101 bp set),
-# the reads and pairs run whole on the card and on the CPU, and the lanes
-# of the host-issued round timed beside kernel D
-LEG_READS, LEG_CPU_READS, LEG_CPU_PAIRS, LEG_ROUND_LANES = 4096, 256, 256, 1024
+# pairs of aln x 2 + sampe (the first of se_smoke_data's set), the reads
+# and pairs run whole on the card and on the CPU, and the lanes of the
+# host-issued round timed beside kernel D
+LEG_READS, LEG_PAIRS = 2048, 1024
+LEG_CPU_READS, LEG_CPU_PAIRS, LEG_ROUND_LANES = 128, 128, 1024
 # reads of the fastmap/maxk path (the first of the 101 bp set; two CLI
 # batches of 4096), and the reads and pairs rerun on the CPU
 TOOL_READS, TOOL_CPU_READS, PEM_CPU_PAIRS = 8192, 256, 256
-# bwasw: the reads and pairs run whole on the card and on the CPU
-BWASW_CPU_READS, BWASW_CPU_PAIRS = 16, 8
+# bwasw: the reads of 500 bp aligned (the first of se_smoke_data's set),
+# and the reads and pairs run whole on the card and on the CPU
+BWASW_SE_READS = 128
+BWASW_CPU_READS, BWASW_CPU_PAIRS = 8, 8
+# multi-process mem: ranks, and -K chunks of se_smoke_data.BATCH reads (the
+# 101 bp set twice over), dealt round-robin, 2 a rank
+MH_RANKS, MH_CHUNKS = 2, 4
+# seconds the ranks of the multi-process run may take, start-up included
+MH_DEADLINE = 300
 
 
 def log(msg: str) -> None:
@@ -1945,6 +1968,7 @@ def phase_main(idx, cpu_al):
     wall = time.perf_counter() - t0
     timers.enable(False)
     snap = timers.snapshot()
+    no_fetch_timeouts("main path", snap)
     peak = torch.cuda.max_memory_allocated()
     fb = snap.get("front.fallback_rows.count", 0)
     log(f"main path: {sum(map(len, stream))} reads in {wall:.3f} s = "
@@ -1965,7 +1989,7 @@ def phase_main(idx, cpu_al):
         raise RuntimeError(f"{fb} fallback rows")
     check_sams("main path", sams, reads)
     cpu = check_cpu("main path", cpu_al, reads, sams, CPU_CHECK_READS)
-    return al, pl2, pl, (reads[:CPU_CHECK_READS], cpu)
+    return al, pl2, pl, (reads[:CPU_CHECK_READS], cpu), (batches, sams)
 
 
 def phase_front_forced(al, se, pe):
@@ -1996,6 +2020,7 @@ def phase_front_forced(al, se, pe):
             wall = time.perf_counter() - t0
             timers.enable(False)
             snap = timers.snapshot()
+            no_fetch_timeouts(label, snap)
             got = {k: snap.get(f"front.{k}.count", 0)
                    for k in ("retries", "bailouts", "fallback_rows")}
             log(f"{label}: {len(reads)} reads in {wall:.3f} s; "
@@ -2043,6 +2068,7 @@ def phase_long(al, cpu_al, read_len):
     wall = time.perf_counter() - t0
     timers.enable(False)
     snap = timers.snapshot()
+    no_fetch_timeouts(label, snap)
     peak = torch.cuda.max_memory_allocated()
     log(f"{label}: {len(sams)} reads in {wall:.3f} s = "
         f"{len(sams) / wall:.2f} reads/s on {torch.cuda.get_device_name(0)}")
@@ -2106,6 +2132,7 @@ def phase_pe(al, cpu_al):
     wall = time.perf_counter() - t0
     timers.enable(False)
     snap = timers.snapshot()
+    no_fetch_timeouts(label, snap)
     peak = torch.cuda.max_memory_allocated()
     fb = snap.get("front.fallback_rows.count", 0)
     log(f"{label}: {sum(map(len, stream))} reads in {wall:.3f} s = "
@@ -2179,7 +2206,257 @@ def phase_pe(al, cpu_al):
     log(f"{label}: a batch of {PE_CPU_CHECK_PAIRS} pairs on the card "
         f"({t2 - t1:.1f} s) and on the CPU ({time.perf_counter() - t2:.1f} "
         f"s): SAM identical")
-    return pl2, pl, (reads[:k], cpu)
+    return pl2, pl, (reads[:k], cpu), (batches, sams)
+
+
+def no_fetch_timeouts(label, snap):
+    """Fail the run when a device fetch of the path outlasted its watchdog
+    (utils/fetchguard: the batch would have been re-run on the host front
+    and the device front turned off)."""
+    n = snap.get("front.fetch_timeouts.count", 0)
+    if n:
+        raise RuntimeError(f"{label}: {n} device fetch timeouts")
+
+
+def _same_sam(label, want, got):
+    if got != want:
+        bad = [i for i in range(min(len(want), len(got)))
+               if got[i] != want[i]]
+        raise RuntimeError(f"{label}: SAM differs from the single-device "
+                           f"run's on {len(bad)} of {len(want)} reads "
+                           f"(first {bad[:5]}; {len(got)} records):\n"
+                           + (f"{want[bad[0]]}{got[bad[0]]}" if bad
+                              else ""))
+
+
+class ShardLaunches:
+    """ext_pl2_kernel launches by mesh shard (parallel/mesh.current_shard)
+    within a with-block; the launch count starts at 0."""
+
+    def __enter__(self):
+        import collections
+        from bwamem_tpu_torch.ops import ext_kernel
+        from bwamem_tpu_torch.parallel import mesh as pmesh
+        self.mod, self.orig = ext_kernel, ext_kernel.extend_batch_pl2
+        self.by_shard = collections.Counter()
+
+        def counted(*args, **kw):
+            before = ext_kernel.launches
+            out = self.orig(*args, **kw)
+            self.by_shard[pmesh.current_shard()] += (ext_kernel.launches
+                                                     - before)
+            return out
+        ext_kernel.extend_batch_pl2 = counted
+        ext_kernel.launches = ext_kernel.launches_pl = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.extend_batch_pl2 = self.orig
+        self.launches, self.launches_pl = (self.mod.launches,
+                                           self.mod.launches_pl)
+
+
+def phase_mesh(idx, se, pe):
+    """The data-parallel mesh (parallel/mesh.py): Aligner(mesh=...) over
+    the first two cards, or over cuda:0 twice on a one-card machine (two
+    shards on one card: twice the launches, one index).  The SE stream of
+    phase_main (batches 0, 1, then 0 again) and the PE stream of phase_pe
+    through align_stream; the SAM of batches 0 and 1 must equal the
+    single-device run's bytes.  Prints the mid-stream rate, the fallback
+    rows and ext_pl2_kernel's launches a shard.  Returns the launches by
+    path."""
+    import torch
+    from bwamem_tpu_torch.parallel import make_mesh
+    from bwamem_tpu_torch.pipeline.align import Aligner, align_stream
+    from bwamem_tpu_torch.utils import timers
+    n_dev = torch.cuda.device_count()
+    devs = ["cuda:0", "cuda:1"] if n_dev >= 2 else ["cuda:0", "cuda:0"]
+    log(f"mesh: {devs} ({'two cards' if n_dev >= 2 else 'two shards on '
+                         'one card'}; {n_dev} visible)")
+    al = Aligner(idx, mesh=make_mesh(devs))
+    launches = {}
+    for kind, (batches, want) in (("SE", se), ("PE", pe)):
+        label = f"mesh, {kind}"
+        stream = batches + batches[:1]
+        torch.cuda.synchronize()
+        timers.reset()
+        timers.enable(True)
+        sams, walls = [], []
+        t0 = tb = time.perf_counter()
+        with ShardLaunches() as sl:
+            for k, (n, ss) in enumerate(align_stream(al, stream,
+                                                     pe=kind == "PE")):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                walls.append(now - tb)
+                tb = now
+                if k < len(batches):
+                    sams.extend(ss)
+        wall = time.perf_counter() - t0
+        timers.enable(False)
+        snap = timers.snapshot()
+        no_fetch_timeouts(label, snap)
+        fb = snap.get("front.fallback_rows.count", 0)
+        log(f"{label}: {sum(map(len, stream))} reads in {wall:.3f} s "
+            f"(batches {[round(w, 3) for w in walls]} s); batch 1 in "
+            f"mid-stream {len(stream[1]) / walls[1]:.1f} reads/s; "
+            f"fallback rows {fb}; ext_pl2_kernel launches by shard "
+            f"{dict(sorted(sl.by_shard.items()))}, ext_pl_kernel "
+            f"{sl.launches_pl}; front retries "
+            f"{snap.get('front.retries.count', 0)}; on "
+            f"{torch.cuda.get_device_name(0)}")
+        _same_sam(label, want, sams)
+        if any(sl.by_shard.get(s, 0) <= 0 for s in range(len(devs))) \
+                or sl.launches_pl:
+            raise RuntimeError(f"{label}: expected ext_pl2_kernel launches "
+                               f"on every shard and no ext_pl_kernel, got "
+                               f"{dict(sl.by_shard)}, {sl.launches_pl}")
+        if fb:
+            raise RuntimeError(f"{label}: {fb} fallback rows")
+        log(f"{label}: SAM of {len(sams)} reads identical to the "
+            f"single-device run's")
+        launches[kind] = (sl.launches, sl.launches_pl)
+    return launches
+
+
+def phase_multihost(prefix, fq, main_al):
+    """Multi-process mem (parallel/multihost.py): MH_RANKS processes of
+    `python3 -m bwamem_tpu_torch.cli mem` on the card, joined over gloo
+    through a local coordinator, each aligning 2 of the MH_CHUNKS -K chunks
+    of 8192 reads; rank 0 merges the shards.  The output must equal, byte
+    for byte, the same command run in one process (in this one, on the
+    card).  The ranks and the one-process run start from the main path's
+    arena history (BWAMEM_TPU_HWM_DIR).  Each rank reports its wall time,
+    ext_pl2_kernel launches (above 0), fallback rows and fetch timeouts
+    (0).  Returns the ranks' launches of both extension kernels."""
+    import shutil
+    from bwamem_tpu_torch.pipeline import device_front
+    import se_smoke_data as sd
+    work = os.path.join(sd.WORK, "multihost")
+    shutil.rmtree(work, ignore_errors=True)
+    for d in ("one", "ranks"):
+        os.makedirs(os.path.join(work, d))
+    os.environ["BWAMEM_TPU_HWM_DIR"] = os.path.join(work, "hwm")
+    try:
+        device_front.hist_save(main_al)
+        return _multihost_runs(prefix, fq, work)
+    finally:
+        del os.environ["BWAMEM_TPU_HWM_DIR"]
+
+
+def _multihost_runs(prefix, fq, work):
+    """phase_multihost's two runs, in `work`."""
+    import socket
+    import torch
+    from bwamem_tpu_torch.ops import ext_kernel
+    from bwamem_tpu_torch.utils import timers
+    import se_smoke_data as sd
+    one_dir, mh_dir = os.path.join(work, "one"), os.path.join(work, "ranks")
+    # the 101 bp set over and over: MH_CHUNKS chunks of sd.BATCH reads
+    src = open(fq).read()
+    n_copies = MH_CHUNKS * sd.BATCH // (sd.BATCH * sd.N_BATCHES)
+    mh_fq = os.path.join(work, "reads.fq")
+    with open(mh_fq, "w") as f:
+        f.write(src * n_copies)
+    n_reads = MH_CHUNKS * sd.BATCH
+    argv = ["mem", "-K", str(sd.BATCH * sd.READ_LEN), "-o", "out.sam",
+            prefix, mh_fq]
+
+    cwd = os.getcwd()
+    ext_kernel.launches = 0
+    timers.reset()
+    timers.enable(True)
+    t0 = time.perf_counter()
+    try:
+        os.chdir(one_dir)
+        run_cli(argv, "cuda")
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        timers.enable(False)
+    one_wall = time.perf_counter() - t0
+    snap = timers.snapshot()
+    no_fetch_timeouts("multi-process, one process", snap)
+    log(f"multi-process, one process: {n_reads} reads in {one_wall:.3f} s "
+        f"= {n_reads / one_wall:.1f} reads/s; ext_pl2_kernel launches "
+        f"{ext_kernel.launches}; front retries "
+        f"{snap.get('front.retries.count', 0)}")
+    want = open(os.path.join(one_dir, "out.sam"), "rb").read()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, errs = [], []
+    t0 = time.perf_counter()
+    for r in range(MH_RANKS):
+        env = dict(os.environ, PYTHONPATH=REPO, BWAMEM_TPU_TIMERS="1",
+                   BWAMEM_COORDINATOR=f"localhost:{port}",
+                   BWAMEM_NUM_PROCESSES=str(MH_RANKS),
+                   BWAMEM_PROCESS_ID=str(r),
+                   BWAMEM_DIST_TIMEOUT=str(MH_DEADLINE))
+        errs.append(open(os.path.join(work, f"rank{r}.err"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "bwamem_tpu_torch.cli", *argv],
+            cwd=mh_dir, env=env, stdout=subprocess.DEVNULL,
+            stderr=errs[-1]))
+    walls = [None] * MH_RANKS
+    try:
+        while any(w is None for w in walls):
+            for r, p in enumerate(procs):
+                if walls[r] is None and p.poll() is not None:
+                    walls[r] = time.perf_counter() - t0
+                    if p.returncode != 0:
+                        raise RuntimeError(
+                            f"multi-process: rank {r} exited "
+                            f"{p.returncode}:\n" + open(os.path.join(
+                                work, f"rank{r}.err")).read()[-3000:])
+            if time.perf_counter() - t0 > MH_DEADLINE:
+                raise RuntimeError(f"multi-process: the ranks took over "
+                                   f"{MH_DEADLINE} s")
+            time.sleep(0.2)
+    finally:
+        for p, f in zip(procs, errs):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+    wall = time.perf_counter() - t0
+    launches = []
+    for r in range(MH_RANKS):
+        err = open(os.path.join(work, f"rank{r}.err")).read()
+        m = re.search(r"rank \d+: (\d+) reads in ([\d.]+) s; "
+                      r"ext_pl2_kernel launches (\d+), ext_pl_kernel "
+                      r"launches (\d+), fallback rows (\d+), fetch "
+                      r"timeouts (\d+)", err)
+        if not m:
+            raise RuntimeError(f"multi-process: rank {r} reported no "
+                               f"counts:\n{err[-2000:]}")
+        done, secs, pl2, pl, fb, to = (float(x) for x in m.groups())
+        merge = re.search(r"merged (\d+) chunks of \d+ shards in ([\d.]+) "
+                          r"s", err)
+        log(f"multi-process, rank {r}: {int(done)} reads aligned in "
+            f"{secs:.3f} s, process wall {walls[r]:.3f} s; ext_pl2_kernel "
+            f"launches {int(pl2)}, ext_pl_kernel {int(pl)}, fallback rows "
+            f"{int(fb)}, fetch timeouts {int(to)}"
+            + (f"; merge of {merge.group(1)} chunks "
+               f"{float(merge.group(2)):.3f} s" if merge else ""))
+        if pl2 <= 0 or to:
+            raise RuntimeError(f"multi-process: rank {r} launched "
+                               f"ext_pl2_kernel {int(pl2)} times with "
+                               f"{int(to)} fetch timeouts")
+        if r == 0 and not merge:
+            raise RuntimeError("multi-process: rank 0 did not merge")
+        launches.append((int(pl2), int(pl)))
+    got = open(os.path.join(mh_dir, "out.sam"), "rb").read()
+    if got != want:
+        raise RuntimeError(f"multi-process: the merged SAM ({len(got)} "
+                           f"bytes) differs from one process's "
+                           f"({len(want)} bytes)")
+    log(f"multi-process: {MH_RANKS} ranks, {n_reads} reads in {wall:.3f} s "
+        f"= {n_reads / wall:.1f} reads/s overall (start-up and merge "
+        f"included); merged SAM identical to one process's ({len(got)} "
+        f"bytes) on {torch.cuda.get_device_name(0)}")
+    return launches
 
 
 def fm_bound(n_lanes, steps, nb, W):
@@ -2499,10 +2776,10 @@ def _legacy_counts(label, snap, n_items, kernel_d):
 def phase_legacy(prefix, kernel_d):
     """The legacy aligner through cli.main on the card, on the 5 Mbp smoke
     genome: one host-issued aln round of 1024 lanes beside kernel D; aln +
-    samse over 4096 reads of 101 bp; aln on both mates + sampe over 2048
+    samse over 2048 reads of 101 bp; aln on both mates + sampe over 1024
     pairs of 101 bp with mate-rescue bait.  At least 90 % of the reads
     (both mates of 90 % of the pairs) where simdata sampled them; the
-    first 256 reads and 256 pairs give the CPU's .sai and SAM bytes."""
+    first 128 reads and 128 pairs give the CPU's .sai and SAM bytes."""
     import numpy as np
     import torch
     from bwamem_tpu_torch.index import load_index
@@ -2561,23 +2838,25 @@ def phase_legacy(prefix, kernel_d):
 
     # paired-end: aln on both mates + sampe
     fq1, fq2, origins = sd.legacy_pairs(log)
+    fq1, fq2 = head_fastq(fq1, LEG_PAIRS), head_fastq(fq2, LEG_PAIRS)
+    origins = origins[:LEG_PAIRS]
     sais = [os.path.join(work, f"pe{e}.sai") for e in (1, 2)]
     pe_sam = os.path.join(work, "pe.sam")
     t0 = time.perf_counter()
     for e, (f, x) in enumerate(((fq1, sais[0]), (fq2, sais[1])), 1):
         _, _, snap = run_timed(f"aln (mate {e})", ["aln", "-f", x, prefix, f],
-                               sd.LEG_PAIRS, "reads")
-        _legacy_counts(f"aln (mate {e})", snap, sd.LEG_PAIRS, kernel_d)
+                               LEG_PAIRS, "reads")
+        _legacy_counts(f"aln (mate {e})", snap, LEG_PAIRS, kernel_d)
     _, err, snap = run_timed("sampe", ["sampe", "-f", pe_sam, prefix, *sais,
-                                       fq1, fq2], sd.LEG_PAIRS, "pairs")
+                                       fq1, fq2], LEG_PAIRS, "pairs")
     wall = time.perf_counter() - t0
-    log(f"aln x 2 + sampe: {sd.LEG_PAIRS} pairs in {wall:.3f} s = "
-        f"{sd.LEG_PAIRS / wall:.1f} pairs/s; "
+    log(f"aln x 2 + sampe: {LEG_PAIRS} pairs in {wall:.3f} s = "
+        f"{LEG_PAIRS / wall:.1f} pairs/s; "
         + "; ".join(x for x in err.splitlines() if "paired_sw" in x
                     or "inferred external" in x))
     recs = _sam_records(pe_sam)
-    if len(recs) != 2 * sd.LEG_PAIRS:
-        raise RuntimeError(f"sampe: {len(recs)} lines for {sd.LEG_PAIRS} "
+    if len(recs) != 2 * LEG_PAIRS:
+        raise RuntimeError(f"sampe: {len(recs)} lines for {LEG_PAIRS} "
                            "pairs")
     L, tol = sd.LEG_READ_LEN, 20 + sd.LEG_READ_LEN // 50
     placed = 0
@@ -2589,15 +2868,15 @@ def phase_legacy(prefix, kernel_d):
                 and abs(got[1][1] - want[1 - e]) <= tol for e in range(2)):
             placed += 1
     rescued = sum("\tXT:A:M" in r for r in recs)
-    bait = len(range(0, sd.LEG_PAIRS, sd.LEG_BAIT_EVERY))
-    log(f"sampe: both mates at their origin in {placed}/{sd.LEG_PAIRS} "
+    bait = len(range(0, LEG_PAIRS, sd.LEG_BAIT_EVERY))
+    log(f"sampe: both mates at their origin in {placed}/{LEG_PAIRS} "
         f"pairs; {rescued} mates placed by the mate rescue ({bait} pairs "
         f"carry bait)")
-    if placed < 0.9 * sd.LEG_PAIRS or rescued <= 0:
-        raise RuntimeError(f"sampe: {placed} of {sd.LEG_PAIRS} pairs placed, "
+    if placed < 0.9 * LEG_PAIRS or rescued <= 0:
+        raise RuntimeError(f"sampe: {placed} of {LEG_PAIRS} pairs placed, "
                            f"{rescued} rescued")
 
-    # the first 256 reads and 256 pairs, whole, on the card and on the CPU
+    # the first reads and pairs, whole, on the card and on the CPU
     fq_c = head_fastq(fq, LEG_CPU_READS)
     p1, p2 = head_fastq(fq1, LEG_CPU_PAIRS), head_fastq(fq2, LEG_CPU_PAIRS)
     outs = {}
@@ -2678,10 +2957,10 @@ def run_bwasw(label, argv, n_items, unit):
 
 
 def phase_bwasw(prefix):
-    """bwasw through cli.main on the card, on the 5 Mbp smoke genome: 256
+    """bwasw through cli.main on the card, on the 5 Mbp smoke genome: 128
     reads of 500 bp and 64 pairs of 300 bp (insert 700 +- 60).  Every
     extension launches ext_pl_kernel; at least 90 % of the single-end reads
-    lie where simdata sampled them; some pair is proper; the first 16 reads
+    lie where simdata sampled them; some pair is proper; the first 8 reads
     and 8 pairs, run whole on the card and on the CPU, give the same SAM
     bytes."""
     import torch
@@ -2691,7 +2970,8 @@ def phase_bwasw(prefix):
     os.makedirs(work, exist_ok=True)
     t_phase = time.perf_counter()
     fq, fq1, fq2, origins = sd.bwasw_reads(log)
-    n_se, n_pe = sd.BWASW_SE[0], sd.BWASW_PE[0]
+    fq = head_fastq(fq, BWASW_SE_READS)
+    n_se, n_pe = BWASW_SE_READS, sd.BWASW_PE[0]
 
     sam = os.path.join(work, "se.sam")
     run_bwasw("bwasw (SE 500 bp)", ["bwasw", "-f", sam, prefix, fq], n_se,
@@ -2790,8 +3070,8 @@ def main() -> int:
     import se_smoke_data as sd
     idx = load_index(sd.smoke_data(log)[0])
     cpu_al = Aligner(idx, device="cpu")
-    al, main_pl2, main_pl, se_check = phase_main(idx, cpu_al)
-    pe_pl2, pe_pl, pe_check = phase_pe(al, cpu_al)
+    al, main_pl2, main_pl, se_check, se_run = phase_main(idx, cpu_al)
+    pe_pl2, pe_pl, pe_check, pe_run = phase_pe(al, cpu_al)
     phase_front_forced(al, se_check, pe_check)
     fused_pl2, none_pl = phase_long(al, cpu_al, 1000)
     if fused_pl2.launches <= 0 or none_pl.launches != 0:
@@ -2800,6 +3080,9 @@ def main() -> int:
             f"only, got {fused_pl2.launches} and {none_pl.launches} "
             f"launches")
     side_pl2, side_pl = phase_long(al, cpu_al, 5000)
+    mh_launches = phase_multihost(sd.smoke_data(log)[0],
+                                  sd.smoke_data(log)[1], al)
+    mesh_launches = phase_mesh(idx, se_run, pe_run)
     if side_pl.launches <= 0:
         raise RuntimeError("5000 bp path: ext_pl_kernel was never launched")
     if side_pl.kw["lq_max"] <= 4095 or int(side_pl.args[1].max()) <= 4095:
@@ -2819,7 +3102,11 @@ def main() -> int:
     kern2["launches_by_path"] = {"101bp": main_pl2.launches,
                                  "pe150bp": pe_pl2.launches,
                                  "1000bp": fused_pl2.launches,
-                                 "5000bp": side_pl2.launches}
+                                 "5000bp": side_pl2.launches,
+                                 "multihost_ranks": [
+                                     x[0] for x in mh_launches],
+                                 "mesh_se": mesh_launches["SE"][0],
+                                 "mesh_pe": mesh_launches["PE"][0]}
     kern2["max_abs_err"] = max(kern2["max_abs_err"], pe_k["max_abs_err"],
                                fused["max_abs_err"], err_pl2)
     kern2["ms_pe150bp"] = pe_k["ms"]
@@ -2834,7 +3121,11 @@ def main() -> int:
     kern1["launches_by_path"] = {"101bp": main_pl.launches,
                                  "pe150bp": pe_pl.launches,
                                  "1000bp": none_pl.launches,
-                                 "5000bp": side_pl.launches}
+                                 "5000bp": side_pl.launches,
+                                 "multihost_ranks": [
+                                     x[1] for x in mh_launches],
+                                 "mesh_se": mesh_launches["SE"][1],
+                                 "mesh_pe": mesh_launches["PE"][1]}
     kern1["max_abs_err"] = max(kern1["max_abs_err"], err_pl)
     phase_tools(sd.smoke_data(log)[0])
     phase_legacy(sd.smoke_data(log)[0], kernel_d)
