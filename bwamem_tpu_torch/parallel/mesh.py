@@ -26,11 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
 
 import torch
-
-_local = threading.local()
 
 
 class Mesh:
@@ -114,12 +111,6 @@ def replicated(mesh: Mesh, obj) -> list:
     return copies
 
 
-def current_shard() -> int | None:
-    """Index of the shard whose `rowmap` call runs in this thread, else
-    None (a launch counter can attribute its launches to shards)."""
-    return getattr(_local, "shard", None)
-
-
 def _split(obj, axis: int, s: int, nsh: int, dev):
     """Shard s of nsh of every tensor in `obj` along `axis`, on `dev`."""
     if isinstance(obj, torch.Tensor):
@@ -197,11 +188,7 @@ def rowmap(mesh: Mesh, fn, statics: tuple = (), repl_mask: tuple = (),
                     sargs.append(_split(a, _axis(r), s, nsh, dev))
             # tensors carry their device: the kernels launch on it
             # (ops/launch) and every op follows its inputs
-            _local.shard = s
-            try:
-                outs.append(fn(*sargs, **kw))
-            finally:
-                _local.shard = None
+            outs.append(fn(*sargs, **kw))
         dev0 = mesh.devices[0]
         if out_mask is None or out_mask is False or out_mask == "ax1":
             return _concat(outs, 0 if out_mask in (None, False) else 1,

@@ -33,14 +33,12 @@ DEFAULT_TIMEOUT = 1800.0
 
 def init_from_env(coordinator: str | None = None,
                   num_processes: int | None = None,
-                  process_id: int | None = None,
-                  timeout: float | None = None) -> tuple[int, int]:
+                  process_id: int | None = None) -> tuple[int, int]:
     """torch.distributed's gloo process group from the arguments or the
     environment (BWAMEM_COORDINATOR host:port, BWAMEM_NUM_PROCESSES,
-    BWAMEM_PROCESS_ID; the timeout from BWAMEM_DIST_TIMEOUT seconds,
-    default DEFAULT_TIMEOUT).  Returns (process_id, num_processes); (0, 1)
-    and no process group when unconfigured (one process).  A failed
-    initialisation raises."""
+    BWAMEM_PROCESS_ID), with a timeout of DEFAULT_TIMEOUT seconds.
+    Returns (process_id, num_processes); (0, 1) and no process group when
+    unconfigured (one process).  A failed initialisation raises."""
     coordinator = coordinator or os.environ.get("BWAMEM_COORDINATOR")
     num_processes = num_processes if num_processes is not None else \
         int(os.environ.get("BWAMEM_NUM_PROCESSES", "0") or 0)
@@ -51,14 +49,11 @@ def init_from_env(coordinator: str | None = None,
     if not 0 <= process_id < num_processes:
         raise ValueError(f"BWAMEM_PROCESS_ID {process_id} is not a rank of "
                          f"{num_processes} processes")
-    if timeout is None:
-        timeout = float(os.environ.get("BWAMEM_DIST_TIMEOUT",
-                                       DEFAULT_TIMEOUT))
     import torch.distributed as dist
     dist.init_process_group(
         "gloo", init_method=f"tcp://{coordinator}",
         world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout))
+        timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT))
     return process_id, num_processes
 
 

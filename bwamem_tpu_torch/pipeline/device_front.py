@@ -668,12 +668,10 @@ def _finish(al, tok):
     changed = False         # a high-water mark rose: save the history
     while True:
         with timers.section("front.fetch"):
-            meta = _fetch(meta_all)
-        if nsh > 1:
-            meta_st = meta                      # [48, nsh]
-            meta = meta_st.max(axis=1)
-            for sl in _FLAG_SLOTS:
-                meta[sl] = np.bitwise_or.reduce(meta_st[sl])
+            meta_st = _fetch(meta_all)          # [48, nsh]
+        meta = meta_st.max(axis=1)
+        for sl in _FLAG_SLOTS:
+            meta[sl] = np.bitwise_or.reduce(meta_st[sl])
         m1, m2, m3, m4, m5, m6 = (meta[8 * k: 8 * k + 8] for k in range(6))
         grow = _seeding_overflows(m1, m2, m3)
         if m4[0]:
@@ -717,15 +715,8 @@ def _finish(al, tok):
 
     seed_cnt = scl[0].astype(np.int64)
     l_rep = scl[1]
-    if nsh > 1:
-        I32, IIT, CH32, CHPOS = _merge_shards(out32, out_it, chain32, c_pos,
-                                              meta_st, N // nsh)
-    else:
-        n_ch, n_it = int(m5[3]), int(m5[4])
-        I32 = np.array(out32[:, :n_it])
-        IIT = np.array(out_it[:, :n_it])
-        CH32 = chain32[:, :n_ch]
-        CHPOS = c_pos[:n_ch]
+    I32, IIT, CH32, CHPOS = _merge_shards(out32, out_it, chain32, c_pos,
+                                          meta_st, N // nsh)
     for i in np.nonzero(seed_cnt[:n] > sizes["s_cap"])[0]:
         fallback.add(int(i))
 
@@ -750,7 +741,8 @@ def _merge_shards(out32, out_it, chain32, c_pos, meta_st, Ns):
     """The per-shard item and chain arenas (stacked on axis 1, a shard's
     arena after another's) merged into the global read-major layout the
     host replay reads: shard s holds reads [s*Ns, (s+1)*Ns) under
-    shard-local read ids, so its ids are offset by s*Ns."""
+    shard-local read ids, so its ids are offset by s*Ns.  One device is
+    the case of one shard."""
     nsh = meta_st.shape[1]
     a_it = out32.shape[1] // nsh
     a_ch = chain32.shape[1] // nsh
@@ -860,10 +852,11 @@ def _shard_programs(fm, ctg_offsets, ctg_is_alt, seq, l_seq, **kw):
 
 def _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr):
     """Enqueue the device program chain; returns device tensors (no
-    fetch) and the round-2 context (None under a mesh).  Under a mesh the
-    six programs run shard by shard (parallel/mesh.rowmap): reads on
-    their leading axis, the FM index replicated, every arena shard-local;
-    the outputs keep the stacked per-shard layout for _finish to merge."""
+    fetch) in the stacked per-shard layout _finish merges (one device is
+    one shard: meta [48, 1], c_pos [1, a_ch]) and the round-2 context
+    (None under a mesh).  Under a mesh the six programs run shard by shard
+    (parallel/mesh.rowmap): reads on their leading axis, the FM index
+    replicated, every arena shard-local."""
     nsh = pmesh.shards(al.mesh)
     kw = _program_kw(al.opt, sizes, use_kmer, N // nsh, Lr)
     timers.count("dispatch.front", 6)
@@ -873,9 +866,10 @@ def _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr):
                            out_mask=("ax1",) * 6)
         return (*run(al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev),
                 None)
-    return _programs(al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev,
-                     sel_cap=sizes.get("a_sel", 0), c_cap=sizes["s_cap"],
-                     **kw)
+    meta_all, out32, out_it, chain32, c_pos, scl, ctx = _programs(
+        al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev,
+        sel_cap=sizes.get("a_sel", 0), c_cap=sizes["s_cap"], **kw)
+    return meta_all[:, None], out32, out_it, chain32, c_pos[None, :], scl, ctx
 
 
 def _replay(al, reads, I32, IIT, CH32, CHPOS, l_rep, n, fallback,

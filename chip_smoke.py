@@ -168,10 +168,11 @@ Three phases; any failure exits non-zero without printing a result.
      from the main path's saved arena sizes; rank 0's merged SAM must
      equal this process's bytes, and each rank must launch
      ext_pl2_kernel (its count, fallback rows and wall time printed);
-   * the data-parallel mesh (phase_mesh): the 101 bp and 150 bp streams
+   * the data-parallel mesh (phase_mesh): the 101 bp and 150 bp batches
      again through Aligner(mesh=make_mesh(devs)), devs the first two
-     cards or cuda:0 twice on a one-card machine; the SAM of batches 0
-     and 1 must equal the one-device run's, ext_pl2_kernel must launch in
+     cards or cuda:0 twice on a one-card machine, the shards' arenas sized
+     from the main path's; the SAM must equal the one-device run's,
+     ext_pl2_kernel must launch in
      every shard (launches a shard printed) and no row may fall back;
    * the FM-step probe (tools/torch_fm_step_probe.py, 8192 lanes, 64
      steps): the chained index-row gather in one call (fm_chain_words,
@@ -252,7 +253,7 @@ LONG_SUB_BATCH = {5000: 8}
 # 5000 bp reads mostly cut the extension and the host tail
 LONG_READS = {1000: 512, 5000: 32}
 # pairs of the paired-end batch run whole on the card and on the CPU
-PE_CPU_CHECK_PAIRS = 128
+PE_CPU_CHECK_PAIRS = 256
 # lanes of the kernel comparison: the main path's EXT shape
 LANES, LQ, T_MAX = 16384, 128, 256
 # long lanes of the one-pass kernel's comparison
@@ -290,7 +291,7 @@ PEAK_F32_OPS = 67e12
 # and pairs run whole on the card and on the CPU, and the lanes of the
 # host-issued round timed beside kernel D
 LEG_READS, LEG_PAIRS = 2048, 1024
-LEG_CPU_READS, LEG_CPU_PAIRS, LEG_ROUND_LANES = 128, 128, 1024
+LEG_CPU_READS, LEG_CPU_PAIRS, LEG_ROUND_LANES = 256, 256, 1024
 # reads of the fastmap/maxk path (the first of the 101 bp set; two CLI
 # batches of 4096), and the reads and pairs rerun on the CPU
 TOOL_READS, TOOL_CPU_READS, PEM_CPU_PAIRS = 8192, 256, 256
@@ -2229,42 +2230,61 @@ def _same_sam(label, want, got):
                               else ""))
 
 
+def shard_hist(al, nsh):
+    """The arena high-water marks of the one-device aligner `al`, keyed to
+    a shard's rows of the same batches: a shard aligns a subset of the
+    batch's reads, so no count it reaches exceeds the batch's, and its
+    arenas start large enough not to regrow."""
+    return {(kind, name, (n // nsh, lr)): v
+            for (kind, name, (n, lr)), v in al._front_hist.items()}
+
+
 class ShardLaunches:
-    """ext_pl2_kernel launches by mesh shard (parallel/mesh.current_shard)
-    within a with-block; the launch count starts at 0."""
+    """ext_pl2_kernel launches by mesh shard within a with-block; the
+    launch count starts at 0.  Every parallel/mesh.rowmap call runs its
+    function once a shard, in shard order, so the wrapper credits the k-th
+    call's launches to shard k mod the mesh size."""
 
     def __enter__(self):
         import collections
         from bwamem_tpu_torch.ops import ext_kernel
         from bwamem_tpu_torch.parallel import mesh as pmesh
-        self.mod, self.orig = ext_kernel, ext_kernel.extend_batch_pl2
+        self.mod, self.pmesh = ext_kernel, pmesh
+        self.orig = pmesh.rowmap
         self.by_shard = collections.Counter()
+        by_shard, orig = self.by_shard, self.orig
 
-        def counted(*args, **kw):
-            before = ext_kernel.launches
-            out = self.orig(*args, **kw)
-            self.by_shard[pmesh.current_shard()] += (ext_kernel.launches
-                                                     - before)
-            return out
-        ext_kernel.extend_batch_pl2 = counted
+        def rowmap(mesh, fn, *args, **kw):
+            calls = [0]
+
+            def shard_fn(*a, **k):
+                s = calls[0] % mesh.size
+                calls[0] += 1
+                before = ext_kernel.launches
+                try:
+                    return fn(*a, **k)
+                finally:
+                    by_shard[s] += ext_kernel.launches - before
+            return orig(mesh, shard_fn, *args, **kw)
+        pmesh.rowmap = rowmap
         ext_kernel.launches = ext_kernel.launches_pl = 0
         return self
 
     def __exit__(self, *exc):
-        self.mod.extend_batch_pl2 = self.orig
+        self.pmesh.rowmap = self.orig
         self.launches, self.launches_pl = (self.mod.launches,
                                            self.mod.launches_pl)
 
 
-def phase_mesh(idx, se, pe):
+def phase_mesh(idx, se, pe, main_al):
     """The data-parallel mesh (parallel/mesh.py): Aligner(mesh=...) over
     the first two cards, or over cuda:0 twice on a one-card machine (two
-    shards on one card: twice the launches, one index).  The SE stream of
-    phase_main (batches 0, 1, then 0 again) and the PE stream of phase_pe
-    through align_stream; the SAM of batches 0 and 1 must equal the
-    single-device run's bytes.  Prints the mid-stream rate, the fallback
-    rows and ext_pl2_kernel's launches a shard.  Returns the launches by
-    path."""
+    shards on one card: twice the launches, one index).  The SE batches
+    of phase_main and the PE batches of phase_pe through align_stream,
+    the arenas sized from the main path's high-water marks (shard_hist);
+    the SAM must equal the single-device run's bytes.  Prints the
+    stream's rate, the front's retries, the fallback rows and
+    ext_pl2_kernel's launches a shard.  Returns the launches by path."""
     import torch
     from bwamem_tpu_torch.parallel import make_mesh
     from bwamem_tpu_torch.pipeline.align import Aligner, align_stream
@@ -2274,33 +2294,32 @@ def phase_mesh(idx, se, pe):
     log(f"mesh: {devs} ({'two cards' if n_dev >= 2 else 'two shards on '
                          'one card'}; {n_dev} visible)")
     al = Aligner(idx, mesh=make_mesh(devs))
+    al._front_hist.update(shard_hist(main_al, len(devs)))
     launches = {}
     for kind, (batches, want) in (("SE", se), ("PE", pe)):
         label = f"mesh, {kind}"
-        stream = batches + batches[:1]
         torch.cuda.synchronize()
         timers.reset()
         timers.enable(True)
         sams, walls = [], []
         t0 = tb = time.perf_counter()
         with ShardLaunches() as sl:
-            for k, (n, ss) in enumerate(align_stream(al, stream,
-                                                     pe=kind == "PE")):
+            for _, ss in align_stream(al, batches, pe=kind == "PE"):
                 torch.cuda.synchronize()
                 now = time.perf_counter()
                 walls.append(now - tb)
                 tb = now
-                if k < len(batches):
-                    sams.extend(ss)
+                sams.extend(ss)
         wall = time.perf_counter() - t0
         timers.enable(False)
         snap = timers.snapshot()
         no_fetch_timeouts(label, snap)
         fb = snap.get("front.fallback_rows.count", 0)
-        log(f"{label}: {sum(map(len, stream))} reads in {wall:.3f} s "
-            f"(batches {[round(w, 3) for w in walls]} s); batch 1 in "
-            f"mid-stream {len(stream[1]) / walls[1]:.1f} reads/s; "
-            f"fallback rows {fb}; ext_pl2_kernel launches by shard "
+        n_reads = sum(map(len, batches))
+        log(f"{label}: {n_reads} reads in {wall:.3f} s = "
+            f"{n_reads / wall:.1f} reads/s (batches "
+            f"{[round(w, 3) for w in walls]} s); fallback rows {fb}; "
+            f"ext_pl2_kernel launches by shard "
             f"{dict(sorted(sl.by_shard.items()))}, ext_pl_kernel "
             f"{sl.launches_pl}; front retries "
             f"{snap.get('front.retries.count', 0)}; on "
@@ -2392,8 +2411,7 @@ def _multihost_runs(prefix, fq, work):
         env = dict(os.environ, PYTHONPATH=REPO, BWAMEM_TPU_TIMERS="1",
                    BWAMEM_COORDINATOR=f"localhost:{port}",
                    BWAMEM_NUM_PROCESSES=str(MH_RANKS),
-                   BWAMEM_PROCESS_ID=str(r),
-                   BWAMEM_DIST_TIMEOUT=str(MH_DEADLINE))
+                   BWAMEM_PROCESS_ID=str(r))
         errs.append(open(os.path.join(work, f"rank{r}.err"), "w"))
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "bwamem_tpu_torch.cli", *argv],
@@ -3082,7 +3100,7 @@ def main() -> int:
     side_pl2, side_pl = phase_long(al, cpu_al, 5000)
     mh_launches = phase_multihost(sd.smoke_data(log)[0],
                                   sd.smoke_data(log)[1], al)
-    mesh_launches = phase_mesh(idx, se_run, pe_run)
+    mesh_launches = phase_mesh(idx, se_run, pe_run, al)
     if side_pl.launches <= 0:
         raise RuntimeError("5000 bp path: ext_pl_kernel was never launched")
     if side_pl.kw["lq_max"] <= 4095 or int(side_pl.args[1].max()) <= 4095:

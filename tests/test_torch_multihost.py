@@ -183,8 +183,7 @@ def _two_ranks(argvs, cwd, timeout=300):
     for r, argv in enumerate(argvs):
         env = _clean_env() | {"BWAMEM_COORDINATOR": f"localhost:{port}",
                               "BWAMEM_NUM_PROCESSES": "2",
-                              "BWAMEM_PROCESS_ID": str(r),
-                              "BWAMEM_DIST_TIMEOUT": "120"}
+                              "BWAMEM_PROCESS_ID": str(r)}
         procs.append(subprocess.Popen(
             [sys.executable, "-c", _RANK, *argv], cwd=cwd, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
