@@ -107,6 +107,18 @@ class MemOptions:
         """(int)(min_seed_len * split_factor + .499), bwamem.c:141"""
         return int(self.min_seed_len * self.split_factor + 0.499)
 
+    def rescale(self, a: int, touched: set[str] | None = None) -> "MemOptions":
+        """-A rescaling of dependent penalties, mirroring update_a
+        (fastmap.c:43-57): scale untouched penalty fields by a."""
+        touched = touched or set()
+        o = dataclasses.replace(self, a=a)
+        for f in ("b", "T", "o_del", "e_del", "o_ins", "e_ins", "zdrop",
+                  "pen_clip5", "pen_clip3", "pen_unpaired"):
+            if f not in touched:
+                setattr(o, f, getattr(self, f) * a)
+        return o
+
+
 def preset(name: str, base: MemOptions | None = None,
            touched: set[str] | None = None) -> MemOptions:
     """Read-type presets -x pacbio|pbref|ont2d|intractg (fastmap.c:240-268).

@@ -1,4 +1,4 @@
-"""Seed chaining and chain weights.
+"""Seed expansion, seed chaining and chain weights.
 
 Replaces the reference's per-read kbtree insertion chaining (mem_chain,
 bwamem.c:258-322) with a read-lockstep loop: every read processes one seed
@@ -13,6 +13,9 @@ from typing import NamedTuple
 
 import torch
 
+from bwamem_tpu_torch.ops import fm as fmops
+from bwamem_tpu_torch.ops.smem import Intervals
+
 
 class Seeds(NamedTuple):
     rbeg: torch.Tensor      # [N, S] it — both-strands start
@@ -22,6 +25,63 @@ class Seeds(NamedTuple):
     valid: torch.Tensor     # [N, S] bool
     frac_rep: torch.Tensor  # [N] float32
     overflow: torch.Tensor  # [N] bool
+
+
+def expand_seeds(fm: fmops.FM, ctg_offsets: torch.Tensor, iv: Intervals,
+                 max_occ: int, seed_cap: int) -> Seeds:
+    """Occurrence sampling + SA translation (mem_chain loop, bwamem.c:280-307).
+
+    Seed slot order = sorted-interval order x occurrence order, which is the
+    reference's chaining insertion order.  Step-sampling keeps exactly
+    min(x2, max_occ) occurrences with stride floor(x2/max_occ).  Only the
+    filled slots walk the suffix array (one host read of their count); an
+    empty slot holds rank 0's position, as a walk from rank 0 gives.
+    """
+    N, I = iv.start.shape
+    it = fm.itype
+    dev = iv.start.device
+    counts = torch.where(iv.valid, iv.x2.clamp(max=max_occ), 0).to(it)
+    cum = torch.cumsum(counts, dim=1, dtype=it)               # [N, I]
+    total = cum[:, -1]
+    overflow = total > seed_cap
+
+    slots = torch.arange(seed_cap, dtype=it, device=dev)[None, :].expand(
+        N, seed_cap).contiguous()                           # [N, S]
+    # interval that owns each slot
+    own = torch.searchsorted(cum, slots, right=True)
+    own_c = own.clamp(0, I - 1)
+    prev_cum = torch.where(own_c > 0,
+                           torch.gather(cum, 1, (own_c - 1).clamp(min=0)), 0)
+    k_within = slots - prev_cum
+    x0 = torch.gather(iv.x0, 1, own_c)
+    x2 = torch.gather(iv.x2, 1, own_c)
+    start = torch.gather(iv.start, 1, own_c)
+    end = torch.gather(iv.end, 1, own_c)
+    step = torch.where(x2 > max_occ, x2 // max_occ, 1)
+    valid = slots < total[:, None]
+    rank = torch.where(valid, x0 + k_within * step, 0).to(it)
+
+    live = torch.nonzero(valid.reshape(-1))[:, 0]
+    rbeg = fmops.sa_lookup(fm, rank.new_zeros(1)).repeat(N * seed_cap)
+    rbeg[live] = fmops.sa_lookup(fm, rank.reshape(-1)[live])
+    rbeg = rbeg.reshape(N, seed_cap)
+    slen = (end - start).to(torch.int32)
+    rid = fmops.intv2rid(fm, ctg_offsets, rbeg, rbeg + slen)
+    valid = valid & (rid >= 0)
+
+    # frac_rep: union length of intervals with x2 > max_occ (bwamem.c:272-279)
+    rep = iv.valid & (iv.x2 > max_occ)
+    sb = torch.where(rep, iv.start, 0)
+    se = torch.where(rep, iv.end, 0)
+    # running max of previous ends among rep intervals (sorted by start)
+    run_end = torch.cummax(torch.where(rep, se, -1), dim=1).values
+    prev_end = torch.cat([torch.full((N, 1), -1, dtype=run_end.dtype,
+                                     device=dev), run_end[:, :-1]], dim=1)
+    contrib = torch.where(
+        rep, (se - torch.maximum(sb, prev_end)).clamp(min=0), 0)
+    l_rep = contrib.sum(dim=1)
+    return Seeds(rbeg=rbeg, qbeg=start, len=slen, rid=rid, valid=valid,
+                 frac_rep=l_rep.to(torch.float32), overflow=overflow)
 
 
 class Chains(NamedTuple):

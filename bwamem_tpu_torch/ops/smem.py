@@ -22,14 +22,32 @@ bwt_smem1a (bwt.c:289-351):
 The forward scans run a fixed number of trips (`max_steps`) with per-lane
 masks, so a scan costs no host synchronisation; they report `unfinished`
 when a lane needed more trips (the caller grows and retries).
+collect_intervals, the single-program driver, runs each scan to its end.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from bwamem_tpu_torch.ops import fm as fmops
+
+
+
+@dataclasses.dataclass(frozen=True)
+class SeedingCaps:
+    """Fixed per-read buffer sizes of collect_intervals."""
+    cand1: int = 64      # pass-1 candidates per read
+    parents: int = 12    # pass-2 parent SMEMs per read
+    cand2: int = 16      # pass-2 candidates per parent
+    pass3: int = 16      # pass-3 intervals per read
+    seeds: int = 256     # expanded seeds per read
+
+    @property
+    def intervals(self) -> int:
+        return self.cand1 + self.parents * self.cand2 + self.pass3
+
 
 KMER_K = 12      # matches index.build.KMER_K / reference KMER_K
 
@@ -269,6 +287,32 @@ def forward_scan(fm: fmops.FM, seq: torch.Tensor, l_seq: torch.Tensor,
                       unfinished)
 
 
+def back_extend(fm: fmops.FM, seq: torch.Tensor, l_seq: torch.Tensor,
+                cand: Candidates, read_of_lane: torch.Tensor,
+                min_intv: torch.Tensor):
+    """Phase B: flatten candidates to lanes and left-extend each to its
+    leftmost start s with interval size >= min_intv (the backward loop of
+    bwt_smem1a, bwt.c:326-345, made embarrassingly parallel).
+
+    Returns (s, x0, x2, valid) flattened [N*C]: the final interval of
+    [s, end).  Only the written candidates run (one host read of their
+    count); every other lane keeps its pivot and interval, as a lane that
+    is never alive does in back_extend_flat."""
+    C = cand.x0.shape[1]
+    dev = seq.device
+    valid = (torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+             < cand.n[:, None]).reshape(-1)
+    s = cand.pivot.reshape(-1).clone()
+    x0 = cand.x0.reshape(-1).clone()
+    x2 = cand.x2.reshape(-1).clone()
+    idx = torch.nonzero(valid)[:, 0]
+    s[idx], x0[idx], x2[idx] = back_extend_flat(
+        fm, seq, read_of_lane.reshape(-1)[idx], s[idx], x0[idx],
+        cand.x1.reshape(-1)[idx], x2[idx], min_intv.reshape(-1)[idx],
+        torch.ones_like(idx, dtype=torch.bool))
+    return s, x0, x2, valid
+
+
 def back_extend_flat(fm: fmops.FM, seq: torch.Tensor, lane_read, pivot, x0,
                      x1, x2, min_intv, valid, stage_w: tuple = (),
                      k_stage: int = 4, check_every: int = 16):
@@ -472,3 +516,137 @@ def pass3_scan(fm: fmops.FM, seq: torch.Tensor, l_seq: torch.Tensor,
     ob, n_out, overflow = _journal_to_grid(rec, cap, 4)
     return (ob[:, :, 0], ob[:, :, 1], ob[:, :, 2].to(torch.int32),
             ob[:, :, 3].to(torch.int32), n_out, overflow, steps, unfinished)
+
+
+class Intervals(NamedTuple):
+    """Per-read collected seed intervals, sorted by (start, end) like
+    ks_introsort(mem_intv) on info = start<<32|end (bwamem.c:184)."""
+    start: torch.Tensor   # [N, I] int32
+    end: torch.Tensor     # [N, I] int32
+    x0: torch.Tensor      # [N, I] it — SA range start
+    x2: torch.Tensor      # [N, I] it — occurrence count
+    valid: torch.Tensor   # [N, I] bool
+    overflow: torch.Tensor  # [N] bool
+
+
+def _to_end(scan, L: int):
+    """Run a fixed-trip scan (forward_scan or pass3_scan as a function of
+    max_steps) until no lane is unfinished, as the JAX package's
+    while_loop form does: one host read a try, twice the trips on the
+    next.  A lane takes at most two trips a base, so this ends."""
+    trips = -(-(L + (L >> 1) + 24) // 32) * 32
+    while True:
+        out = scan(trips)
+        if not bool(out[-1]):
+            return out
+        if trips > 4 * (L + 1):
+            raise RuntimeError(f"scan unfinished after {trips} trips on "
+                               f"reads of {L} bases")
+        trips *= 2
+
+
+def _scatter_rows(out_rows: int, idx: torch.Tensor, part):
+    """A tensor of out_rows rows, zero but for rows idx = part."""
+    out = part.new_zeros((out_rows,) + tuple(part.shape[1:]))
+    out[idx] = part
+    return out
+
+
+def collect_intervals(fm: fmops.FM, seq: torch.Tensor, l_seq: torch.Tensor,
+                      min_seed_len: int, split_len: int, split_width: int,
+                      max_mem_intv: int,
+                      caps: SeedingCaps = SeedingCaps()) -> Intervals:
+    """Full 3-pass mem_collect_intv (bwamem.c:137-185) over a batch.
+
+    Every scan runs to its end.  The pass-2 scan runs only the qualifying
+    parents' lanes (one host read of their count): a parent slot left
+    empty starts past its read's end and writes no candidate, so its
+    buffers stay zero, as they are here."""
+    N, L = seq.shape
+    it = fm.itype
+    dev = seq.device
+    i32 = torch.int32
+    one = torch.ones((N,), dtype=it, device=dev)
+    rows = torch.arange(N, dtype=i32, device=dev)
+
+    # ---- pass 1 ----
+    start0 = torch.zeros((N,), dtype=i32, device=dev)
+    cand1 = _to_end(lambda t: forward_scan(
+        fm, seq, l_seq, start0, one, caps.cand1, multi_pivot=True,
+        max_steps=t), L)
+    C1 = caps.cand1
+    s1, sx0, sx2, _ = back_extend(fm, seq, l_seq, cand1,
+                                  rows[:, None].expand(N, C1),
+                                  one[:, None].expand(N, C1))
+    emit1 = emit_mask(cand1, s1)
+    s1 = s1.reshape(N, C1)
+    e1 = cand1.end
+    smem1 = emit1 & ((e1 - s1) >= min_seed_len)
+    sx0 = sx0.reshape(N, C1)
+    sx2 = sx2.reshape(N, C1)
+
+    # ---- pass 2: re-seed long low-occ SMEMs ----
+    qual = smem1 & ((e1 - s1) >= split_len) & (sx2 <= split_width)
+    # compact qualifying parents into [N, parents] slots (stable)
+    P = caps.parents
+    order = torch.sort((~qual).to(i32), dim=1,
+                       stable=True).indices[:, :P]
+    p_valid = torch.gather(qual, 1, order).reshape(-1)
+    p_start = torch.gather(s1, 1, order)
+    p_end = torch.gather(e1, 1, order)
+    p_size = torch.gather(sx2, 1, order)
+    parent_overflow = qual.sum(dim=1) > P
+
+    NP = N * P
+    C2 = caps.cand2
+    lane_read2 = rows[:, None].expand(N, P).reshape(-1)
+    pivot2 = ((p_start + p_end) >> 1).reshape(-1)
+    min2 = (p_size + 1).reshape(-1).to(it)
+    idx2 = torch.nonzero(p_valid)[:, 0]
+    lr = lane_read2[idx2]
+    cv = _to_end(lambda t: forward_scan(
+        fm, seq, l_seq[lr.to(torch.int64)], pivot2[idx2], min2[idx2], C2,
+        multi_pivot=False, max_steps=t, lane_read=lr), L)
+    c2 = Candidates(*(_scatter_rows(NP, idx2, f) for f in cv[:7]),
+                    cv.steps, cv.unfinished)
+    s2, sx0_2, sx2_2, _ = back_extend(fm, seq, l_seq, c2,
+                                      lane_read2[:, None].expand(NP, C2),
+                                      min2[:, None].expand(NP, C2))
+    emit2 = emit_mask(c2, s2)
+    s2 = s2.reshape(NP, C2)
+    e2 = c2.end
+    smem2 = emit2 & ((e2 - s2) >= min_seed_len)
+    sx0_2 = sx0_2.reshape(NP, C2)
+    sx2_2 = sx2_2.reshape(NP, C2)
+
+    # ---- pass 3 ----
+    C3 = caps.pass3
+    if max_mem_intv > 0:
+        p3x0, p3x2, p3s, p3e, p3n, p3over, _, _ = _to_end(
+            lambda t: pass3_scan(fm, seq, l_seq, min_seed_len, max_mem_intv,
+                                 C3, max_steps=t), L)
+        p3valid = (torch.arange(C3, dtype=i32, device=dev)[None, :]
+                   < p3n[:, None])
+    else:
+        p3x0 = p3x2 = torch.zeros((N, C3), dtype=it, device=dev)
+        p3s = p3e = torch.zeros((N, C3), dtype=i32, device=dev)
+        p3valid = torch.zeros((N, C3), dtype=torch.bool, device=dev)
+        p3over = torch.zeros((N,), dtype=torch.bool, device=dev)
+
+    # ---- assemble + sort by (start, end) ----
+    start = torch.cat([s1, s2.reshape(N, -1), p3s], dim=1)
+    end = torch.cat([e1, e2.reshape(N, -1), p3e], dim=1)
+    x0 = torch.cat([sx0, sx0_2.reshape(N, -1), p3x0], dim=1)
+    x2 = torch.cat([sx2, sx2_2.reshape(N, -1), p3x2], dim=1)
+    valid = torch.cat([smem1, smem2.reshape(N, -1), p3valid], dim=1)
+    key = (start.to(torch.int64) << 32) | end.to(torch.int64)
+    key = torch.where(valid, key, 2 ** 62)
+    order = torch.sort(key, dim=1, stable=True).indices
+
+    def take(a):
+        return torch.gather(a, 1, order)
+
+    overflow = (cand1.overflow | c2.overflow.reshape(N, -1).any(dim=1)
+                | parent_overflow | p3over)
+    return Intervals(take(start), take(end), take(x0), take(x2),
+                     take(valid), overflow)

@@ -157,6 +157,19 @@ class Aligner:
             outs.append([x.cpu().numpy()[:c] for x in res])
         return local_sw.KswResult(*(np.concatenate(xs) for xs in zip(*outs)))
 
+    def _device_worklist(self, seq: np.ndarray, l_seq: np.ndarray):
+        """The single-program front half without extension
+        (pipeline.seedchain.seed_chain_worklist, 256 seeds and 64 chains a
+        read) on the aligner's device over a packed batch; returns a
+        WorklistResult of numpy arrays."""
+        from bwamem_tpu_torch.pipeline import seedchain
+        wr = seedchain.seed_chain_worklist(
+            self.fm, self.ctg_offsets, self.ctg_is_alt,
+            torch.from_numpy(np.asarray(seq)).to(self.device),
+            torch.from_numpy(np.asarray(l_seq)).to(self.device), self.opt)
+        return type(wr)(type(wr.seeds)(*(x.cpu().numpy() for x in wr.seeds)),
+                        *(x.cpu().numpy() for x in wr[1:]))
+
     # ------------------------------------------------ shared host phases
 
     def begin_batch(self, reads: list[Read]) -> dict:

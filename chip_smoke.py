@@ -142,6 +142,15 @@ Three phases; any failure exits non-zero without printing a result.
      enqueues a batch's front during the tail of the batch before, so the
      stream carries batch 0 a second time behind batch 1 (its SAM is
      dropped) and the rate of batch 1, in mid-stream, is the one printed;
+   * the single-program front half (phase_seedchain): batch 0's 8192 reads
+     through pipeline/seedchain.align_regs on the card (pass-1 candidate
+     cap 128), whose extensions launch ext_pl2_kernel (its plain version
+     must not run): its regions must equal the main path's before dedup
+     (the device front, fallback rows through the host-compacted front)
+     on every read with no overflow flag (at most 1 % flagged) and no tied
+     chain weight (those are counted: their order follows ks_introsort on
+     the main path), and its first 64 reads its plain run on the CPU; its
+     widest ext_pl2_kernel call is held against plain too;
    * 2 x 4096 pairs of 150 bp (insert 400 +- 40) through
      align_stream(pe=True), streamed the same way: the same device front,
      then insert-size inference, mate rescue and pair scoring on the
@@ -304,6 +313,14 @@ BWASW_CPU_READS, BWASW_CPU_PAIRS = 8, 8
 MH_RANKS, MH_CHUNKS = 2, 4
 # seconds the ranks of the multi-process run may take, start-up included
 MH_DEADLINE = 300
+# the single-program front half (phase_seedchain): reads of batch 0 of the
+# 101 bp stream, reads rerun on the CPU, the share of reads an overflow
+# flag may take out of the region comparison, and the pass-1 candidate cap
+# (SeedingCaps.cand1: at the default 64, reads over this genome's repeats
+# overflow it on more reads than that share)
+SC_READS, SC_CPU_READS, SC_MAX_FLAGGED, SC_CAND1 = 8192, 64, 0.01, 128
+SC_REG_FIELDS = ("rb", "re", "qb", "qe", "rid", "score", "truesc", "w",
+                 "seedcov", "seedlen0")
 
 
 def log(msg: str) -> None:
@@ -1812,18 +1829,20 @@ def phase_dispatch_pl_probe():
 class WidestCall:
     """Wraps a kernel wrapper of ops/ext_kernel for one main-path run: the
     launch count starts at 0, and a copy of the widest call (most lanes
-    times target rows; a call with over 4095 query rows before any other)
-    is kept so the kernel can be held against its plain version on lanes
-    the main path built."""
+    times target rows; a call with over 4095 query rows before any other;
+    with `live`, most lanes with a query) is kept so the kernel can be
+    held against its plain version on lanes the main path built."""
 
-    def __init__(self, name, counter):
+    def __init__(self, name, counter, live=False):
         from bwamem_tpu_torch.ops import ext_kernel
         self.mod, self.name, self.counter = ext_kernel, name, counter
         self.wrapper = getattr(ext_kernel, name)
+        self.live = live
         self.size, self.args, self.kw = (False, 0), None, None
 
     def __call__(self, *args, **kw):
-        size = (kw["lq_max"] > 4095, args[1].shape[0] * kw["t_max"])
+        size = (kw["lq_max"] > 4095, int((args[1] > 0).sum()) if self.live
+                else args[1].shape[0] * kw["t_max"])
         if size >= self.size:
             self.size, self.kw = size, dict(kw)
             self.args = [a.clone() for a in args]
@@ -1991,6 +2010,151 @@ def phase_main(idx, cpu_al):
     check_sams("main path", sams, reads)
     cpu = check_cpu("main path", cpu_al, reads, sams, CPU_CHECK_READS)
     return al, pl2, pl, (reads[:CPU_CHECK_READS], cpu), (batches, sams)
+
+
+def front_regs(al, reads):
+    """The main path's regions before dedup (Aligner._regs_from_device up
+    to its dedup): the device front, its fallback rows through the
+    host-compacted front.  Returns (per-read AlnReg lists, fallback rows,
+    packed batch)."""
+    from bwamem_tpu_torch.pipeline import device_front
+    front = al.begin_batch(reads)
+    if front["tok"] is None:
+        raise RuntimeError("seedchain: the device front did not take the "
+                           "batch")
+    out, fb_rows = device_front.front_finish(al, front["tok"])
+    if fb_rows:
+        sub = al._regs_host_front([reads[i] for i in fb_rows])
+        for gi, i in enumerate(fb_rows):
+            out[i] = sub[gi]
+    return out, fb_rows, front
+
+
+def tied_rows(res, min_chain_weight):
+    """Reads whose heavy chains hold two equal weights: there the
+    single-program filter (ops/chain.filter_chains) orders the tied chains
+    stably, where the main path replays ks_introsort's order (the JAX
+    package's pipeline/chainflt_host.fix_tied_rows, the native replay), so
+    the order of their regions, and the kept set, may differ."""
+    import torch
+    w, n = res.weights, res.chains.n
+    C = w.shape[1]
+    heavy = ((torch.arange(C, device=w.device)[None, :] < n[:, None])
+             & (w >= min_chain_weight))
+    ws = torch.sort(torch.where(heavy, w.to(torch.int64), -1), dim=1).values
+    return ((ws[:, 1:] == ws[:, :-1]) & (ws[:, 1:] >= 0)).any(dim=1)
+
+
+def phase_seedchain(al, cpu_al, se_run):
+    """The single-program front half (pipeline/seedchain.align_regs:
+    collect_intervals, expand_seeds, chaining, extend_all with kernel #1)
+    on the card over batch 0 of the main path's 101 bp stream, held read by
+    read against the main path's regions before dedup (the device front
+    and its fallback rows) on every read no overflow flag takes out and
+    whose heavy chains hold no tied weight (tied_rows: those are counted,
+    not required), and against its own plain run on the CPU for the first
+    reads.  Returns the kernel #1 hook (launches, widest call)."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch.ops import ext_kernel
+    from bwamem_tpu_torch.ops.smem import SeedingCaps
+    from bwamem_tpu_torch.pipeline import seedchain
+    caps = SeedingCaps(cand1=SC_CAND1)
+    reads = se_run[0][0][:SC_READS]
+    n = len(reads)
+    t0 = time.perf_counter()
+    main_regs, fb_rows, front = front_regs(al, reads)
+    t_main = time.perf_counter() - t0
+    seq, l_seq = front["seq"], front["l_seq"]
+
+    plain = []
+    saved = {}
+    for name in ("extend_batch_pl2_plain", "extend_batch_pl_plain"):
+        saved[name] = fn = getattr(ext_kernel, name)
+        setattr(ext_kernel, name, lambda *a, _n=name, _f=fn, **k: (
+            plain.append(_n), _f(*a, **k))[1])
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with WidestCall("extend_batch_pl2", "launches", live=True) as pl2, \
+                WidestCall("extend_batch_pl", "launches_pl") as pl:
+            res, regs = seedchain.align_regs(
+                al.fm, al.ctg_offsets, al.ctg_is_alt,
+                torch.from_numpy(seq).to(al.device),
+                torch.from_numpy(l_seq).to(al.device), al.opt, caps=caps)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        for name, fn in saved.items():
+            setattr(ext_kernel, name, fn)
+    log(f"seedchain: align_regs over {n} reads of {seq.shape[1]} rows on "
+        f"the card in {wall:.3f} s = {n / wall:.1f} reads/s; "
+        f"ext_pl2_kernel launches {pl2.launches}, ext_pl_kernel launches "
+        f"{pl.launches}, plain extensions reached {len(plain)}; the main "
+        f"path's front for the same reads {t_main:.3f} s ({len(fb_rows)} "
+        f"fallback rows); on {torch.cuda.get_device_name(0)}")
+    if plain:
+        raise RuntimeError(f"seedchain: the plain extension ran on the card "
+                           f"({sorted(set(plain))})")
+    if pl2.launches <= 0 or pl.launches != 0:
+        raise RuntimeError(f"seedchain: expected ext_pl2_kernel only, got "
+                           f"{pl2.launches} and {pl.launches} launches")
+
+    flagged = (res.intervals.overflow | res.seeds.overflow
+               | res.chains.overflow | regs.overflow)[:n].cpu().numpy()
+    tied = tied_rows(res, al.opt.min_chain_weight)[:n].cpu().numpy()
+    got = {f: getattr(regs, f).cpu().numpy() for f in SC_REG_FIELDS}
+    rn = regs.n.cpu().numpy()
+    bad, tied_diff, tied_perm = [], 0, 0
+    for i in np.flatnonzero(~flagged):
+        mine = [tuple(int(got[f][i, j]) for f in SC_REG_FIELDS)
+                for j in range(rn[i])]
+        want = [tuple(int(getattr(r, f)) for f in SC_REG_FIELDS)
+                for r in main_regs[i]]
+        if mine == want:
+            continue
+        if not tied[i]:
+            bad.append(i)
+        else:
+            tied_diff += 1
+            tied_perm += sorted(mine) == sorted(want)
+    cmp = ~flagged & ~tied
+    log(f"seedchain: regions of {int(cmp.sum())} reads compared with the "
+        f"main path's before dedup ({int(rn[cmp].sum())} regions), "
+        f"{len(bad)} differ; {int(flagged.sum())} reads flagged by an "
+        f"overflow (intervals {int(res.intervals.overflow[:n].sum())}, "
+        f"seeds {int(res.seeds.overflow[:n].sum())}, chains "
+        f"{int(res.chains.overflow[:n].sum())}, regions "
+        f"{int(regs.overflow[:n].sum())}); {int((tied & ~flagged).sum())} "
+        f"with tied chain weights, {tied_diff} of them differ ({tied_perm} "
+        f"the same regions in another order)")
+    if bad:
+        i = bad[0]
+        raise RuntimeError(
+            f"seedchain: regions of {len(bad)} reads differ from the main "
+            f"path's (first {bad[:5]}): read {reads[i].name}\n"
+            f"{[tuple(int(got[f][i, j]) for f in SC_REG_FIELDS) for j in range(rn[i])]}\n"
+            f"{[tuple(int(getattr(r, f)) for f in SC_REG_FIELDS) for r in main_regs[i]]}")
+    if flagged.sum() > SC_MAX_FLAGGED * n:
+        raise RuntimeError(f"seedchain: {int(flagged.sum())} of {n} reads "
+                           f"flagged by an overflow")
+
+    k = SC_CPU_READS
+    t2 = time.perf_counter()
+    cres, cregs = seedchain.align_regs(
+        cpu_al.fm, cpu_al.ctg_offsets, cpu_al.ctg_is_alt,
+        torch.from_numpy(seq[:k]), torch.from_numpy(l_seq[:k]), cpu_al.opt,
+        caps=caps)
+    diff = [f for f in type(regs)._fields
+            if not torch.equal(getattr(regs, f)[:k].cpu(), getattr(cregs, f))]
+    log(f"seedchain: CPU run of the first {k} reads "
+        f"({time.perf_counter() - t2:.1f} s): "
+        + (f"fields {diff} differ" if diff else "every Regs field equal"))
+    if diff:
+        raise RuntimeError(f"seedchain: card and CPU differ on {diff}")
+    log(f"seedchain: phase {time.perf_counter() - t0:.1f} s")
+    pl2.wall = wall
+    return pl2
 
 
 def phase_front_forced(al, se, pe):
@@ -3089,6 +3253,7 @@ def main() -> int:
     idx = load_index(sd.smoke_data(log)[0])
     cpu_al = Aligner(idx, device="cpu")
     al, main_pl2, main_pl, se_check, se_run = phase_main(idx, cpu_al)
+    sc_pl2 = phase_seedchain(al, cpu_al, se_run)
     pe_pl2, pe_pl, pe_check, pe_run = phase_pe(al, cpu_al)
     phase_front_forced(al, se_check, pe_check)
     fused_pl2, none_pl = phase_long(al, cpu_al, 1000)
@@ -3115,6 +3280,7 @@ def main() -> int:
                        **pe_pl2.kw)
     fused = hold_kernel("fused-path lanes, 1000 bp", *fused_pl2.args,
                         groups=True, **fused_pl2.kw)
+    sc_k = hold_kernel("seedchain lanes, 101 bp", *sc_pl2.args, **sc_pl2.kw)
     kern2.pop("retried")
     kern2["launches"] = main_pl2.launches
     kern2["launches_by_path"] = {"101bp": main_pl2.launches,
@@ -3124,11 +3290,15 @@ def main() -> int:
                                  "multihost_ranks": [
                                      x[0] for x in mh_launches],
                                  "mesh_se": mesh_launches["SE"][0],
-                                 "mesh_pe": mesh_launches["PE"][0]}
+                                 "mesh_pe": mesh_launches["PE"][0],
+                                 "seedchain": sc_pl2.launches}
     kern2["max_abs_err"] = max(kern2["max_abs_err"], pe_k["max_abs_err"],
-                               fused["max_abs_err"], err_pl2)
+                               fused["max_abs_err"], sc_k["max_abs_err"],
+                               err_pl2)
     kern2["ms_pe150bp"] = pe_k["ms"]
     kern2["ms_1000bp"] = fused["ms"]
+    kern2["ms_seedchain"] = sc_k["ms"]
+    kern2["seedchain_wall_s"] = sc_pl2.wall
     kern2["ms_by_group"] = {"101bp": kern2["ms_by_group"],
                             "pe150bp": pe_k["ms_by_group"],
                             "1000bp": fused["ms_by_group"]}
@@ -3143,7 +3313,8 @@ def main() -> int:
                                  "multihost_ranks": [
                                      x[1] for x in mh_launches],
                                  "mesh_se": mesh_launches["SE"][1],
-                                 "mesh_pe": mesh_launches["PE"][1]}
+                                 "mesh_pe": mesh_launches["PE"][1],
+                                 "seedchain": 0}
     kern1["max_abs_err"] = max(kern1["max_abs_err"], err_pl)
     phase_tools(sd.smoke_data(log)[0])
     phase_legacy(sd.smoke_data(log)[0], kernel_d)

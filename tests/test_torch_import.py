@@ -25,6 +25,7 @@ MODULES = ["bwamem_tpu_torch", "bwamem_tpu_torch.cli",
            "bwamem_tpu_torch.pipeline.seeding_host",
            "bwamem_tpu_torch.pipeline.chainflt_host",
            "bwamem_tpu_torch.pipeline.extend_host",
+           "bwamem_tpu_torch.pipeline.seedchain",
            "bwamem_tpu_torch.ops.chain", "bwamem_tpu_torch.ops.align_ext",
            "bwamem_tpu_torch.ops.local_sw",
            "bwamem_tpu_torch.ops.ext_kernel", "bwamem_tpu_torch.ops.fm_probe",
