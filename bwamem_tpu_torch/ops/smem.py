@@ -42,11 +42,6 @@ class SeedingCaps:
     parents: int = 12    # pass-2 parent SMEMs per read
     cand2: int = 16      # pass-2 candidates per parent
     pass3: int = 16      # pass-3 intervals per read
-    seeds: int = 256     # expanded seeds per read
-
-    @property
-    def intervals(self) -> int:
-        return self.cand1 + self.parents * self.cand2 + self.pass3
 
 
 KMER_K = 12      # matches index.build.KMER_K / reference KMER_K

@@ -73,43 +73,30 @@ def _score_kw(opt: MemOptions) -> dict:
                 e_ins=opt.e_ins)
 
 
+def extend_kw(opt: MemOptions) -> dict:
+    """align_ext.extend_all's scoring and band keywords from `opt`."""
+    return dict(**_score_kw(opt), w=opt.w, zdrop=opt.zdrop,
+                pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3,
+                mat=fill_scmat(opt.a, opt.b))
+
+
 def seed_and_chain_opts(fm, ctg_offsets, ctg_is_alt, seq, l_seq,
                         opt: MemOptions, **caps) -> SeedChainResult:
     return seed_and_chain(fm, ctg_offsets, ctg_is_alt, seq, l_seq,
                           **_chain_kw(opt), **caps)
 
 
-def align_regs_kw(fm, ctg_offsets, ctg_is_alt, seq, l_seq, *,
-                  min_seed_len, split_len, split_width, max_mem_intv,
-                  max_occ, w, max_chain_gap, mask_level, drop_ratio,
-                  min_chain_weight, max_chain_extend, a, o_del, e_del,
-                  o_ins, e_ins, zdrop, pen_clip5, pen_clip3, mat_ab,
-                  seed_cap=256, chain_cap=64, reg_cap=16,
-                  caps=smemops.SeedingCaps()):
+def align_regs(fm, ctg_offsets, ctg_is_alt, seq, l_seq, opt: MemOptions, *,
+               reg_cap: int = 16, **caps):
     """Reads -> alignment regions (pre-dedup), in mem_chain2aln emission
-    order.  Returns (SeedChainResult, align_ext.Regs)."""
-    res = seed_and_chain(
-        fm, ctg_offsets, ctg_is_alt, seq, l_seq,
-        min_seed_len=min_seed_len, split_len=split_len,
-        split_width=split_width, max_mem_intv=max_mem_intv, max_occ=max_occ,
-        w=w, max_chain_gap=max_chain_gap, mask_level=mask_level,
-        drop_ratio=drop_ratio, min_chain_weight=min_chain_weight,
-        max_chain_extend=max_chain_extend, seed_cap=seed_cap,
-        chain_cap=chain_cap, caps=caps)
+    order.  `caps`: seed_and_chain's seed_cap, chain_cap and caps.
+    Returns (SeedChainResult, align_ext.Regs)."""
+    res = seed_and_chain_opts(fm, ctg_offsets, ctg_is_alt, seq, l_seq, opt,
+                              **caps)
     regs = align_ext.extend_all(
         fm, ctg_offsets, ctg_is_alt, seq, l_seq, res.seeds, res.chains,
-        res.filtered, a=a, o_del=o_del, e_del=e_del, o_ins=o_ins,
-        e_ins=e_ins, w=w, zdrop=zdrop, pen_clip5=pen_clip5,
-        pen_clip3=pen_clip3, mat=fill_scmat(*mat_ab), reg_cap=reg_cap)
+        res.filtered, **extend_kw(opt), reg_cap=reg_cap)
     return res, regs
-
-
-def align_regs(fm, ctg_offsets, ctg_is_alt, seq, l_seq, opt: MemOptions,
-               **caps):
-    return align_regs_kw(fm, ctg_offsets, ctg_is_alt, seq, l_seq,
-                         **_chain_kw(opt), **_score_kw(opt), zdrop=opt.zdrop,
-                         pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3,
-                         mat_ab=(opt.a, opt.b), **caps)
 
 
 class WorklistResult(NamedTuple):
@@ -125,26 +112,17 @@ class WorklistResult(NamedTuple):
 
 
 def seed_chain_worklist_kw(fm, ctg_offsets, ctg_is_alt, seq, l_seq, *,
-                           min_seed_len, split_len, split_width,
-                           max_mem_intv, max_occ, w, max_chain_gap,
-                           mask_level, drop_ratio, min_chain_weight,
-                           max_chain_extend, a, o_del, e_del, o_ins, e_ins,
-                           seed_cap=256, chain_cap=64,
-                           caps=smemops.SeedingCaps()) -> WorklistResult:
+                           a, o_del, e_del, o_ins, e_ins,
+                           **chain_kw) -> WorklistResult:
     """The front half WITHOUT extension: the exact work order of
-    mem_chain2aln, per-chain reference windows, and the seed tables."""
-    res = seed_and_chain(
-        fm, ctg_offsets, ctg_is_alt, seq, l_seq,
-        min_seed_len=min_seed_len, split_len=split_len,
-        split_width=split_width, max_mem_intv=max_mem_intv, max_occ=max_occ,
-        w=w, max_chain_gap=max_chain_gap, mask_level=mask_level,
-        drop_ratio=drop_ratio, min_chain_weight=min_chain_weight,
-        max_chain_extend=max_chain_extend, seed_cap=seed_cap,
-        chain_cap=chain_cap, caps=caps)
+    mem_chain2aln, per-chain reference windows, and the seed tables.
+    `chain_kw`: seed_and_chain's keywords (its options and caps)."""
+    res = seed_and_chain(fm, ctg_offsets, ctg_is_alt, seq, l_seq, **chain_kw)
     wl = align_ext.build_worklist(res.seeds, res.chains, res.filtered)
     rmax0, rmax1 = align_ext.chain_rmax(
         res.seeds, res.chains, l_seq, fm, ctg_offsets,
-        a=a, o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins, w=w)
+        a=a, o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+        w=chain_kw["w"])
     overflow = (res.intervals.overflow | res.seeds.overflow
                 | res.chains.overflow)
     return WorklistResult(seeds=res.seeds, seed_chain=res.chains.seed_chain,

@@ -147,10 +147,12 @@ Three phases; any failure exits non-zero without printing a result.
      cap 128), whose extensions launch ext_pl2_kernel (its plain version
      must not run): its regions must equal the main path's before dedup
      (the device front, fallback rows through the host-compacted front)
-     on every read with no overflow flag (at most 1 % flagged) and no tied
-     chain weight (those are counted: their order follows ks_introsort on
-     the main path), and its first 64 reads its plain run on the CPU; its
-     widest ext_pl2_kernel call is held against plain too;
+     on every read with no overflow flag (at most 1 % flagged); reads
+     whose heavy chains tie in weight are extended again with the chains
+     kept and ordered as ks_introsort leaves them, as the main path does,
+     and those regions are required; its first 64 reads must equal its
+     plain run on the CPU; its widest ext_pl2_kernel call is held against
+     plain too;
    * 2 x 4096 pairs of 150 bp (insert 400 +- 40) through
      align_stream(pe=True), streamed the same way: the same device front,
      then insert-size inference, mate rescue and pair scoring on the
@@ -2033,9 +2035,10 @@ def front_regs(al, reads):
 def tied_rows(res, min_chain_weight):
     """Reads whose heavy chains hold two equal weights: there the
     single-program filter (ops/chain.filter_chains) orders the tied chains
-    stably, where the main path replays ks_introsort's order (the JAX
-    package's pipeline/chainflt_host.fix_tied_rows, the native replay), so
-    the order of their regions, and the kept set, may differ."""
+    stably, where the main path replays ks_introsort's order
+    (native/hostops.c on the device front, pipeline/chainflt_host.
+    fix_tied_rows on the host-compacted front), so the order of their
+    regions, and the kept set, may differ."""
     import torch
     w, n = res.weights, res.chains.n
     C = w.shape[1]
@@ -2045,15 +2048,72 @@ def tied_rows(res, min_chain_weight):
     return ((ws[:, 1:] == ws[:, :-1]) & (ws[:, 1:] >= 0)).any(dim=1)
 
 
+def replay_tied(al, seq, l_seq, res, rows, reg_cap):
+    """The single-program extension (ops/align_ext.extend_all) of reads
+    `rows` again, on the single-program's seeds and chains, with the
+    chains kept and ordered as mem_chain_flt keeps them: pipeline/
+    chainflt_host.chain_flt_exact (ks_introsort's permutation of equal
+    weights, and the kept set it leads to) in place of ops/chain.
+    filter_chains' stable order.  Returns (Regs of `rows`, the number of
+    those reads whose kept chain set differs from the stable filter's)."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch.ops import align_ext
+    from bwamem_tpu_torch.pipeline import seedchain
+    from bwamem_tpu_torch.pipeline.chainflt_host import chain_flt_exact
+    opt = al.opt
+    idx = torch.as_tensor(rows, dtype=torch.int64, device=seq.device)
+    seeds, chains, fl = (type(t)(*(x[idx] for x in t))
+                         for t in (res.seeds, res.chains, res.filtered))
+    ch = {f: getattr(chains, f).cpu().numpy()
+          for f in ("pos", "first_qbeg", "last_qbeg", "last_len", "is_alt",
+                    "n")}
+    w = res.weights[idx].cpu().numpy()
+    st_order, st_kept = fl.order.cpu().numpy(), fl.kept.cpu().numpy()
+    C = w.shape[1]
+    order = np.tile(np.arange(C, dtype=st_order.dtype), (len(rows), 1))
+    kept = np.zeros_like(st_kept)
+    kept_diff = 0
+    for k in range(len(rows)):
+        nc = int(ch["n"][k])
+        trav = sorted(range(nc), key=lambda c: (int(ch["pos"][k, c]), c))
+        ids = chain_flt_exact(
+            trav, w[k], ch["first_qbeg"][k],
+            ch["last_qbeg"][k] + ch["last_len"][k], ch["is_alt"][k],
+            mask_level=opt.mask_level, drop_ratio=opt.drop_ratio,
+            min_seed_len=opt.min_seed_len, max_chain_gap=opt.max_chain_gap,
+            min_chain_weight=opt.min_chain_weight,
+            max_chain_extend=opt.max_chain_extend)
+        order[k] = ids + [c for c in range(C) if c not in ids]
+        kept[k, :len(ids)] = 1
+        kept_diff += set(ids) != set(st_order[k][st_kept[k] > 0].tolist())
+    order_t = torch.from_numpy(order).to(fl.order.device)
+    fl = fl._replace(order=order_t, kept=torch.from_numpy(kept).to(fl.kept),
+                     w=torch.gather(res.weights[idx], 1,
+                                    order_t.to(torch.int64)).to(fl.w.dtype))
+    regs = align_ext.extend_all(
+        al.fm, al.ctg_offsets, al.ctg_is_alt, seq[idx], l_seq[idx], seeds,
+        chains, fl, **seedchain.extend_kw(opt), reg_cap=reg_cap)
+    return regs, kept_diff
+
+
+def reg_lists(regs):
+    """Per-read lists of the SC_REG_FIELDS tuples of a Regs."""
+    cols = {f: getattr(regs, f).cpu().numpy() for f in SC_REG_FIELDS}
+    return [[tuple(int(cols[f][i, j]) for f in SC_REG_FIELDS)
+             for j in range(n)] for i, n in enumerate(regs.n.cpu().numpy())]
+
+
 def phase_seedchain(al, cpu_al, se_run):
     """The single-program front half (pipeline/seedchain.align_regs:
     collect_intervals, expand_seeds, chaining, extend_all with kernel #1)
     on the card over batch 0 of the main path's 101 bp stream, held read by
     read against the main path's regions before dedup (the device front
-    and its fallback rows) on every read no overflow flag takes out and
-    whose heavy chains hold no tied weight (tied_rows: those are counted,
-    not required), and against its own plain run on the CPU for the first
-    reads.  Returns the kernel #1 hook (launches, widest call)."""
+    and its fallback rows) on every read no overflow flag takes out: as it
+    ran on reads whose heavy chains hold no tied weight, and rerun with
+    mem_chain_flt's tie order (replay_tied) on the others; and against its
+    own plain run on the CPU for the first reads.  Returns the kernel #1
+    hook (launches, widest call; ext_pl_kernel's launches in pl_launches)."""
     import numpy as np
     import torch
     from bwamem_tpu_torch.ops import ext_kernel
@@ -2065,7 +2125,8 @@ def phase_seedchain(al, cpu_al, se_run):
     t0 = time.perf_counter()
     main_regs, fb_rows, front = front_regs(al, reads)
     t_main = time.perf_counter() - t0
-    seq, l_seq = front["seq"], front["l_seq"]
+    seq = torch.from_numpy(front["seq"]).to(al.device)
+    l_seq = torch.from_numpy(front["l_seq"]).to(al.device)
 
     plain = []
     saved = {}
@@ -2079,11 +2140,21 @@ def phase_seedchain(al, cpu_al, se_run):
         with WidestCall("extend_batch_pl2", "launches", live=True) as pl2, \
                 WidestCall("extend_batch_pl", "launches_pl") as pl:
             res, regs = seedchain.align_regs(
-                al.fm, al.ctg_offsets, al.ctg_is_alt,
-                torch.from_numpy(seq).to(al.device),
-                torch.from_numpy(l_seq).to(al.device), al.opt, caps=caps)
+                al.fm, al.ctg_offsets, al.ctg_is_alt, seq, l_seq, al.opt,
+                caps=caps)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t1
+        flagged = (res.intervals.overflow | res.seeds.overflow
+                   | res.chains.overflow | regs.overflow)[:n].cpu().numpy()
+        tied = tied_rows(res, al.opt.min_chain_weight)[:n].cpu().numpy()
+        rows = np.flatnonzero(tied & ~flagged)
+        t2 = time.perf_counter()
+        with WidestCall("extend_batch_pl2", "launches") as rpl2, \
+                WidestCall("extend_batch_pl", "launches_pl") as rpl:
+            rep, kept_diff = replay_tied(al, seq, l_seq, res, rows,
+                                         regs.score.shape[1])
+            torch.cuda.synchronize()
+        t_rep = time.perf_counter() - t2
     finally:
         for name, fn in saved.items():
             setattr(ext_kernel, name, fn)
@@ -2092,7 +2163,9 @@ def phase_seedchain(al, cpu_al, se_run):
         f"ext_pl2_kernel launches {pl2.launches}, ext_pl_kernel launches "
         f"{pl.launches}, plain extensions reached {len(plain)}; the main "
         f"path's front for the same reads {t_main:.3f} s ({len(fb_rows)} "
-        f"fallback rows); on {torch.cuda.get_device_name(0)}")
+        f"fallback rows); the tied reads' replay {t_rep:.3f} s "
+        f"(ext_pl2_kernel launches {rpl2.launches}, ext_pl_kernel "
+        f"{rpl.launches}); on {torch.cuda.get_device_name(0)}")
     if plain:
         raise RuntimeError(f"seedchain: the plain extension ran on the card "
                            f"({sorted(set(plain))})")
@@ -2100,60 +2173,55 @@ def phase_seedchain(al, cpu_al, se_run):
         raise RuntimeError(f"seedchain: expected ext_pl2_kernel only, got "
                            f"{pl2.launches} and {pl.launches} launches")
 
-    flagged = (res.intervals.overflow | res.seeds.overflow
-               | res.chains.overflow | regs.overflow)[:n].cpu().numpy()
-    tied = tied_rows(res, al.opt.min_chain_weight)[:n].cpu().numpy()
-    got = {f: getattr(regs, f).cpu().numpy() for f in SC_REG_FIELDS}
-    rn = regs.n.cpu().numpy()
-    bad, tied_diff, tied_perm = [], 0, 0
-    for i in np.flatnonzero(~flagged):
-        mine = [tuple(int(got[f][i, j]) for f in SC_REG_FIELDS)
-                for j in range(rn[i])]
-        want = [tuple(int(getattr(r, f)) for f in SC_REG_FIELDS)
-                for r in main_regs[i]]
-        if mine == want:
-            continue
-        if not tied[i]:
-            bad.append(i)
-        else:
-            tied_diff += 1
-            tied_perm += sorted(mine) == sorted(want)
-    cmp = ~flagged & ~tied
-    log(f"seedchain: regions of {int(cmp.sum())} reads compared with the "
-        f"main path's before dedup ({int(rn[cmp].sum())} regions), "
-        f"{len(bad)} differ; {int(flagged.sum())} reads flagged by an "
-        f"overflow (intervals {int(res.intervals.overflow[:n].sum())}, "
+    rep_flag = rep.overflow.cpu().numpy()
+    flagged[rows[rep_flag]] = True
+    got = reg_lists(regs)
+    stable = {}
+    for i, r in zip(rows, reg_lists(rep)):
+        stable[i], got[i] = got[i], r
+    want = [[tuple(int(getattr(r, f)) for f in SC_REG_FIELDS) for r in rs]
+            for rs in main_regs]
+    cmp = np.flatnonzero(~flagged)
+    bad = [i for i in cmp if got[i] != want[i]]
+    tied_diff = [i for i in stable if not flagged[i] and stable[i] != want[i]]
+    tied_perm = sum(sorted(stable[i]) == sorted(want[i]) for i in tied_diff)
+    log(f"seedchain: regions of {cmp.size} reads compared with the main "
+        f"path's before dedup ({sum(len(got[i]) for i in cmp)} regions), "
+        f"{len(bad)} differ; {int(flagged.sum())} reads flagged "
+        f"by an overflow (intervals {int(res.intervals.overflow[:n].sum())}, "
         f"seeds {int(res.seeds.overflow[:n].sum())}, chains "
         f"{int(res.chains.overflow[:n].sum())}, regions "
-        f"{int(regs.overflow[:n].sum())}); {int((tied & ~flagged).sum())} "
-        f"with tied chain weights, {tied_diff} of them differ ({tied_perm} "
-        f"the same regions in another order)")
+        f"{int(regs.overflow[:n].sum())}, regions of the replay "
+        f"{int(rep_flag.sum())}); {len(rows)} reads with tied chain "
+        f"weights, compared as replayed with mem_chain_flt's tie order: "
+        f"the stable filter's regions differ from the main path's on "
+        f"{len(tied_diff)} of them ({tied_perm} the same regions in another "
+        f"order), its kept chain set from the replay's on {kept_diff}")
     if bad:
         i = bad[0]
         raise RuntimeError(
             f"seedchain: regions of {len(bad)} reads differ from the main "
-            f"path's (first {bad[:5]}): read {reads[i].name}\n"
-            f"{[tuple(int(got[f][i, j]) for f in SC_REG_FIELDS) for j in range(rn[i])]}\n"
-            f"{[tuple(int(getattr(r, f)) for f in SC_REG_FIELDS) for r in main_regs[i]]}")
+            f"path's (first {bad[:5]}, of them tied "
+            f"{[j for j in bad[:5] if j in stable]}): read {reads[i].name}"
+            f"\n{got[i]}\n{want[i]}")
     if flagged.sum() > SC_MAX_FLAGGED * n:
         raise RuntimeError(f"seedchain: {int(flagged.sum())} of {n} reads "
                            f"flagged by an overflow")
 
     k = SC_CPU_READS
-    t2 = time.perf_counter()
+    t3 = time.perf_counter()
     cres, cregs = seedchain.align_regs(
-        cpu_al.fm, cpu_al.ctg_offsets, cpu_al.ctg_is_alt,
-        torch.from_numpy(seq[:k]), torch.from_numpy(l_seq[:k]), cpu_al.opt,
-        caps=caps)
+        cpu_al.fm, cpu_al.ctg_offsets, cpu_al.ctg_is_alt, seq[:k].cpu(),
+        l_seq[:k].cpu(), cpu_al.opt, caps=caps)
     diff = [f for f in type(regs)._fields
             if not torch.equal(getattr(regs, f)[:k].cpu(), getattr(cregs, f))]
     log(f"seedchain: CPU run of the first {k} reads "
-        f"({time.perf_counter() - t2:.1f} s): "
+        f"({time.perf_counter() - t3:.1f} s): "
         + (f"fields {diff} differ" if diff else "every Regs field equal"))
     if diff:
         raise RuntimeError(f"seedchain: card and CPU differ on {diff}")
     log(f"seedchain: phase {time.perf_counter() - t0:.1f} s")
-    pl2.wall = wall
+    pl2.wall, pl2.pl_launches = wall, pl.launches
     return pl2
 
 
@@ -3314,7 +3382,7 @@ def main() -> int:
                                      x[1] for x in mh_launches],
                                  "mesh_se": mesh_launches["SE"][1],
                                  "mesh_pe": mesh_launches["PE"][1],
-                                 "seedchain": 0}
+                                 "seedchain": sc_pl2.pl_launches}
     kern1["max_abs_err"] = max(kern1["max_abs_err"], err_pl)
     phase_tools(sd.smoke_data(log)[0])
     phase_legacy(sd.smoke_data(log)[0], kernel_d)
