@@ -208,7 +208,9 @@ def cmd_mem(argv: list[str], device=None, mesh=None) -> int:
     BWAMEM_COORDINATOR / BWAMEM_NUM_PROCESSES / BWAMEM_PROCESS_ID it is one
     rank of a multi-process run (parallel/multihost): it aligns its share
     of the -K chunks into <out or bwamem_out.sam>.shard<rank>, and rank 0
-    merges the shards into the output after a barrier."""
+    merges the shards into the output after a barrier.  With
+    BWAMEM_TPU_TIMERS=1 a one-process run ends by writing timers.report()
+    (utils/timers) to stderr."""
     opt, touched, x, args = parse_mem_args(argv)
     if len(args) < 2 or len(args) > 3:
         sys.stderr.write(
@@ -303,6 +305,9 @@ def _mem(argv, opt, x, args, device, mesh, pid: int, nproc: int) -> int:
         sys.stderr.write(f"[M::mem] processed {n_processed} reads\n")
     if x["out"]:
         out.close()
+    if timers.enabled():
+        # BWAMEM_TPU_TIMERS=1: the stage, device and counter table
+        sys.stderr.write(timers.report() + "\n")
     return 0
 
 

@@ -216,6 +216,7 @@ class Aligner:
                     out[i] = sub_regs[gi]
         else:
             timers.count("front.fallback_rows", n)
+            timers.count("front.fallback.undispatched", n)
             out = self._regs_host_front(reads, seq=front["seq"],
                                         l_seq=front["l_seq"])
         if _prefetch is not None:
@@ -236,26 +237,27 @@ class Aligner:
         """Host-compacted front half (pipeline.seeding_host +
         pipeline.extend_host) — for the rows and batches the device front
         cannot take.  Returns per-read reg lists in mem_chain2aln emission
-        order (pre-dedup)."""
+        order (pre-dedup).  timers: front.host, the whole of it."""
         from bwamem_tpu_torch.pipeline import (chainflt_host, extend_host,
                                                seeding_host)
-        n = len(reads)
-        if seq is None:
-            N = pow2_bucket(n, lo=8)
-            L = _lbucket(max(r.l_seq for r in reads))
-            seq, l_seq = pack_batch(reads, N, L)
-        groups = seeding_host.front_half(self, reads, seq, l_seq)
-        out: list[list[fin.AlnReg]] = [[] for _ in range(n)]
-        for ridx, wr in groups:
-            g_reads = [reads[i] for i in ridx]
-            # long-read seed re-scoring (mem_flt_chained_seeds) — no-op for
-            # short reads, see the gate in chainflt_host
-            with timers.section("seed.flt_chained"):
-                chainflt_host.flt_chained_seeds(self, g_reads, wr)
-            g_regs = extend_host.extend_regions(self, g_reads, seq[ridx],
-                                                wr)
-            for gi, i in enumerate(ridx):
-                out[i] = g_regs[gi]
+        with timers.section("front.host"):
+            n = len(reads)
+            if seq is None:
+                N = pow2_bucket(n, lo=8)
+                L = _lbucket(max(r.l_seq for r in reads))
+                seq, l_seq = pack_batch(reads, N, L)
+            groups = seeding_host.front_half(self, reads, seq, l_seq)
+            out: list[list[fin.AlnReg]] = [[] for _ in range(n)]
+            for ridx, wr in groups:
+                g_reads = [reads[i] for i in ridx]
+                # long-read seed re-scoring (mem_flt_chained_seeds) — no-op
+                # for short reads, see the gate in chainflt_host
+                with timers.section("seed.flt_chained"):
+                    chainflt_host.flt_chained_seeds(self, g_reads, wr)
+                g_regs = extend_host.extend_regions(self, g_reads,
+                                                    seq[ridx], wr)
+                for gi, i in enumerate(ridx):
+                    out[i] = g_regs[gi]
         return out
 
     def _phaseA_batch(self, all_regs, reads, jobs):

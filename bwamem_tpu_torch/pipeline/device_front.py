@@ -527,7 +527,6 @@ def front_start(al, reads, seq: np.ndarray, l_seq: np.ndarray):
     dev = al.device
     seq_dev = torch.from_numpy(seq).to(dev)
     l_dev = torch.from_numpy(l_seq).to(dev)
-    timers.add_bytes("h2d.front_seq", seq.nbytes)
 
     # extension-window rows: hwm-sized (the device reports each batch's true
     # max span, m5[6]); the first batch uses the conservative chain-span
@@ -630,9 +629,14 @@ def front_finish(al, tok):
     counts it.  The reference package catches every RuntimeError there;
     this catches only these two, so a CUDA error or a failed kernel build
     or launch still propagates and the device is never bypassed
-    silently."""
+    silently.  timers counts the rows handed back by cause:
+    front.fallback.gated (long reads), .s_cap (seed count over the cap),
+    .demoted (the final walk), .abort (a mostly long-read batch),
+    .bailout and .timeout; with the batches the caller never dispatches
+    (.undispatched) they sum to front.fallback_rows."""
     n = tok["n"]
     if tok["abort"]:
+        timers.count("front.fallback.abort", n)
         return [[] for _ in range(n)], list(range(n))
     try:
         return _finish(al, tok)
@@ -642,12 +646,14 @@ def front_finish(al, tok):
               "timeout; re-running the batch on the host-compacted front",
               file=sys.stderr, flush=True)
         timers.count("front.fetch_timeouts")
+        timers.count("front.fallback.timeout", n)
         return [[] for _ in range(n)], list(range(n))
     except FrontBailout as e:
         print(f"[bwamem_tpu_torch] device front bailed for this batch: {e}; "
               "re-running on the host-compacted front", file=sys.stderr,
               flush=True)
         timers.count("front.bailouts")
+        timers.count("front.fallback.bailout", n)
         return [[] for _ in range(n)], list(range(n))
 
 
@@ -663,12 +669,13 @@ def _finish(al, tok):
     fallback = tok["fallback"]
     seq_dev, l_dev, Nkey = tok["seq_dev"], tok["l_dev"], tok["Nkey"]
     nsh = tok["nsh"]
+    n_gated = len(fallback)
     meta_all, out32, out_it, chain32, c_pos, scl = tok["arrs"]
     retries = 0
     changed = False         # a high-water mark rose: save the history
+    with timers.section("front.fetch"):
+        meta_st = _fetch(meta_all)              # [48, nsh]
     while True:
-        with timers.section("front.fetch"):
-            meta_st = _fetch(meta_all)          # [48, nsh]
         meta = meta_st.max(axis=1)
         for sl in _FLAG_SLOTS:
             meta[sl] = np.bitwise_or.reduce(meta_st[sl])
@@ -694,17 +701,19 @@ def _finish(al, tok):
                                f"{grow} sizes={sizes}")
         _grow_sizes(sizes, grow, m1, m2)
         timers.count("front.retries")
-        with timers.section("front.dispatch"):
-            (meta_all, out32, out_it, chain32, c_pos, scl,
-             tok["ext2ctx"]) = _dispatch(al, seq_dev, l_dev, sizes,
-                                         use_kmer, N, Lr)
+        # the rerun, from its dispatch to the meta fetch that waits for it
+        with timers.section("front.regrow"):
+            with timers.section("front.dispatch"):
+                *tok["arrs"], tok["ext2ctx"] = _dispatch(
+                    al, seq_dev, l_dev, sizes, use_kmer, N, Lr)
+            meta_all, out32, out_it, chain32, c_pos, scl = tok["arrs"]
+            with timers.section("front.fetch"):
+                meta_st = _fetch(meta_all)
 
+    _note_sizes(sizes, m1, m2, m3)
     with timers.section("front.fetch"):
         out32, out_it, chain32, c_pos, scl = fetchguard.fetch(
             [out32, out_it, chain32, c_pos, scl], what="front.arenas")
-    timers.add_bytes("d2h.front", out32.nbytes + out_it.nbytes
-                     + chain32.nbytes + c_pos.nbytes + scl.nbytes
-                     + meta.nbytes)
     changed |= _note_seeding_hwm(hist, Nkey, m1, m2, m3)
     changed |= _note_hwm(hist, Nkey, a_seed=m4[1], s_cap=m4[2], a_ch=m5[3],
                          a_it=m5[4], t_span=m5[6], a_sel=m6[0])
@@ -719,6 +728,7 @@ def _finish(al, tok):
                                           meta_st, N // nsh)
     for i in np.nonzero(seed_cnt[:n] > sizes["s_cap"])[0]:
         fallback.add(int(i))
+    n_scap = len(fallback) - n_gated
 
     # ---- two-round extension: prepass -> round-2 subset -> final walk ----
     has = None
@@ -734,7 +744,23 @@ def _finish(al, tok):
             has[needed] = 1
     regs_out = _replay(al, reads, I32, IIT, CH32, CHPOS, l_rep, n, fallback,
                        has_res=has)
+    timers.count("front.fallback.gated", n_gated)
+    timers.count("front.fallback.s_cap", n_scap)
+    timers.count("front.fallback.demoted", len(fallback) - n_gated - n_scap)
     return regs_out, sorted(fallback)
+
+
+def _note_sizes(sizes: dict, m1, m2, m3) -> None:
+    """The kept dispatch's arena sizes as gauges (front.size.<key>), and
+    its scan trips: front.trips.run those dispatched (t1s + t2s + t3s),
+    front.trips.used those its metas report the scans needed."""
+    if not timers.enabled():
+        return
+    for k, v in sizes.items():
+        timers.gauge("front.size." + k, int(v))
+    timers.count("front.trips.run", sizes["t1s"] + sizes["t2s"]
+                 + sizes["t3s"])
+    timers.count("front.trips.used", int(m1[6]) + int(m2[7]) + int(m3[4]))
 
 
 def _merge_shards(out32, out_it, chain32, c_pos, meta_st, Ns):
@@ -775,16 +801,15 @@ def _ext2_run(al, ctx, I32, IIT, needed, hist, Nkey):
     subit = np.zeros((3, a2), IIT.dtype)
     subit[:, :k] = IIT[:, needed]
     dev = al.device
-    with timers.section("front.ext2"):
+    with timers.device_section("front.ext2", dev):
         timers.count("dispatch.front", 1)
-        timers.add_bytes("h2d.front_ext2", sub32.nbytes + subit.nbytes)
         o32d, oitd, _ = _ext_body(
             al.fm, ctx["seq_dev"], ctx["l_dev"], ctx["seed_chain"],
             ctx["sv"], ctx["sq"], ctx["sl"], ctx["sr"],
             torch.from_numpy(sub32).to(dev), torch.from_numpy(subit).to(dev),
             k, sel_cap=0, c_cap=0, **ctx["s6"])
+    with timers.section("front.fetch"):
         o32, oit = fetchguard.fetch([o32d, oitd], what="front.ext2")
-        timers.add_bytes("d2h.front", o32.nbytes + oit.nbytes)
     I32[5:11, needed] = o32[5:11, :k]
     IIT[1:, needed] = oit[1:, :k]
 
@@ -813,19 +838,20 @@ def _programs(fm, ctg_offsets, ctg_is_alt, seq_dev, l_dev, *, s1, s2, s3,
               s4, s5, s6, sel_cap=0, c_cap=0):
     """Enqueue the six programs on one device (or one shard's rows);
     returns device tensors (no fetch) and the round-2 context."""
-    with timers.section("front.p1"):
+    dev = seq_dev.device
+    with timers.device_section("front.p1", dev):
         sec1, m1 = _p1_body(fm, seq_dev, l_dev, **s1)
-    with timers.section("front.p2"):
+    with timers.device_section("front.p2", dev):
         sec2, m2 = _p2_body(fm, seq_dev, l_dev, sec1, m1[0], **s2)
-    with timers.section("front.p3"):
+    with timers.device_section("front.p3", dev):
         sec3, m3 = _p3_body(fm, seq_dev, l_dev, **s3)
-    with timers.section("front.expand"):
+    with timers.device_section("front.expand", dev):
         seeds, seed_cnt, l_rep, m4 = _expand_body(
             fm, ctg_offsets, sec1, m1[0], sec2, m2[0], sec3, m3[0], **s4)
-    with timers.section("front.chain"):
+    with timers.device_section("front.chain", dev):
         seed_chain, items32, items_it, chain32, c_pos, m5 = _chain_body(
             fm, ctg_offsets, ctg_is_alt, seeds, l_dev, **s5)
-    with timers.section("front.ext"):
+    with timers.device_section("front.ext", dev):
         out32, out_it, m6 = _ext_body(
             fm, seq_dev, l_dev, seed_chain, seeds.valid, seeds.qbeg,
             seeds.len, seeds.rbeg, items32, items_it, m5[4],
@@ -864,12 +890,29 @@ def _dispatch(al, seq_dev, l_dev, sizes, use_kmer, N, Lr):
         run = pmesh.rowmap(al.mesh, _shard_programs, tuple(kw.items()),
                            (True, True, True, False, False),
                            out_mask=("ax1",) * 6)
-        return (*run(al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev),
-                None)
-    meta_all, out32, out_it, chain32, c_pos, scl, ctx = _programs(
-        al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev,
-        sel_cap=sizes.get("a_sel", 0), c_cap=sizes["s_cap"], **kw)
-    return meta_all[:, None], out32, out_it, chain32, c_pos[None, :], scl, ctx
+        out = (*run(al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev),
+               None)
+    else:
+        meta_all, out32, out_it, chain32, c_pos, scl, ctx = _programs(
+            al.fm, al.ctg_offsets, al.ctg_is_alt, seq_dev, l_dev,
+            sel_cap=sizes.get("a_sel", 0), c_cap=sizes["s_cap"], **kw)
+        out = (meta_all[:, None], out32, out_it, chain32, c_pos[None, :],
+               scl, ctx)
+    _note_device_bytes(al)
+    return out
+
+
+def _note_device_bytes(al) -> None:
+    """Gauge front.device_bytes: the bytes allocated on the front's CUDA
+    devices once a dispatch is enqueued (the caching allocator's count,
+    not its peak, which the caller's own statistics keep)."""
+    if not timers.enabled():
+        return
+    devs = {d for d in (al.mesh.devices if al.mesh is not None
+                        else (al.device,)) if d.type == "cuda"}
+    if devs:
+        timers.gauge("front.device_bytes",
+                     sum(torch.cuda.memory_allocated(d) for d in devs))
 
 
 def _replay(al, reads, I32, IIT, CH32, CHPOS, l_rep, n, fallback,

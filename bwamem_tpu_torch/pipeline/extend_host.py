@@ -255,7 +255,6 @@ class _ExtBatcher:
         out = {k: np.zeros(M, np.int32) for k in FIELDS}
         for idx, res in plan["parts"]:
             arr = _fetch(res, "extend")
-            timers.add_bytes("d2h.extend", arr.nbytes)
             for fi, k in enumerate(FIELDS):
                 out[k][idx] = arr[fi, : idx.size]
         return out
@@ -355,7 +354,6 @@ def _extend_both_fused(al, opt, mat, seq_dev, ii, s_qb, s_len, s_rb, rmax0,
     aw1 = np.full(M, opt.w, np.int32)
     for idx, res in parts:
         arr = _fetch(res, "extend_fused")
-        timers.add_bytes("d2h.extend", arr.nbytes)
         k = idx.size
         for fi, name in enumerate(FIELDS):
             L[name][idx] = arr[fi, :k]

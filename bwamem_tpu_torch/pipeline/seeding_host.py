@@ -498,7 +498,6 @@ def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
             rbeg = _fetch(pmesh.over(al.mesh, fmops.sa_lookup, {},
                                      (True, False))(
                 al.fm, torch.from_numpy(rk).to(dev)), "sa_walk")[:M]
-            timers.add_bytes("d2h.sa_walk", rbeg.nbytes)
             rbeg = rbeg.astype(np.int64)
     else:
         rbeg = np.zeros(0, np.int64)
@@ -588,9 +587,6 @@ def front_half(al, reads, seq: np.ndarray, l_seq: np.ndarray,
         else:
             flat, fitp, sc16, cnts = fetchguard.fetch(res,
                                                       what="chain_grid")
-        timers.add_bytes("d2h.chain_grid",
-                         flat.nbytes + fitp.nbytes + sc16.nbytes
-                         + cnts.nbytes)
         Gp, C = sc16.shape
         wl_n = (cnts >> 16).astype(np.int32)
         chain_n = ((cnts >> 1) & 0x7FFF).astype(np.int32)
@@ -771,7 +767,6 @@ def collect_intervals_host(al, seq_np: np.ndarray, l_seq: np.ndarray,
             w = sec.shape[1] // nsh
             parts.append(sec[:, sh * w: sh * w + int(meta_st[8 * k, sh])])
     allv = _fetch(torch.cat(parts, dim=1), "seed_collect")
-    timers.add_bytes("d2h.seed_collect", allv.nbytes + meta_st.nbytes)
     read_iv = allv[0].astype(np.int32)
     if nsh > 1:
         lens = [p.shape[1] for p in parts]
