@@ -1,20 +1,33 @@
 """Seed expansion, seed chaining and chain weights.
 
 Replaces the reference's per-read kbtree insertion chaining (mem_chain,
-bwamem.c:258-322) with a read-lockstep loop: every read processes one seed
-per step, and the per-read "closest chain" lookup becomes a masked
-reduction over a fixed-width chain table.  Containment, strand blocking,
-band/gap growth rules and weight = min(query, ref) coverage follow the
-reference exactly.
+bwamem.c:258-322).  On a CUDA tensor chain_seeds launches the hand-written
+kernel of csrc/chain_kernel.cu (a warp a read, over the read's own
+seeds); on a CPU tensor it runs chain_seeds_plain, the reference
+package's read-lockstep loop: every read processes one seed per step, and
+the per-read "closest chain" lookup becomes a masked reduction over a
+fixed-width chain table.  There is no fallback between the two (a failed
+build or launch raises).  Containment, strand blocking, band/gap growth
+rules and weight = min(query, ref) coverage follow the reference exactly.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from bwamem_tpu_torch.ops import fm as fmops
+from bwamem_tpu_torch.ops.launch import Library
 from bwamem_tpu_torch.ops.smem import Intervals
+
+_vp, _ci, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = Library("chain_kernel.cu", {
+    "chain_launch": [_vp] * 5 + [_cl] * 5 + [_vp, _ci] + [_vp] * 12
+                    + [_ci] * 4 + [_cl] * 3}, flags=["-Xptxas", "-v"])
+SRC = LIB.src
+
+launches = 0        # kernel launches by chain_seeds (CUDA tensors)
 
 
 class Seeds(NamedTuple):
@@ -106,13 +119,77 @@ def _imax(dtype) -> int:
 def chain_seeds(seeds: Seeds, ctg_is_alt: torch.Tensor, l_pac: int,
                 w: int, max_chain_gap: int, chain_cap: int) -> Chains:
     """Sequential-equivalent chaining (mem_chain + test_and_merge,
-    bwamem.c:197-307), lockstep over reads: S trips, one seed per read per
-    trip.
+    bwamem.c:197-307) of every read's valid seeds in slot order: for each
+    seed, find the chain with the largest pos <= rbeg (kb_intervalp's
+    lower; the later-created chain on ties), try to merge per
+    test_and_merge, else open a new chain keyed at rbeg while the read has
+    fewer than chain_cap (else its overflow flag).
 
-    For each seed in insertion order: find the chain with the largest
-    pos <= rbeg (kb_intervalp's lower), try to merge per test_and_merge,
-    else open a new chain keyed at rbeg.
-    """
+    The CUDA kernel on a CUDA tensor, chain_seeds_plain on a CPU one; the
+    two give the same Chains bit for bit."""
+    if not seeds.rbeg.is_cuda:
+        return chain_seeds_plain(seeds, ctg_is_alt, l_pac, w, max_chain_gap,
+                                 chain_cap)
+    return launch_chain(seeds, ctg_is_alt, l_pac, w, max_chain_gap,
+                        chain_cap)
+
+
+def _rows(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x as `dtype` with unit column stride (a row-strided view passes
+    as it is: the kernel takes each grid's row stride)."""
+    x = x.to(dtype)
+    return x if x.stride(1) == 1 else x.contiguous()
+
+
+def launch_chain(seeds: Seeds, ctg_is_alt: torch.Tensor, l_pac: int, w: int,
+                 max_chain_gap: int, chain_cap: int) -> Chains:
+    """chain_kernel on CUDA tensors (chain_seeds' launch): outputs
+    allocated here and written once by the kernel, no [N, C, 8] state."""
+    global launches
+    N, S = seeds.rbeg.shape
+    C = chain_cap
+    it = seeds.rbeg.dtype
+    if it not in (torch.int32, torch.int64):
+        raise ValueError(f"chain_seeds: rbeg of type {it}")
+    dev = seeds.rbeg.device
+    i32 = torch.int32
+    grids = [_rows(seeds.rbeg, it), _rows(seeds.qbeg, i32),
+             _rows(seeds.len, i32), _rows(seeds.rid, i32),
+             _rows(seeds.valid, torch.bool)]
+    alt_of = ctg_is_alt.to(dev, i32).contiguous()
+    index = seeds.rbeg.get_device()
+    for x in grids:
+        if x.shape != (N, S):
+            raise ValueError(f"chain_seeds: seed grid of shape "
+                             f"{tuple(x.shape)} for [{N}, {S}]")
+    if any(x.get_device() != index for x in (*grids, alt_of)):
+        raise ValueError("chain_seeds: tensors on different devices")
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    ch = Chains(pos=empty((N, C), it), rid=empty((N, C), i32),
+                is_alt=empty((N, C), torch.bool),
+                first_qbeg=empty((N, C), i32), first_rbeg=empty((N, C), it),
+                last_qbeg=empty((N, C), i32), last_rbeg=empty((N, C), it),
+                last_len=empty((N, C), i32), n_seeds=empty((N, C), i32),
+                n=empty((N,), i32), seed_chain=empty((N, S), i32),
+                overflow=empty((N,), torch.bool))
+    LIB.launch("chain_launch", index, (
+        *(x.data_ptr() for x in grids), *(x.stride(0) for x in grids),
+        alt_of.data_ptr(), int(alt_of.numel()),
+        *(x.data_ptr() for x in ch), int(N), int(S), int(C),
+        int(it == torch.int64), int(l_pac), int(w), int(max_chain_gap)),
+        "chain_kernel")
+    launches += 1
+    return ch
+
+
+def chain_seeds_plain(seeds: Seeds, ctg_is_alt: torch.Tensor, l_pac: int,
+                      w: int, max_chain_gap: int, chain_cap: int) -> Chains:
+    """The plain version of chain_seeds, lockstep over reads: S trips, one
+    seed per read per trip, the chain table one [N, C, 8] state that each
+    trip reduces with a one-hot mask and rewrites (the reference package's
+    chain_seeds, a lax.fori_loop of jnp)."""
     N, S = seeds.rbeg.shape
     C = chain_cap
     it = seeds.rbeg.dtype

@@ -8,9 +8,11 @@ chained device programs with ONE fetch of their results.
   EXPAND    occurrence sampling + SA walk + rid filter + l_rep union +
             scatter into per-read seed grids (mem_chain head,
             bwamem.c:272-307)
-  CHAIN     lockstep chaining + chain weights + reference windows
-            (mem_chain/mem_chain_weight, bwamem.c:197-332) + a compact
-            per-chain arena for the host's exact filter
+  CHAIN     chaining (mem_chain, bwamem.c:197-307: the CUDA kernel of
+            ops/chain on the card, a warp a read over its own seeds; the
+            lockstep loop on the CPU) + chain weights + reference windows
+            (mem_chain_weight, bwamem.c:220-332) + a compact per-chain
+            arena for the host's exact filter
   EXT       every seed of every heavy chain extended speculatively by the
             extension kernel (left + band-doubling retry + right,
             ksw_extend2 semantics; the CUDA kernel on the card, its plain
@@ -174,7 +176,7 @@ def _expand_body(fm, ctg_offsets, sec1, n1, sec2, n2, sec3, n3, *, max_occ,
 
 
 # ---------------------------------------------------------------------------
-# CHAIN: lockstep chaining + weights + windows + compact arenas
+# CHAIN: chaining + weights + windows + compact arenas
 # ---------------------------------------------------------------------------
 
 def _chain_body(fm, ctg_offsets, ctg_is_alt, seeds, l_seq, *, w,
@@ -184,8 +186,10 @@ def _chain_body(fm, ctg_offsets, ctg_is_alt, seeds, l_seq, *, w,
     dev = seeds.rbeg.device
     N, S = seeds.qbeg.shape
     C = chain_cap
+    k0 = chainops.launches
     ch = chainops.chain_seeds(seeds, ctg_is_alt, fm.l_pac, w=w,
                               max_chain_gap=max_chain_gap, chain_cap=C)
+    timers.count("front.chain.launches", chainops.launches - k0)
     wt = chainops.chain_weights(seeds, ch)
     rmax0, rmax1 = align_ext.chain_rmax(
         seeds, ch, l_seq, fm, ctg_offsets,
@@ -724,6 +728,7 @@ def _finish(al, tok):
 
     seed_cnt = scl[0].astype(np.int64)
     l_rep = scl[1]
+    _note_chain(seed_cnt, N, sizes["s_cap"])
     I32, IIT, CH32, CHPOS = _merge_shards(out32, out_it, chain32, c_pos,
                                           meta_st, N // nsh)
     for i in np.nonzero(seed_cnt[:n] > sizes["s_cap"])[0]:
@@ -761,6 +766,18 @@ def _note_sizes(sizes: dict, m1, m2, m3) -> None:
     timers.count("front.trips.run", sizes["t1s"] + sizes["t2s"]
                  + sizes["t3s"])
     timers.count("front.trips.used", int(m1[6]) + int(m2[7]) + int(m3[4]))
+
+
+def _note_chain(seed_cnt, N: int, s_cap: int) -> None:
+    """The kept dispatch's CHAIN work: front.chain.seeds the valid seeds
+    its grids held (each row's count up to the seed cap), front.chain.slots
+    the N x s_cap slots of those grids, which the lockstep loop walks
+    whatever they hold."""
+    if not timers.enabled():
+        return
+    timers.count("front.chain.seeds",
+                 int(np.minimum(seed_cnt, s_cap).sum()))
+    timers.count("front.chain.slots", N * s_cap)
 
 
 def _merge_shards(out32, out_it, chain32, c_pos, meta_st, Ns):

@@ -2,13 +2,18 @@
 """Smoke run of bwamem_tpu_torch on one NVIDIA GPU (an H100 is the target).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only chain [--cell chr1.pe150 --seed N]
 
 Three phases; any failure exits non-zero without printing a result.
+`--only chain` runs the chain kernel's phase alone (below, after the 101
+bp path), its main-path input from the 5 Mbp smoke genome or, with
+`--cell`, from three batches of a benchmark cell (portbench: the cell's
+genome and index, built into portbench/.cache at a checkout's first use).
 
 1. Environment: the card's name and power limit, then the build of every
    native source the paths below need (the CUDA extension kernels — one
-   source holds both —, the FM probe kernels and the four gather-probe
-   kernels with nvcc for sm_90a, the host kernels and the suffix-array code
+   source holds both —, the FM probe kernels, the four gather-probe
+   kernels and the chain kernel with nvcc for sm_90a, the host kernels and the suffix-array code
    with cc), all compilers started together; then the registers, spills
    and shared memory that ptxas reported for each instantiation of the
    extension kernels (G = 8, 16, 32; shared or global storage).  Then
@@ -142,6 +147,16 @@ Three phases; any failure exits non-zero without printing a result.
      enqueues a batch's front during the tail of the batch before, so the
      stream carries batch 0 a second time behind batch 1 (its SAM is
      dropped) and the rate of batch 1, in mid-stream, is the one printed;
+   * the chain kernel (phase_chain: chain_kernel of
+     csrc/chain_kernel.cu, ops/chain.chain_seeds on CUDA tensors) against
+     the plain lockstep loop, every Chains field exact: on
+     tools/torch_chain_cases's crafted grids at both index types (held to
+     the sequential mem_chain too), on a heavy-tailed random grid of
+     65,536 rows at S = C = 1024 (int32) and of 8192 rows (int64), and
+     on the widest CHAIN call of the 101 bp path streamed again (its real
+     EXPAND output; its launch count must rise); each timed grid prints
+     the kernel's device time, its bound by bytes, the plain loop's time
+     and the kernel on its heaviest row alone;
    * the single-program front half (phase_seedchain): batch 0's 8192 reads
      through pipeline/seedchain.align_regs on the card (pass-1 candidate
      cap 128), whose extensions launch ext_pl2_kernel (its plain version
@@ -239,7 +254,7 @@ Three phases; any failure exits non-zero without printing a result.
    run whole on the card and on the CPU give identical SAM bytes.
 
 The line before the last is {"kernels": [...]}, one entry for each of the
-eighteen kernels; the last line is
+nineteen kernels; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA device and no network.
 """
 from __future__ import annotations
@@ -323,6 +338,10 @@ MH_DEADLINE = 300
 SC_READS, SC_CPU_READS, SC_MAX_FLAGGED, SC_CAND1 = 8192, 64, 0.01, 128
 SC_REG_FIELDS = ("rb", "re", "qb", "qe", "rid", "score", "truesc", "w",
                  "seedcov", "seedlen0")
+# the chain kernel's random grid (phase_chain): the rows and the grown
+# seed cap of a chr1.pe150 batch, rounds of its timing, and chr1's l_pac
+CHAIN_N, CHAIN_S, CHAIN_ROUNDS = 65536, 1024, 5
+CHAIN_L_PAC = 248_956_422
 
 
 def log(msg: str) -> None:
@@ -361,8 +380,8 @@ def phase_env():
 
     from bwamem_tpu_torch import native
     from bwamem_tpu_torch.index import native as sais
-    from bwamem_tpu_torch.ops import (dispatch_probe, ext_kernel, fm_probe,
-                                      gather_probe, gather_probe2,
+    from bwamem_tpu_torch.ops import (chain, dispatch_probe, ext_kernel,
+                                      fm_probe, gather_probe, gather_probe2,
                                       gather_probe3, int_rate, pl_probe)
     import torch_dg_variants
     import torch_fm_mm_variants
@@ -393,6 +412,7 @@ def phase_env():
         ("dispatch_probe_kernel.cu (nvcc sm_90a)", dispatch_probe.LIB.load),
         ("pl_probe_kernel.cu, five variants (nvcc sm_90a)", pl_probe.LIB.load),
         ("int_rate_kernel.cu, five mixes (nvcc sm_90a)", int_rate.LIB.load),
+        ("chain_kernel.cu (nvcc sm_90a)", chain.LIB.load),
         ("tools/dg_variants.cu, the 5d and 7A designs weighed (nvcc "
          "sm_90a)", torch_dg_variants.library),
         ("tools/fm_mm_variants.cu, the #3 and 7D designs weighed (nvcc "
@@ -2225,6 +2245,183 @@ def phase_seedchain(al, cpu_al, se_run):
     return pl2
 
 
+class ChainCalls:
+    """Wraps ops/chain.chain_seeds for a main-path run: the launch count
+    starts at 0, every call is counted, and a copy of the arguments of
+    the call with the most seed slots (N x S) is kept, so the kernel can
+    be held against the plain loop on a batch's real EXPAND output."""
+
+    def __init__(self):
+        from bwamem_tpu_torch.ops import chain as chainops
+        self.mod, self.wrapper = chainops, chainops.chain_seeds
+        self.calls, self.slots, self.args = 0, -1, None
+
+    def __call__(self, seeds, *args, **kw):
+        import inspect
+        self.calls += 1
+        if seeds.rbeg.numel() >= self.slots:
+            a = inspect.signature(self.wrapper).bind(seeds, *args,
+                                                     **kw).arguments
+            self.slots = seeds.rbeg.numel()
+            self.args = (type(seeds)(*(x.clone() for x in seeds)),
+                         a["ctg_is_alt"].clone(), a["l_pac"], a["w"],
+                         a["max_chain_gap"], a["chain_cap"])
+        return self.wrapper(seeds, *args, **kw)
+
+    def __enter__(self):
+        self.mod.chain_seeds = self
+        self.mod.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.chain_seeds = self.wrapper
+        self.launches = self.mod.launches
+
+
+def chain_bytes(seeds, C):
+    """Bytes chain_kernel must move: the valid grid and the valid seeds'
+    four fields read once, the [N, C] chain fields (three of the index
+    type, five int32, one byte), n, overflow and the [N, S] seed_chain
+    written once."""
+    it = seeds.rbeg.element_size()
+    N, S = seeds.rbeg.shape
+    nv = int(seeds.valid.sum())
+    return N * S + nv * (it + 12) + N * C * (3 * it + 21) + N * 5 + N * S * 4
+
+
+def hold_chain(label, seeds, alt_of, l_pac, w, gap, C, timed=True):
+    """chain_kernel against the plain lockstep loop on one input, every
+    Chains field exact; with `timed`, the kernel's device time (medians of
+    CHAIN_ROUNDS rounds between events), its bound by bytes, the plain
+    loop's time (one run between events) and the kernel alone on the row
+    with the most seeds (the serial walk's floor).  Returns the line's
+    numbers."""
+    import torch
+    from bwamem_tpu_torch.ops import chain as chainops
+    args = (alt_of, l_pac, w, gap, C)
+    n0 = chainops.launches
+    got = chainops.chain_seeds(seeds, *args)
+    torch.cuda.synchronize()
+    if chainops.launches != n0 + 1:
+        raise RuntimeError(f"chain {label}: the kernel did not launch")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    want = chainops.chain_seeds_plain(seeds, *args)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    bad = [f for f in want._fields
+           if not torch.equal(getattr(want, f), getattr(got, f))]
+    per_row = seeds.valid.sum(dim=1)
+    out = dict(label=label, N=seeds.rbeg.shape[0], S=seeds.rbeg.shape[1],
+               C=C, itype=str(seeds.rbeg.dtype).split(".")[-1],
+               seeds=int(per_row.sum()), most_seeds=int(per_row.max()),
+               most_chains=int(want.n.max()),
+               overflow_rows=int(want.overflow.sum()), plain_ms=plain_ms)
+    if bad:
+        raise RuntimeError(f"chain {label}: fields {bad} differ from the "
+                           f"plain loop")
+    if timed:
+        out["ms"] = median_ms(lambda: chainops.chain_seeds(seeds, *args),
+                              reps=CHAIN_ROUNDS)
+        out["bound_ms"] = chain_bytes(seeds, C) / PEAK_BYTES * 1e3
+        r = int(per_row.argmax())
+        one = type(seeds)(*(x[r:r + 1] for x in seeds))
+        out["heaviest_row_ms"] = median_ms(
+            lambda: chainops.chain_seeds(one, *args), reps=CHAIN_ROUNDS)
+        if out["ms"] < out["bound_ms"]:
+            raise RuntimeError(f"chain {label}: {out['ms']} ms under its "
+                               f"bound {out['bound_ms']} ms")
+    log(f"chain {label}: every field equal to the plain loop; "
+        + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in out.items() if k != "label"))
+    return out
+
+
+def phase_chain(main=None):
+    """Kernel chain_kernel (csrc/chain_kernel.cu, ops/chain.chain_seeds on
+    CUDA tensors) against the plain lockstep loop on the card, exact on
+    every Chains field: its ptxas line; tools/torch_chain_cases's crafted
+    grids at both index types (also held to the sequential mem_chain);
+    a heavy-tailed random grid at N = CHAIN_N, S = C = CHAIN_S (int32,
+    the benchmark's index type) and one of 8192 rows at int64; and, with
+    `main` = (aligner, batches, paired, label), the widest CHAIN call of
+    the main path streaming those batches (its real EXPAND output), whose
+    launch count must have risen.  Each timed input prints the kernel's
+    device time, its bound by bytes and the plain loop's time.  Returns
+    the kernel's entry of the kernels line."""
+    import numpy as np
+    import torch
+    from bwamem_tpu_torch._build import BUILD_DIR
+    from bwamem_tpu_torch.ops import chain as chainops
+    import torch_chain_cases as cc
+    t0 = time.perf_counter()
+    chainops.LIB.load()
+    log(f"build chain_kernel.cu (nvcc sm_90a): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in open(os.path.join(BUILD_DIR, chainops.LIB.so_name
+                                  + ".log")):
+        if re.search(r"registers|spill|Compiling entry", line):
+            log("ptxas " + line.strip())
+            if re.search(r"[1-9]\d* bytes spill", line):
+                raise RuntimeError("chain_kernel spills: " + line.strip())
+    dev = torch.device("cuda")
+
+    def on_card(grids):
+        N = grids[0].shape[0]
+        return chainops.Seeds(
+            *(torch.from_numpy(np.ascontiguousarray(g)).to(dev)
+              for g in grids), frac_rep=torch.zeros(N, device=dev),
+            overflow=torch.zeros(N, dtype=torch.bool, device=dev))
+
+    chainops.launches = 0
+    for name in cc.CASES:
+        for itype in cc.ITYPES:
+            grids, alt_of, p, want = cc.case(name, itype)
+            got = chainops.chain_seeds(
+                on_card(grids), torch.from_numpy(alt_of).to(dev),
+                p["l_pac"], p["w"], p["gap"], p["C"])
+            bad = [f for f in cc.FIELDS if not np.array_equal(
+                getattr(got, f).cpu().numpy(), want[f])]
+            if bad:
+                raise RuntimeError(f"chain case {name} {itype}: fields "
+                                   f"{bad} differ from the sequential "
+                                   f"mem_chain")
+            hold_chain(f"case {name} {itype}", on_card(grids),
+                       torch.from_numpy(alt_of).to(dev), p["l_pac"], p["w"],
+                       p["gap"], p["C"], timed=False)
+    log(f"chain: {len(cc.CASES)} crafted cases at both index types equal "
+        f"the sequential mem_chain and the plain loop "
+        f"({chainops.launches} launches)")
+
+    lines = []
+    for N, itype, seed in ((CHAIN_N, np.int32, 1), (8192, np.int64, 2)):
+        l_pac = CHAIN_L_PAC if itype == np.int32 else CHAIN_L_PAC << 3
+        grids, alt_of = cc.heavy_grid(N, CHAIN_S, seed=seed, itype=itype,
+                                      l_pac=l_pac)
+        lines.append(hold_chain(
+            f"heavy-tailed grid {N} x {CHAIN_S} {itype.__name__}",
+            on_card(grids), torch.from_numpy(alt_of).to(dev), l_pac, 100,
+            10_000, CHAIN_S))
+        del grids
+    if main is not None:
+        al, batches, paired, label = main
+        from bwamem_tpu_torch.pipeline.align import align_stream
+        with ChainCalls() as cc_hook:
+            for _ in align_stream(al, batches, pe=paired):
+                pass
+            torch.cuda.synchronize()
+        if cc_hook.calls == 0 or cc_hook.launches < cc_hook.calls:
+            raise RuntimeError(f"chain {label}: {cc_hook.calls} calls, "
+                               f"{cc_hook.launches} kernel launches")
+        log(f"chain {label}: {cc_hook.calls} CHAIN calls, "
+            f"{cc_hook.launches} kernel launches; holding the widest")
+        lines.append(hold_chain(f"{label} EXPAND output", *cc_hook.args))
+    log(f"chain: phase {time.perf_counter() - t0:.1f} s")
+    return dict(kernel="chain_kernel", lines=lines)
+
+
 def phase_front_forced(al, se, pe):
     """The device front's grow-and-retry loop and its bail-out on the card:
     the batches run whole on the CPU by phase_main (`se`: reads, SAM) and
@@ -3286,7 +3483,41 @@ def phase_bwasw(prefix):
         f"bytes); phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def cell_main(cell: str, seed: int, n_batches: int = 3):
+    """phase_chain's main-path input from a benchmark cell (portbench):
+    the cell's configuration, its genome and index from portbench/.cache
+    (built there by the first run in a checkout), an Aligner with its
+    options, and n_batches of its batches from `seed`."""
+    from bwamem_tpu_torch.index import load_index
+    from bwamem_tpu_torch.pipeline.align import Aligner
+    from portbench import harness
+    from portbench.gen import reads as gen_reads
+    spec = harness.cell_spec(REPO, cell)
+    cdir = harness.cache_dir(spec)
+    t0 = time.perf_counter()
+    g, prefix, built = harness.genome_and_index(spec, cdir)
+    log(f"{cell}: genome and index {'built' if built else 'loaded'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paired = bool(spec["traffic"]["paired"])
+    al = Aligner(load_index(prefix), harness.options(spec["config"], paired),
+                 device="cuda")
+    n_b = gen_reads.batch_reads(spec["traffic"])
+    batches = [harness.to_reads(gen_reads.make_batch(
+        g, spec["traffic"], seed, 1 + k, n_b, k * n_b), paired)
+        for k in range(n_batches)]
+    return al, batches, paired, f"{cell} seed {seed}"
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("chain",),
+                    help="run phase_chain alone (after the card's name)")
+    ap.add_argument("--cell", help="with --only chain: the main-path input "
+                    "from this benchmark cell (portbench) in place of the "
+                    "5 Mbp smoke genome's 101 bp reads")
+    ap.add_argument("--seed", type=int, default=1)
+    opts = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -3303,6 +3534,30 @@ def main() -> int:
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tools"))
     t0 = time.perf_counter()
+    if opts.only == "chain":
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60).stdout.strip())
+        if opts.cell:
+            main_in = cell_main(opts.cell, opts.seed)
+        else:
+            from bwamem_tpu_torch.index import load_index
+            from bwamem_tpu_torch.io.fastq import read_fastx
+            from bwamem_tpu_torch.pipeline.align import Aligner
+            import se_smoke_data as sd
+            prefix, fq = sd.smoke_data(log)
+            reads = list(read_fastx(fq))
+            main_in = (Aligner(load_index(prefix), device="cuda"),
+                       [reads[k * sd.BATCH:(k + 1) * sd.BATCH]
+                        for k in range(sd.N_BATCHES)], False,
+                       "101 bp main path")
+        kern = phase_chain(main_in)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"kernels": [kern]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     phase_env()
     phase_launch_path()
     err_pl2, err_pl = phase_kernel()
@@ -3321,6 +3576,7 @@ def main() -> int:
     idx = load_index(sd.smoke_data(log)[0])
     cpu_al = Aligner(idx, device="cpu")
     al, main_pl2, main_pl, se_check, se_run = phase_main(idx, cpu_al)
+    kern_chain = phase_chain((al, se_run[0], False, "101 bp main path"))
     sc_pl2 = phase_seedchain(al, cpu_al, se_run)
     pe_pl2, pe_pl, pe_check, pe_run = phase_pe(al, cpu_al)
     phase_front_forced(al, se_check, pe_check)
@@ -3389,7 +3645,8 @@ def main() -> int:
     phase_bwasw(sd.smoke_data(log)[0])
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [kern2, kern1, *kerns3, *kerns_gp,
-                                  *kerns_gp2, *kerns_gp3, *kerns_dp_pl]}))
+                                  *kerns_gp2, *kerns_gp3, *kerns_dp_pl,
+                                  kern_chain]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

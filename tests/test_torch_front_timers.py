@@ -1,5 +1,6 @@
 """The device front's own timers in bwamem_tpu_torch, on the CPU: its scan
-trips and arena sizes against the token it dispatched, the rerun span of a
+trips, arena sizes and CHAIN counters against the token it dispatched and
+the seed grids CHAIN was given, the rerun span of a
 forced regrowth, the fallback causes against front.fallback_rows, the
 spans portbench's Recorder sees, and `mem`'s report on stderr.  Only the
 port runs: 96 reads of 101 bp on a 50 kbp simdata genome."""
@@ -7,6 +8,7 @@ import pytest
 
 from bwamem_tpu_torch import cli
 from bwamem_tpu_torch.io.fastq import Read, read_fastx
+from bwamem_tpu_torch.ops import chain as chainops
 from bwamem_tpu_torch.pipeline import device_front
 from bwamem_tpu_torch.pipeline.align import Aligner
 from bwamem_tpu_torch.utils import timers
@@ -53,8 +55,15 @@ def _aligner(data, **opts):
 
 
 @pytest.mark.parametrize("how", ["default", "small"])
-def test_trips_and_sizes_of_the_kept_dispatch(data, on, how):
+def test_trips_and_sizes_of_the_kept_dispatch(data, on, monkeypatch, how):
     from torch_front_force import forced_front
+    grids = []
+    chain_seeds = chainops.chain_seeds
+
+    def seen(seeds, *a, **k):
+        grids.append((int(seeds.valid.sum()), seeds.valid.numel()))
+        return chain_seeds(seeds, *a, **k)
+    monkeypatch.setattr(chainops, "chain_seeds", seen)
     al = _aligner(data)
     if how == "small":
         with forced_front("small"):
@@ -73,6 +82,13 @@ def test_trips_and_sizes_of_the_kept_dispatch(data, on, how):
     assert 0 < snap["front.trips.used.count"] <= snap["front.trips.run.count"]
     for k, v in sizes.items():
         assert snap["front.size." + k + ".gauge"] == (v, v)
+    # CHAIN's work in the kept dispatch: its grids' valid seeds against
+    # their slots; no kernel on the CPU
+    assert len(grids) >= 1
+    assert (snap["front.chain.seeds.count"],
+            snap["front.chain.slots.count"]) == grids[-1]
+    assert 0 < grids[-1][0] < grids[-1][1]
+    assert snap["front.chain.launches.count"] == 0
     retries = snap.get("front.retries.count", 0)
     if how == "small":
         assert retries >= 1
@@ -154,7 +170,9 @@ def test_mem_prints_the_report(data, on):
     assert rc == 0 and out.count("\n") > 96
     rows = {ln.split()[0] for ln in err.splitlines() if ln.strip()}
     for name in PROGRAMS + ("front.trips.run", "front.trips.used",
-                            "front.size.t1s", "front.fallback_rows"):
+                            "front.size.t1s", "front.fallback_rows",
+                            "front.chain.seeds", "front.chain.slots",
+                            "front.chain.launches"):
         assert name in rows, name
     # the byte counters of the old transport are gone
     assert not any(r.startswith(("d2h.", "h2d.")) for r in rows)

@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from bwamem_tpu_torch.ops import (dispatch_probe, ext_kernel, fm_probe,
-                                  gather_probe, gather_probe2, gather_probe3,
-                                  launch, pl_probe)
+from bwamem_tpu_torch.ops import (chain, dispatch_probe, ext_kernel,
+                                  fm_probe, gather_probe, gather_probe2,
+                                  gather_probe3, launch, pl_probe)
 
 PKG = Path(__file__).resolve().parent.parent / "bwamem_tpu_torch"
 HANDLE = 0x5EED00           # the fake raw stream of device index i: + i
@@ -75,6 +75,13 @@ def _cases():
     k0 = _i32(rng.integers(0, 4 * 128, 128))
     q, qlen, t, tlen, h0, eb, kw = _ext_args()
     gp, gp2, gp3 = gather_probe, gather_probe2, gather_probe3
+    seeds = chain.Seeds(
+        rbeg=torch.from_numpy(rng.integers(0, 1 << 20, (4, 8))).as_subclass(
+            OnCard),
+        qbeg=_i32(rng.integers(0, 100, (4, 8))),
+        len=_i32(rng.integers(10, 30, (4, 8))), rid=_i32(np.zeros((4, 8))),
+        valid=torch.ones((4, 8), dtype=torch.bool).as_subclass(OnCard),
+        frac_rep=torch.zeros(4), overflow=torch.zeros(4, dtype=torch.bool))
     return [
         ("extend_batch_pl2", ext_kernel, "ext_pl2_launch", "launches",
          lambda: ext_kernel.extend_batch_pl2(q, qlen, t, tlen, h0, eb,
@@ -114,6 +121,9 @@ def _cases():
          lambda: dispatch_probe.dp_eh(qT, tT)),
         ("plp_row", pl_probe, "plp_row", "launches",
          lambda: pl_probe.plp_row(qT, tT, "full", 12)),
+        ("chain_seeds", chain, "chain_launch", "launches",
+         lambda: chain.chain_seeds(seeds, _i32([0, 1]), 1 << 21, 100,
+                                   10_000, 8)),
     ]
 
 
